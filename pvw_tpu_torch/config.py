@@ -1,0 +1,118 @@
+"""Runtime knobs of the port: the subset of ``pvw_tpu.config`` this slice
+reads, under the same environment variables.
+
+===================  ====================  ==================================
+Attribute            Env var               Meaning (default)
+===================  ====================  ==================================
+noise_stream         PVW_TPU_NOISE         Encryption-noise stream:
+                                           ``"kernel"``/``"v4"`` and ``"v3"``
+                                           draw v3 threefry noise planes (v4
+                                           is the TPU's hardware PRNG and
+                                           exists on no other device, so the
+                                           port routes it as the JAX package
+                                           does off the TPU); ``"v3k"`` draws
+                                           the global-counter v3k planes and
+                                           the cbd-k r stream ("kernel").
+noise_value_mac      PVW_TPU_NOISE_VALS    Let the fused kernel compose the
+                                           noise digit planes into int32
+                                           values when the int32 column
+                                           headroom allows (True).
+decode_mode          PVW_TPU_DECODE        ``"auto"``/``"python"``: the exact
+                                           Python decode. ``"device"``,
+                                           ``"host"`` and ``"native"`` are
+                                           not ported yet ("auto").
+===================  ====================  ==================================
+
+Precedence per knob: programmatic assignment > environment variable >
+default. Booleans: ``0``, ``false``, ``off``, ``no`` are falsy.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+from typing import Callable, Optional
+
+_UNSET = object()
+_FALSY = frozenset({"0", "false", "off", "no"})
+_UNPORTED_DECODE = ("device", "host", "native")
+
+
+def _parse_bool(raw: str) -> bool:
+    return raw.strip().lower() not in _FALSY
+
+
+class _Knob:
+    """One setting: programmatic override > env var > default."""
+
+    def __init__(self, env: str, default, parse: Callable = str) -> None:
+        self.env = env
+        self.default = default
+        self.parse = parse
+
+    def __set_name__(self, owner, name: str) -> None:
+        self.name = name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return self
+        override = obj._overrides.get(self.name, _UNSET)
+        if override is not _UNSET:
+            return override
+        raw = os.environ.get(self.env)
+        if raw is None or raw == "":
+            return self.default
+        return self.parse(raw)
+
+    def __set__(self, obj, value) -> None:
+        obj._overrides[self.name] = value
+
+    def __delete__(self, obj) -> None:
+        obj._overrides.pop(self.name, None)
+
+
+class Settings:
+    """See the module docstring for the knob table."""
+
+    noise_stream: str = _Knob("PVW_TPU_NOISE", "kernel")
+    noise_value_mac: bool = _Knob("PVW_TPU_NOISE_VALS", True, _parse_bool)
+    decode_mode: str = _Knob("PVW_TPU_DECODE", "auto")
+
+    def __init__(self) -> None:
+        self._overrides: dict = {}
+
+    def kernel_noise_stream(self) -> Optional[str]:
+        """``"v3k"`` for the global-counter stream, else None (v3 planes).
+        ``"kernel"``/``"v4"`` name the TPU hardware PRNG, which only a TPU
+        has: like the JAX package off the TPU, they draw v3 planes. Unknown
+        values warn and take the default."""
+        s = str(self.noise_stream).strip().lower()
+        if s == "v3k":
+            return "v3k"
+        if s not in ("kernel", "v4", "v3"):
+            warnings.warn(
+                f"PVW_TPU_NOISE={self.noise_stream!r} is not a recognized "
+                "stream (kernel/v4/v3k/v3); using the default 'kernel'",
+                stacklevel=2,
+            )
+        return None
+
+    def resolved_decode_mode(self) -> str:
+        """``"python"``; raises NotImplementedError for the decode engines
+        this port does not have yet."""
+        mode = str(self.decode_mode).strip().lower()
+        if mode in ("auto", "python"):
+            return "python"
+        if mode in _UNPORTED_DECODE:
+            raise NotImplementedError(
+                f"PVW_TPU_DECODE={self.decode_mode!r}: the {mode} decode "
+                "engine is not ported to pvw_tpu_torch yet; use 'auto' or "
+                "'python'"
+            )
+        raise ValueError(
+            f"PVW_TPU_DECODE={self.decode_mode!r} is not a decode mode "
+            "(auto/python)"
+        )
+
+
+settings = Settings()

@@ -1,0 +1,17 @@
+from .decryption import decode_scalar_pvw_rns, decrypt_party_shares, decrypt_party_value
+from .encryption import (
+    PvwCiphertext,
+    encrypt,
+    encrypt_all_party_shares,
+    encrypt_all_party_shares_batched,
+    encrypt_batch,
+    encrypt_broadcast,
+    encrypt_party_shares,
+)
+
+__all__ = [
+    "PvwCiphertext", "decode_scalar_pvw_rns", "decrypt_party_shares",
+    "decrypt_party_value", "encrypt", "encrypt_all_party_shares",
+    "encrypt_all_party_shares_batched", "encrypt_batch", "encrypt_broadcast",
+    "encrypt_party_shares",
+]

@@ -1,0 +1,270 @@
+"""The fused scaled-digit modular matmul: Hopper kernel and plain twin.
+
+The counterpart of ``pvw_tpu.ops.pallas_modmat.matmul_fold_scaled``. For
+each channel (limb, NTT slot) it contracts the lhs digit planes against the
+scaled-digit band of the rhs, adds the NTT of the noise digit planes into
+the same nd columns, folds the columns to residues and adds the gadget
+encode of a u64 scalar tile:
+
+    out[L, S, m, n] = lhs·rhs + NTT(noise) + encode(sc)·g   (mod q)
+
+It carries keygen (b = sᵀA + e1), c1 = A·r + e1 and c2 = B·r + e2 +
+encode(m). :func:`matmul_fold_scaled` runs the CUDA kernel
+(``csrc/fused_scaled_noise_matmul.cu``) for CUDA tensors and the plain
+twin :func:`matmul_fold_scaled_plain` for CPU tensors; it raises for
+anything else. The twin repeats the JAX package's XLA route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from . import u64 as u
+from ._build import load
+from .modmat import _fold_leading, digits, exact_int_matmul, scaled_cols
+from .tfry import reduce96
+
+if TYPE_CHECKING:
+    from ..params.ring import RingPlan
+
+KERNEL = "fused_scaled_noise_matmul"
+TABLE_WIDTH = 8
+
+
+# --------------------------------------------------------------------------
+# stream-v4 contract helpers (pure functions; the TPU hardware PRNG itself
+# exists on no other device)
+# --------------------------------------------------------------------------
+
+def v4_blockmix(row0, col0):
+    """Per-tile seed perturbation ``(row0/8) << 17 | col0/128``."""
+    return ((row0 >> 3) << 17) | (col0 >> 7)
+
+
+#: Exact 96-bit scaled reduction floor(x96 * rng / 2^96): the v3k and v4
+#: streams share it.
+v4_reduce96 = reduce96
+
+
+def v4_digit_split(sv):
+    """Signed value -> (d0, d1) signed 8-bit digits, sv == d0 + 256*d1."""
+    d0 = ((sv + 128) & 255) - 128
+    return d0, (sv - d0) >> 8
+
+
+# --------------------------------------------------------------------------
+# tables
+# --------------------------------------------------------------------------
+
+def _pack_tables(ring: "RingPlan", ncols: int) -> np.ndarray:
+    """Per-limb fold constants, uint64 [L, 8]: q, the bias K of ``ncols``
+    columns, then (2^(32g) mod q, its 64-bit Shoup companion) for g = 0, 1."""
+    t = np.zeros((ring.num_limbs, TABLE_WIDTH), np.uint64)
+    t[:, 0] = ring.q
+    t[:, 1] = ring.bias_for_columns(ncols)
+    t[:, 2], t[:, 3] = ring.grp_w[:, 0], ring.grp_s[:, 0]
+    t[:, 4], t[:, 5] = ring.grp_w[:, 1], ring.grp_s[:, 1]
+    return t
+
+
+def encode_tab(gadget_ntt: np.ndarray, gadget_ntt_shoup: np.ndarray,
+               gadget_wrap: np.ndarray) -> np.ndarray:
+    """Per-channel gadget-encode constants, uint64 [L*l, 3] rows
+    (g, Shoup(g), (2^64 mod q)*g mod q), from the [L, l] tables of
+    :class:`PvwParameters`."""
+    return np.stack([gadget_ntt.reshape(-1), gadget_ntt_shoup.reshape(-1),
+                     gadget_wrap.reshape(-1)], axis=1).astype(np.uint64)
+
+
+def _noise_vals_mode(ring: "RingPlan", k: int, jr: int, bound) -> bool:
+    """True when the value-row noise MAC (jr digit planes composed into one
+    int32 value each, against the jr=1 table) is exact: the column bound
+    k*nd*2^14 + l*bound*2^7 stays within int32. ``bound`` None assumes the
+    largest value jr digits can carry. ``settings.noise_value_mac`` off
+    forces the digit-row MAC."""
+    from ..config import settings
+
+    if not settings.noise_value_mac:
+        return False
+    if bound is None:
+        bound = 128 * ((256 ** jr) - 1) // 255
+    col = k * ring.num_digits * (1 << 14) + ring.degree * int(bound) * (1 << 7)
+    return col < (1 << 31)
+
+
+# --------------------------------------------------------------------------
+# the plain twin
+# --------------------------------------------------------------------------
+
+def _noise_cols(noise, ring: "RingPlan"):
+    """Noise digit planes int8 [l*jr, m, n] -> int32 scaled-digit columns
+    [L, S, m, n, nd] of their NTT."""
+    R, m, n = noise.shape
+    L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+    tab = ring.table("ntt_scaled_tab", noise.device, R // S)       # [L, S, R, nd]
+    p = exact_int_matmul(tab.permute(0, 1, 3, 2).reshape(L * S * nd, R),
+                         noise.reshape(R, m * n))
+    return p.reshape(L, S, nd, m, n).permute(0, 1, 3, 4, 2)
+
+
+def _encode_residues(sc, etab, L: int, S: int, ring: "RingPlan"):
+    """Gadget encode of u64 scalars sc [m, n] -> residues [L, S, m, n],
+    with the ``as i64`` wrap for scalars >= 2^63."""
+    tab = etab.reshape(L, S, 3)[:, :, :, None, None]
+    q = ring.table("q", sc.device).reshape(L, 1, 1, 1)
+    e = u.shoup_mul64_arr(sc, tab[:, :, 0], tab[:, :, 1], q)
+    return torch.where(sc < 0, u.submod(e, tab[:, :, 2], q), e)
+
+
+def matmul_fold_scaled_plain(lhs, rhs_band, ring: "RingPlan", noise=None,
+                             encode=None, lhs_dig=None):
+    """Plain PyTorch version of :func:`matmul_fold_scaled`: the scaled
+    digit columns, plus the noise NTT columns, folded, plus the encode."""
+    cols = scaled_cols(lhs, rhs_band, ring, lhs_dig=lhs_dig)
+    if noise is not None:
+        cols = cols + _noise_cols(noise, ring)
+    out = _fold_leading(cols, ring)
+    if encode is not None:
+        L, S = out.shape[:2]
+        q = ring.table("q", out.device).reshape(L, 1, 1, 1)
+        out = u.addmod(out, _encode_residues(encode[0], encode[1], L, S, ring), q)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel
+# --------------------------------------------------------------------------
+
+def _kernel_fn():
+    fn = load(KERNEL).pvw_fused_scaled_noise_matmul
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def fused_scaled_noise_matmul(lhs_dig, band, tables, ntab, noise, sc, etab,
+                              jr: int, vals: bool, encode32: bool):
+    """Launch the kernel on the current stream. lhs_dig int8 [CH, m, kd];
+    band int8 [CH, nd, kd, n]; tables int64 [CH, 8]; ntab int32
+    [CH, rows, nd]; noise int8 [l*jr, m, n] or None; sc int64 [m, n] and
+    etab int64 [CH, 3], or both None -> int64 [CH, m, n]. Counts its
+    launches in ``fused_scaled_noise_matmul.launches``."""
+    ch, m, kd = lhs_dig.shape
+    nd, n = band.shape[1], band.shape[3]
+    args = {"lhs_dig": (lhs_dig, torch.int8, (ch, m, kd)),
+            "band": (band, torch.int8, (ch, nd, kd, n)),
+            "tables": (tables, torch.int64, (ch, TABLE_WIDTH)),
+            "ntab": (ntab, torch.int32, (ch, ntab.shape[1], nd))}
+    if noise is not None:
+        args["noise"] = (noise, torch.int8, (noise.shape[0], m, n))
+    if sc is not None:
+        args["sc"] = (sc, torch.int64, (m, n))
+        args["etab"] = (etab, torch.int64, (ch, 3))
+    dev = lhs_dig.device
+    for name, (t, dtype, shape) in args.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    nrows = ntab.shape[1] if noise is not None else 0
+    out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _kernel_fn()(
+        _ptr(lhs_dig), _ptr(band), _ptr(tables), _ptr(ntab), _ptr(noise),
+        _ptr(sc), _ptr(etab), _ptr(out), ch, m, n, kd, nd, nrows, int(jr),
+        int(vals), int(encode32), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{KERNEL}: launch failed with CUDA error {err}")
+    fused_scaled_noise_matmul.launches += 1
+    return out
+
+
+fused_scaled_noise_matmul.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the public wrapper
+# --------------------------------------------------------------------------
+
+def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
+                       encode=None, lhs_dig=None, encode32: bool = False,
+                       gen_noise=None, noise_bound=None):
+    """Fused modular matmul against a scaled-digit band.
+
+    lhs: residues [L, S, m, k], or ``lhs_dig`` int8 [L, S, m, k*nd] (its
+    digit planes, :func:`~pvw_tpu_torch.ops.modmat.lhs_digit_planes`);
+    rhs_band: int8 [L, S, nd, k*nd, n] from
+    :func:`~pvw_tpu_torch.ops.modmat.prescale_digits_band` -> int64
+    residues [L, S, m, n].
+
+    ``noise``: int8 signed digit planes [l*jr, m, n] (row j*jr+dd for
+    coefficient j, digit dd); requires S == l. Adds NTT(noise).
+    ``noise_bound``: the true bound of the values behind ``noise``; lets
+    the kernel compose the planes into values (:func:`_noise_vals_mode`).
+    ``encode``: (sc int64 [m, n] u64 patterns, etab int64 [L*S, 3] from
+    :func:`encode_tab`); adds encode(sc)·g with the ``as i64`` wrap.
+    ``encode32``: every scalar is < 2^32 (the caller checked).
+    ``gen_noise`` (in-kernel noise generation) is not ported yet.
+    """
+    if gen_noise is not None:
+        raise NotImplementedError(
+            "gen_noise (in-kernel noise generation) is not ported to "
+            "pvw_tpu_torch yet; pass noise digit planes")
+    nd = ring.num_digits
+    if lhs_dig is None:
+        L, S, m, k = lhs.shape
+        dev = lhs.device
+    else:
+        L, S, m, kd = lhs_dig.shape
+        k = kd // nd
+        dev = lhs_dig.device
+    if k > u.MAX_CONTRACTION:
+        raise ValueError(f"contraction {k} exceeds int32 headroom {u.MAX_CONTRACTION}")
+    if tuple(rhs_band.shape[:4]) != (L, S, nd, k * nd):
+        raise ValueError(f"rhs_band shape {tuple(rhs_band.shape)} does not match "
+                         f"[L={L}, S={S}, nd={nd}, kd={k * nd}, n]")
+    n = rhs_band.shape[4]
+    jr = 0
+    if noise is not None:
+        if S != ring.degree:
+            raise ValueError("noise fusion requires the channel minor axis "
+                             "to be the NTT point axis (S == ring.degree)")
+        jr = noise.shape[0] // ring.degree
+        if noise.shape[0] != S * jr or jr not in (1, 2):
+            raise ValueError("noise digit planes must have l*jr rows, jr in (1, 2)")
+    tensors = [t for t in (lhs, lhs_dig, rhs_band, noise,
+                           None if encode is None else encode[0],
+                           None if encode is None else encode[1]) if t is not None]
+    if any(t.device != dev for t in tensors):
+        raise ValueError("matmul_fold_scaled: operands on different devices")
+    if dev.type == "cpu":
+        return matmul_fold_scaled_plain(lhs, rhs_band, ring, noise=noise,
+                                        encode=encode, lhs_dig=lhs_dig)
+    if dev.type != "cuda":
+        raise ValueError(f"matmul_fold_scaled: unsupported device {dev}")
+    ld = lhs_dig if lhs_dig is not None else digits(lhs, nd).reshape(L, S, m, k * nd)
+    vals = noise is not None and _noise_vals_mode(ring, k, jr, noise_bound)
+    if noise is not None:
+        ntab = ring.table("ntt_scaled_tab", dev, 1 if vals else jr)
+        ntab = ntab.to(torch.int32).reshape(L * S, ntab.shape[2], nd)
+    else:
+        ntab = torch.zeros((L * S, 1, nd), dtype=torch.int32, device=dev)
+    tables = u.u64_tensor(_pack_tables(ring, nd), dev).repeat_interleave(S, dim=0)
+    sc = etab = None
+    if encode is not None:
+        sc, etab = encode[0].contiguous(), encode[1].contiguous()
+    out = fused_scaled_noise_matmul(
+        ld.reshape(L * S, m, k * nd).contiguous(),
+        rhs_band.reshape(L * S, nd, k * nd, n).contiguous(),
+        tables, ntab.contiguous(),
+        None if noise is None else noise.contiguous(),
+        sc, etab, jr, vals, encode32)
+    return out.reshape(L, S, m, n)
