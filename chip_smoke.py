@@ -8,26 +8,48 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. device: the card (``nvidia-smi`` name and power limit) and the kernel
-   build from ``pvw_tpu_torch/csrc`` (nvcc, into ``build/kernels``);
+1. device: the card (``nvidia-smi`` name and power limit) and the build of
+   both kernels from ``pvw_tpu_torch/csrc`` (one nvcc each, started
+   together, into ``build/kernels``);
 2. kernel_vs_plain: the fused scaled-noise matmul against its plain
    PyTorch twin at the keygen, c1 and c2 shapes of the main path at a
    dealer batch of 512 (CH=16, kd=1280, nd=5), with jr=1/2 noise planes,
    value and digit noise rows, the 32-bit encode and the 64-bit encode
    with scalars around 2^63: bit-exact;
-3. timing: kernel, plain twin and ``torch._int_mm`` (the int8 contraction
-   alone, a yardstick the port never calls) at the full c2 shape
-   (m = n = 4096), CUDA events, median of several runs;
+3. timing: kernel, plain twin (one limb at a time) and ``torch._int_mm``
+   (the int8 contraction alone, a yardstick the port never calls) at the
+   full c2 shape (m = n = 4096), CUDA events, median of several runs;
 4. golden: the golden system of tests/test_golden.py on the card must give
    its five pinned hashes;
 5. main_path: n = 4096 receivers, k = 256, l = 8, the 2-limb chain: CRS,
    batch keygen, 4096 dealers' shares encrypted in one batch, four parties'
    shares decrypted exactly, and one encryption with scalars >= 2^63
-   decrypted with the reference's `as i64` semantics; the kernel's launch
-   count over this phase;
+   decrypted with the reference's `as i64` semantics; the kernels' launch
+   counts over this phase;
 6. breakdown: the stages of one full-width encryption and decryption,
    each timed alone;
-7. the kernels line, then the last line ``{"ok": true, "device": ...}``.
+7. prescale_vs_plain: the fused r-stage kernel (signed NTT + scaled-digit
+   band) against its plain twin: the toy chain (nd = 5), the 4 x 55-bit
+   chain, the 17 x 61-bit chain at l = 16 with jr = 1 and 2, a 61-bit chain
+   at l = 64, a d off the kernel's column tile and quads, and the full
+   config-4 r shape (k = 512, d = 1024): every band byte equal;
+8. deep_kernel_vs_plain: the fused matmul at config 4's keygen, c1 and c2
+   shapes (CH = 272, nd = 8, kd = 4096) at a dealer batch of 256, value
+   and digit noise rows, both encodes: bit-exact (the twin runs one limb
+   at a time to bound its float64 operands);
+9. deep_timing: the r-stage kernel at the full config-4 r shape and the
+   fused matmul at the full config-4 c2 shape, each beside its bound, its
+   plain twin and (for the matmul) ``torch._int_mm``; and the r-stage
+   kernel at the toy chain's r shape (k = 256, d = 4096, nd = 5), where
+   ``fused_prescale=auto`` keeps the plain pipeline;
+10. deep_path: BASELINE config 4, ``presets.threshold_256bit(1024)`` (17 x
+    61-bit limbs, k = 512, l = 16, nd = 8): CRS, batch keygen of 1024
+    parties, 1024 dealers' shares encrypted in one batch (the r-stage
+    through the prescale kernel), threshold decryption of a 921-dealer
+    valid subset at threshold 683 for four parties and full decryption for
+    two, every share exact, the abort below threshold; per-stage ms and
+    both kernels' launch counts over the path;
+11. the kernels line, then the last line ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -41,9 +63,11 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and dense int8 rate
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense int8 rate and
+# the CUDA cores' float32 rate (the ceiling of their 32-bit integer work)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+CORE_OPS_PER_S = 67e12
 
 N_RECEIVERS, K_DIM, ELL = 4096, 256, 8
 MODULI = (0xFFFFC4001, 0x1FFFFE0001)
@@ -52,6 +76,10 @@ GOLDEN_MODULI = (0xFFFFEE001, 0xFFFFC4001, 0x1FFFFE0001)
 GOLDEN = {"crs": "87295f5306ea364d", "secret_key": "d3bc51f25628c4f5",
           "global_pk": "8d40adf52c1c9af2", "c1": "9c7654078768ba8f",
           "c2": "2d627fd108fc81bd"}
+# BASELINE config 4: presets.threshold_256bit(1024)
+DEEP_N, DEEP_K, DEEP_ELL = 1024, 512, 16
+DEEP_COMPARE_BATCH = 256
+DEEP_THRESHOLD = 683                                  # ceil(2n/3)
 
 
 def emit(obj) -> None:
@@ -86,6 +114,30 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed(times: dict, name: str, fn):
+    """``fn()``, its milliseconds on the host clock (the card synchronized
+    before and after) stored in ``times[name]``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    times[name] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def max_abs_err(got, want) -> int:
+    """max |got - want| of two integer tensors, one channel at a time."""
+    import torch
+
+    if torch.equal(got, want):
+        return 0
+    rows = got.shape[0] * got.shape[1]
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in zip(got.reshape(rows, -1), want.reshape(rows, -1)))
 
 
 def operands(ring, m, k, n, jr, encode, gen, dev):
@@ -164,16 +216,19 @@ def phase_kernel_vs_plain(ring, dev) -> int:
     return worst
 
 
-def phase_timing(ring, dev, card: str) -> dict:
-    """Kernel, plain twin and torch._int_mm at the full c2 shape."""
+def phase_timing(ring, m: int, k: int, dev, card: str, phase: str) -> dict:
+    """The fused matmul, its plain twin (one limb at a time) and
+    torch._int_mm (the int8 contraction alone, a yardstick the port never
+    calls) at a c2 shape of m receivers x m dealers, 32-bit encode: CUDA
+    events, median of 3."""
     import torch
 
     from pvw_tpu_torch.ops import fused_modmat as fm
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    m = n = N_RECEIVERS
+    n = m
     L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
-    lhs_dig, band, noise, bound, enc = operands(ring, m, K_DIM, n, 1, "enc32", gen, dev)
+    lhs_dig, band, noise, bound, enc = operands(ring, m, k, n, 1, "enc32", gen, dev)
     kd = lhs_dig.shape[-1]
 
     def kernel():
@@ -181,36 +236,34 @@ def phase_timing(ring, dev, card: str) -> dict:
                                      lhs_dig=lhs_dig, encode32=True, noise_bound=bound)
 
     def plain():
-        return fm.matmul_fold_scaled_plain(None, band, ring, noise=noise, encode=enc,
-                                           lhs_dig=lhs_dig)
+        return fold_plain_by_limb(ring, band, lhs_dig, noise, enc)
 
-    got = kernel()
-    want = plain()
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    check(err == 0, "kernel differs from the plain twin at the full c2 shape")
-    del got, want
+    err = max_abs_err(kernel(), plain())
+    check(err == 0, f"kernel differs from the plain twin at the full c2 shape ({phase})")
     torch.cuda.empty_cache()
-    ms = cuda_ms(kernel, reps=5)
+    ms = cuda_ms(kernel, reps=3)
     plain_ms = cuda_ms(plain, reps=3)
     torch.cuda.empty_cache()
-    a = lhs_dig.reshape(L * S, m, kd).contiguous()
+    a = lhs_dig.reshape(L * S, m, kd)
     # the rhs column-major ([nd*n, kd] rows, transposed), as cuBLASLt's
     # int8 GEMM takes it
     bt = band.reshape(L * S, nd, kd, n).permute(0, 1, 3, 2).reshape(L * S, nd * n, kd).contiguous()
 
     def library():
-        return [torch._int_mm(a[c], bt[c].t()) for c in range(L * S)]
+        for c in range(L * S):
+            torch._int_mm(a[c], bt[c].t())
 
-    library_ms = cuda_ms(library, reps=5)
+    library_ms = cuda_ms(library, reps=3)
     macs = L * S * m * n * kd * nd
     nbytes = (lhs_dig.numel() + band.numel() + noise.numel() + 8 * m * n
               + 8 * L * S * m * n)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
-    out = {"phase": "timing", "shape": f"c2 m={m} n={n} channels={L * S} kd={kd} nd={nd}",
-           "card": card, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
+    out = {"phase": phase, "kernel": fm.KERNEL,
+           "shape": f"c2 m={m} n={n} channels={L * S} kd={kd} nd={nd}",
+           "card": card, "ms": ms, "plain_ms": plain_ms,
+           "plain": "one limb at a time",
+           "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "bytes": nbytes, "int8_macs": macs, "max_abs_err": err}
     emit(out)
@@ -267,13 +320,7 @@ def phase_main_path(dev, card: str) -> dict:
     from pvw_tpu_torch import random as R
     from pvw_tpu_torch.ops import fused_modmat as fm
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
+    times = {}
     b1, b2 = P.PvwParameters.suggest_error_bounds(N_RECEIVERS, K_DIM, ELL, MODULI, 0.5)
     params = (P.PvwParametersBuilder().set_parties(N_RECEIVERS).set_dimension(K_DIM)
               .set_l(ELL).set_moduli(MODULI).set_secret_variance(0.5)
@@ -288,36 +335,37 @@ def phase_main_path(dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     fm.fused_scaled_noise_matmul.launches = 0
-    crs, crs_ms = timed(lambda: P.PvwCrs.new(params, R.fold_in(key, 0), device=dev))
+    fm.ntt_prescale_band.launches = 0
+    crs = timed(times, "crs_ms", lambda: P.PvwCrs.new(params, R.fold_in(key, 0), device=dev))
     coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (N_RECEIVERS, K_DIM, ELL),
                               params.secret_variance, device=dev)
     gpk = P.GlobalPublicKey(crs)
-    _, keygen_ms = timed(lambda: gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1)))
-    _, operands_ms = timed(gpk.encrypt_operands)
-    ct, encrypt_ms = timed(lambda: P.encrypt_all_party_shares_batched(
+    timed(times, "keygen_ms", lambda: gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1)))
+    timed(times, "operands_ms", gpk.encrypt_operands)
+    ct = timed(times, "encrypt_ms", lambda: P.encrypt_all_party_shares_batched(
         shares, gpk, R.fold_in(key, 777)))
     host_coeffs = coeffs.cpu().numpy()
     sks = {i: P.SecretKey(params, host_coeffs[i]) for i in parties + wrap_parties}
-    t0 = time.perf_counter()
-    got = {i: P.decrypt_party_shares(ct, sks[i], i) for i in parties}
-    decrypt_ms = (time.perf_counter() - t0) * 1e3
-    wrap_ct, wrap_encrypt_ms = timed(lambda: P.encrypt(wrap_sc, gpk, R.fold_in(key, 778)))
+    got = timed(times, "decrypt_ms",
+                lambda: {i: P.decrypt_party_shares(ct, sks[i], i) for i in parties})
+    wrap_ct = timed(times, "wrap_encrypt_ms",
+                    lambda: P.encrypt(wrap_sc, gpk, R.fold_in(key, 778)))
     wrap_got = {i: P.decrypt_party_value(wrap_ct, sks[i], i) for i in wrap_parties}
     launches = fm.fused_scaled_noise_matmul.launches
+    prescale_launches = fm.ntt_prescale_band.launches
 
     shares_exact = all(got[i] == [int(v) for v in shares[:, i]] for i in parties)
     q = params.q_total()
     wrap_ok = all(wrap_got[i] == expected_wrapped(int(wrap_sc[i]), q) for i in wrap_parties)
     out = {"phase": "main_path", "card": card, "n": N_RECEIVERS, "k": K_DIM, "l": ELL,
            "moduli": [hex(m) for m in MODULI], "error_bounds": [b1, b2],
-           "dealers": N_RECEIVERS, "crs_ms": crs_ms, "keygen_ms": keygen_ms,
-           "operands_ms": operands_ms, "encrypt_ms": encrypt_ms,
-           "enc_per_s": N_RECEIVERS / (encrypt_ms / 1e3),
-           "decrypt_ms": decrypt_ms, "decrypt_parties": list(parties),
-           "shares_exact": shares_exact, "wrap_encrypt_ms": wrap_encrypt_ms,
+           "dealers": N_RECEIVERS, **times,
+           "enc_per_s": N_RECEIVERS / (times["encrypt_ms"] / 1e3),
+           "decrypt_parties": list(parties), "shares_exact": shares_exact,
            "wrap_scalars": {str(i): int(wrap_sc[i]) for i in wrap_parties},
            "wrap_decoded": {str(i): wrap_got[i] for i in wrap_parties},
            "wrap_ok": wrap_ok, "launches": launches,
+           "prescale_launches": prescale_launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     check(shares_exact, "a decrypted share differs from the encrypted one")
@@ -326,13 +374,15 @@ def phase_main_path(dev, card: str) -> dict:
     return out, {"params": params, "gpk": gpk, "shares": shares, "sk": sks[parties[0]]}
 
 
-def phase_breakdown(dev, card: str, ctx) -> dict:
+def phase_breakdown(dev, card: str, ctx, name: str = "breakdown") -> dict:
     """The stages of one full-width encryption and decryption, each timed
-    alone (host clock around work ending in a synchronize): where the
-    main path's time goes. Same calls as ``encryption._encrypt_kernel``."""
+    alone (host clock around work ending in a synchronize): where a path's
+    time goes. Same calls as ``encryption._encrypt_kernel``, the r-stage
+    routed as it routes it."""
     import torch
 
     from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
     from pvw_tpu_torch.crypto import decryption
     from pvw_tpu_torch.ops import fused_modmat as fm, modmat, ntt, u64
     from pvw_tpu_torch.sampling.cbd import sample_vec_cbd_rows
@@ -341,39 +391,276 @@ def phase_breakdown(dev, card: str, ctx) -> dict:
     ring, k, n, l = params.ring, params.k, params.n, params.l
     d = shares.shape[0]
     times = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
     k_r, k_e1, k_e2 = R.split(R.fold_in(R.key(0), 779), 3)
-    sc = timed("scalars_to_device_ms", lambda: u64.u64_tensor(shares, dev))
-    r = timed("r_sample_ms", lambda: sample_vec_cbd_rows(k_r, 0, k, (d, l), 0.5, dev))
-    r_ch = timed("r_ntt_ms", lambda: ntt.ntt_forward_signed_ch(r, ring, 1))
-    r_op = timed("r_prescale_ms", lambda: modmat.prescale_digits_band(r_ch, ring))
-    n1 = timed("noise_c1_ms", lambda: ntt.noise_digit_planes(
+    sc = timed(times, "scalars_to_device_ms", lambda: u64.u64_tensor(shares, dev))
+    r = timed(times, "r_sample_ms", lambda: sample_vec_cbd_rows(k_r, 0, k, (d, l), 0.5, dev))
+    if settings.use_fused_prescale(ring.num_digits) \
+            and fm.ntt_prescale_available(ring, k, d, 1, dev):
+        r_op = timed(times, "r_ntt_prescale_kernel_ms", lambda: fm.ntt_prescale_band(r, ring, 1))
+    else:
+        r_ch = timed(times, "r_ntt_ms", lambda: ntt.ntt_forward_signed_ch(r, ring, 1))
+        r_op = timed(times, "r_prescale_ms", lambda: modmat.prescale_digits_band(r_ch, ring))
+    n1 = timed(times, "noise_c1_ms", lambda: ntt.noise_digit_planes(
         k_e1, 0, k, d, l, params.error_bound_1, dev))
-    n2 = timed("noise_c2_ms", lambda: ntt.noise_digit_planes(
+    n2 = timed(times, "noise_c2_ms", lambda: ntt.noise_digit_planes(
         k_e2, 0, n, d, l, params.error_bound_2, dev))
     a_dig, b_dig = gpk.encrypt_operands()
     etab = u64.u64_tensor(fm.encode_tab(params.gadget_ntt, params.gadget_ntt_shoup,
                                         params.gadget_wrap), dev)
-    c1 = timed("kernel_c1_ms", lambda: fm.matmul_fold_scaled(
+    c1 = timed(times, "kernel_c1_ms", lambda: fm.matmul_fold_scaled(
         None, r_op, ring, noise=n1, lhs_dig=a_dig, noise_bound=params.error_bound_1))
-    c2 = timed("kernel_c2_ms", lambda: fm.matmul_fold_scaled(
+    c2 = timed(times, "kernel_c2_ms", lambda: fm.matmul_fold_scaled(
         None, r_op, ring, noise=n2, encode=(sc.t().contiguous(), etab), lhs_dig=b_dig,
         encode32=True, noise_bound=params.error_bound_2))
     sk = ctx["sk"].to_polynomials(dev).res
-    z = timed("decrypt_contract_ntt_ms", lambda: decryption._noisy_messages(
+    z = timed(times, "decrypt_contract_ntt_ms", lambda: decryption._noisy_messages(
         params, sk, c1, c2[:, :, 0]))
-    timed("decode_python_ms", lambda: decryption._decode_batch(z, params))
-    out = {"phase": "breakdown", "card": card, "dealers": d, **times}
+    timed(times, "decode_python_ms", lambda: decryption._decode_batch(z, params))
+    out = {"phase": name, "card": card, "dealers": d, **times,
+           "decode_ms_per_message": times["decode_python_ms"] / d}
     emit(out)
     return out
+
+# --------------------------------------------------------------------------
+# the deep chain: BASELINE config 4 (17 x 61-bit limbs, l = 16, nd = 8)
+# --------------------------------------------------------------------------
+
+def prescale_bound(ring, k: int, d: int, jr: int) -> dict:
+    """The least time of one r-stage call: the band written and the
+    coefficients read once, against its operations: the NTT's int8 digit
+    MACs at the int8 rate, and the fold and scale Shoup products (three
+    64-bit products each, four 32-bit multiply-adds a product) on the CUDA
+    cores."""
+    L, l, nd = ring.num_limbs, ring.degree, ring.num_digits
+    C1 = nd + jr - 1
+    groups = L * l * k * d
+    nbytes = groups * nd * nd + k * d * l * 4
+    int8_macs = groups * C1 * l * jr
+    core_madds = groups * ((C1 + 3) // 4 + nd - 1) * 3 * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (2 * int8_macs / INT8_OPS_PER_S + 2 * core_madds / CORE_OPS_PER_S) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "int8_macs": int8_macs, "core_madds": core_madds}
+
+
+def r_coeffs(k: int, d: int, l: int, bound: int, gen, dev):
+    import torch
+
+    c = torch.randint(-bound, bound + 1, (k, d, l), generator=gen, device=dev,
+                      dtype=torch.int32)
+    c[0, 0], c[0, 1] = bound, -bound                  # both ends of the range
+    return c
+
+
+def phase_prescale_vs_plain(dev) -> int:
+    """The r-stage kernel against its plain twin, every band byte."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params import presets
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    deep = generate_ntt_primes(61, 17, DEEP_ELL)
+    cases = [("toy chain", MODULI, ELL, 1, K_DIM, COMPARE_BATCH),
+             ("4 x 55-bit chain, d off the 256-column tile", presets.MODULI_55BIT4, ELL, 1,
+              K_DIM, 1000),
+             ("17 x 61-bit chain, jr = 2, d off the 4-column quads", deep, DEEP_ELL, 200,
+              DEEP_K, 130),
+             ("17 x 61-bit chain, jr = 2", deep, DEEP_ELL, 32639, 64, DEEP_N),
+             ("2 x 61-bit chain at l = 64, jr = 2", generate_ntt_primes(61, 2, 64), 64,
+              2000, 16, 130),
+             ("config-4 r, full shape", deep, DEEP_ELL, 1, DEEP_K, DEEP_N)]
+    worst = 0
+    for name, moduli, l, bound, k, d in cases:
+        ring = get_ring(tuple(moduli), l)
+        c = r_coeffs(k, d, l, bound, gen, dev)
+        got = fm.ntt_prescale_band(c, ring, bound)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = fm.ntt_prescale_band_plain(c, ring, bound)
+        torch.cuda.synchronize()
+        plain_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        emit({"phase": "prescale_vs_plain", "shape": name, "limbs": ring.num_limbs, "l": l,
+              "nd": ring.num_digits, "jr": 1 if bound <= 127 else 2, "k": k, "d": d,
+              "band_gb": got.numel() / 1e9, "plain_peak_gb": plain_peak,
+              "compared": "whole band", "bit_exact": err == 0, "max_abs_err": err})
+        check(err == 0, f"the r-stage kernel differs from its twin at {name}")
+        del c, got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def fold_plain_by_limb(ring, band, lhs_dig, noise=None, encode=None):
+    """The fused matmul's plain twin, one limb at a time (its float64
+    operands at config 4 would not fit whole; every limb of the chains here
+    has the chain's digit count)."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params.ring import get_ring
+
+    S, outs = ring.degree, []
+    for i, q in enumerate(ring.moduli):
+        sub = get_ring((q,), S)
+        check(sub.num_digits == ring.num_digits, "a limb's digit width differs")
+        enc = None if encode is None else (encode[0], encode[1][i * S:(i + 1) * S])
+        outs.append(fm.matmul_fold_scaled_plain(None, band[i:i + 1], sub, noise=noise,
+                                                encode=enc, lhs_dig=lhs_dig[i:i + 1]))
+    return torch.cat(outs)
+
+
+def phase_deep_kernel_vs_plain(dev) -> int:
+    import torch
+
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    ring = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    d = DEEP_COMPARE_BATCH
+    cases = [("keygen", d, DEEP_K, 1, None, True),
+             ("keygen", d, DEEP_K, 2, None, False),
+             ("c1", DEEP_K, d, 1, None, True),
+             ("c1", DEEP_K, d, 2, None, False),
+             ("c2", DEEP_N, d, 1, "enc32", True),
+             ("c2", DEEP_N, d, 2, "enc64", True),
+             ("c2", DEEP_N, d, 1, "enc64", False)]
+    worst = 0
+    for name, m, n, jr, encode, vals in cases:
+        lhs_dig, band, noise, bound, enc = operands(ring, m, DEEP_K, n, jr, encode, gen, dev)
+        settings.noise_value_mac = vals
+        try:
+            got = fm.matmul_fold_scaled(None, band, ring, noise=noise, encode=enc,
+                                        lhs_dig=lhs_dig, encode32=encode == "enc32",
+                                        noise_bound=bound)
+        finally:
+            del settings.noise_value_mac
+        want = fold_plain_by_limb(ring, band, lhs_dig, noise, enc)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        emit({"phase": "deep_kernel_vs_plain", "shape": name, "m": m, "n": n,
+              "kd": lhs_dig.shape[-1], "channels": ring.num_limbs * ring.degree,
+              "nd": ring.num_digits, "jr": jr, "noise_rows": "values" if vals else "digits",
+              "encode": encode or "none", "bit_exact": err == 0, "max_abs_err": err})
+        check(err == 0, f"the fused matmul differs from its twin at config-4 {name}")
+        del lhs_dig, band, noise, enc, got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def prescale_timing(ring, k: int, d: int, seed: int, dev, card: str) -> dict:
+    """The r-stage kernel and its plain twin at one r shape (jr = 1), each
+    against the bound: CUDA events, medians of 10 and 3."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = r_coeffs(k, d, S, 1, gen, dev)
+    ms = cuda_ms(lambda: fm.ntt_prescale_band(c, ring, 1), reps=10)
+    plain_ms = cuda_ms(lambda: fm.ntt_prescale_band_plain(c, ring, 1), reps=3)
+    out = {"phase": "deep_timing", "kernel": fm.PRESCALE_KERNEL,
+           "shape": f"r k={k} d={d} channels={L * S} nd={nd} jr=1",
+           "card": card, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           **prescale_bound(ring, k, d, 1)}
+    emit(out)
+    del c
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_deep_timing(dev, card: str) -> dict:
+    """The r-stage kernel at the full config-4 r shape and the fused matmul
+    at the full config-4 c2 shape, each against its bound and twin; the
+    r-stage kernel also at the toy chain's r shape."""
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    ring = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    return {"prescale": prescale_timing(ring, DEEP_K, DEEP_N, 5, dev, card),
+            "prescale_toy": prescale_timing(get_ring(MODULI, ELL), K_DIM, N_RECEIVERS, 6,
+                                            dev, card),
+            "matmul": phase_timing(ring, DEEP_N, DEEP_K, dev, card, "deep_timing")}
+
+
+def phase_deep_path(dev, card: str) -> dict:
+    """BASELINE config 4 through the entry points: keygen, 1024 dealers,
+    threshold decryption."""
+    import torch
+
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.errors import InsufficientValidCiphertexts
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params import presets
+
+    times = {}
+    params = presets.threshold_256bit(DEEP_N)
+    ring = params.ring
+    n = params.n
+    key = R.key(4)
+    rng = np.random.default_rng(4)
+    shares = rng.integers(0, 1 << 32, size=(n, n), dtype=np.uint64)
+    valid = [i for i in range(n) if i % 10]                    # 921 dealers
+    parties = (0, 1, n // 2 - 1, n - 1)
+    full_parties = (0, n - 1)
+    torch.cuda.reset_peak_memory_stats()
+
+    fm.fused_scaled_noise_matmul.launches = 0
+    fm.ntt_prescale_band.launches = 0
+    crs = timed(times, "crs_ms", lambda: P.PvwCrs.new(params, R.fold_in(key, 0), device=dev))
+    coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (n, params.k, params.l),
+                              params.secret_variance, device=dev)
+    gpk = P.GlobalPublicKey(crs)
+    timed(times, "keygen_ms", lambda: gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1)))
+    timed(times, "operands_ms", gpk.encrypt_operands)
+    ct = timed(times, "encrypt_ms", lambda: P.encrypt_all_party_shares_batched(
+        shares, gpk, R.fold_in(key, 777)))
+    host_coeffs = coeffs.cpu().numpy()
+    sks = {i: P.SecretKey(params, host_coeffs[i]) for i in parties + full_parties}
+    got = {i: timed(times, f"threshold_decrypt_party_{i}_ms", lambda: P.decrypt_valid_shares(
+        ct, valid, DEEP_THRESHOLD, sks[i], i)) for i in parties}
+    full = {i: timed(times, f"decrypt_party_{i}_ms",
+                     lambda: P.decrypt_party_shares(ct, sks[i], i)) for i in full_parties}
+    try:
+        P.decrypt_valid_shares(ct, valid[:DEEP_THRESHOLD - 1], DEEP_THRESHOLD, sks[0], 0)
+        aborted = False
+    except InsufficientValidCiphertexts:
+        aborted = True
+    launches = {fm.KERNEL: fm.fused_scaled_noise_matmul.launches,
+                fm.PRESCALE_KERNEL: fm.ntt_prescale_band.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    shares_exact = all(got[i] == [(dl, int(shares[dl, i])) for dl in valid] for i in parties) \
+        and all(full[i] == [int(v) for v in shares[:, i]] for i in full_parties)
+    out = {"phase": "deep_path", "card": card, "config": "BASELINE config 4",
+           "preset": "threshold_256bit", "n": n, "k": params.k, "l": params.l,
+           "limbs": ring.num_limbs, "q_bits": params.q_total().bit_length(),
+           "nd": ring.num_digits, "error_bounds": [params.error_bound_1, params.error_bound_2],
+           "dealers": n, "valid_dealers": len(valid), "threshold": DEEP_THRESHOLD,
+           "threshold_parties": list(parties), "full_parties": list(full_parties),
+           **times, "enc_per_s": n / (times["encrypt_ms"] / 1e3),
+           "shares_exact": shares_exact, "aborted_below_threshold": aborted,
+           "launches": launches, "peak_mem_gb": peak}
+    emit(out)
+    check(shares_exact, "a threshold-decrypted share differs from the encrypted one")
+    check(aborted, f"{DEEP_THRESHOLD - 1} valid dealers did not abort at threshold "
+                   f"{DEEP_THRESHOLD}")
+    check(launches[fm.PRESCALE_KERNEL] >= 1, "the r-stage kernel never ran on the deep path")
+    check(launches[fm.KERNEL] >= 3, f"the fused matmul ran {launches[fm.KERNEL]} times "
+                                    "on the deep path")
+    return out, {"params": params, "gpk": gpk, "shares": shares, "sk": sks[0]}
 
 
 def main() -> int:
@@ -388,33 +675,67 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     t0 = time.perf_counter()
-    _build.build_all([fm.KERNEL])
+    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL])
     build_s = time.perf_counter() - t0
     print(card, flush=True)
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s})
     ring = get_ring(MODULI, ELL)
     worst = phase_kernel_vs_plain(ring, dev)
-    timing = phase_timing(ring, dev, card)
+    timing = phase_timing(ring, N_RECEIVERS, K_DIM, dev, card, "timing")
     phase_golden(dev)
     main_path, ctx = phase_main_path(dev, card)
     phase_breakdown(dev, card, ctx)
     del ctx
+    torch.cuda.empty_cache()
+    prescale_worst = phase_prescale_vs_plain(dev)
+    deep_worst = phase_deep_kernel_vs_plain(dev)
+    deep_timing = phase_deep_timing(dev, card)
+    deep_path, ctx = phase_deep_path(dev, card)
+    phase_breakdown(dev, card, ctx, "deep_breakdown")
+    del ctx
+    by_path = {
+        fm.KERNEL: {"main_path": main_path["launches"],
+                    "deep_path": deep_path["launches"][fm.KERNEL]},
+        fm.PRESCALE_KERNEL: {"main_path": main_path["prescale_launches"],
+                             "deep_path": deep_path["launches"][fm.PRESCALE_KERNEL]},
+    }
+    dm, dp = deep_timing["matmul"], deep_timing["prescale"]
     emit({"kernels": [{
         "name": fm.KERNEL,
         "route": "cuda",
         "source": "pvw_tpu_torch/csrc/fused_scaled_noise_matmul.cu",
         "replaces": "pvw_tpu/ops/pallas_modmat.py:672",
         "replaces_function": "_fused_scaled_noise_matmul",
-        "launches": main_path["launches"],
+        "launches": sum(by_path[fm.KERNEL].values()),
+        "launches_by_path": by_path[fm.KERNEL],
         "bit_exact": True,
-        "max_abs_err": max(worst, timing["max_abs_err"]),
+        "max_abs_err": max(worst, timing["max_abs_err"], deep_worst, dm["max_abs_err"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "shape": timing["shape"],
+        "config4": {key: dm[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+        "card": card,
+    }, {
+        "name": fm.PRESCALE_KERNEL,
+        "route": "cuda",
+        "source": "pvw_tpu_torch/csrc/ntt_prescale_band.cu",
+        "replaces": "pvw_tpu/ops/pallas_modmat.py:1687",
+        "replaces_function": "ntt_prescale_band",
+        "launches": sum(by_path[fm.PRESCALE_KERNEL].values()),
+        "launches_by_path": by_path[fm.PRESCALE_KERNEL],
+        "bit_exact": True,
+        "max_abs_err": prescale_worst,
+        "ms": dp["ms"],
+        "plain_ms": dp["plain_ms"],
+        "bound_ms": dp["bound_ms"],
+        "bound_by": dp["bound_by"],
+        "library_ms": None,
+        "shape": dp["shape"],
         "card": card,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

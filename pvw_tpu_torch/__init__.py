@@ -4,8 +4,8 @@ hand-written CUDA kernels for NVIDIA Hopper.
 The PyTorch port of ``pvw_tpu`` (JAX/Pallas). Module paths and public names
 mirror it: ``params`` (PvwParameters(Builder), PvwCrs, RingPlan), ``keys``
 (SecretKey, Party, GlobalPublicKey), ``crypto`` (encrypt*, decrypt*,
-PvwCiphertext), ``sampling``, ``errors`` and ``ops`` (the digit matmuls,
-the NTT, the fused kernel). Residues are canonical int64 tensors; every
+threshold decryption, PvwCiphertext), ``sampling``, ``errors`` and ``ops``
+(the digit matmuls, the NTT, the fused kernels). Residues are canonical int64 tensors; every
 entry point takes ``device=`` (default ``"cuda"``, which raises without a
 card) and threefry keys from :mod:`pvw_tpu_torch.random`.
 """
@@ -19,12 +19,14 @@ from .crypto import (
     decode_scalar_pvw_rns,
     decrypt_party_shares,
     decrypt_party_value,
+    decrypt_valid_shares,
     encrypt,
     encrypt_all_party_shares,
     encrypt_all_party_shares_batched,
     encrypt_batch,
     encrypt_broadcast,
     encrypt_party_shares,
+    select_valid_ciphertexts,
 )
 from .errors import PvwError
 from .sampling import sample_vec_cbd
@@ -35,9 +37,10 @@ __all__ = [
     "GlobalPublicKey", "Party", "Poly", "PvwCiphertext", "PvwCrs", "PvwError",
     "PvwParameters", "PvwParametersBuilder", "Representation", "RingPlan",
     "SecretKey", "decode_scalar_pvw_rns", "decrypt_party_shares",
-    "decrypt_party_value", "demo_roundtrip", "encrypt", "encrypt_all_party_shares",
-    "encrypt_all_party_shares_batched", "encrypt_batch", "encrypt_broadcast",
-    "encrypt_party_shares", "sample_vec_cbd",
+    "decrypt_party_value", "decrypt_valid_shares", "demo_roundtrip", "encrypt",
+    "encrypt_all_party_shares", "encrypt_all_party_shares_batched", "encrypt_batch",
+    "encrypt_broadcast", "encrypt_party_shares", "sample_vec_cbd",
+    "select_valid_ciphertexts",
 ]
 
 

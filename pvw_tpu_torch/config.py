@@ -21,6 +21,15 @@ decode_mode          PVW_TPU_DECODE        ``"auto"``/``"python"``: the exact
                                            Python decode. ``"device"``,
                                            ``"host"`` and ``"native"`` are
                                            not ported yet ("auto").
+fused_prescale       PVW_TPU_FUSED_        r-stage engine: ``"auto"`` (the
+                     PRESCALE              one-pass NTT + prescale kernel on
+                                           deep chains, nd >= 8; the plain
+                                           torch pipeline elsewhere), a
+                                           truthy string or True (the kernel
+                                           wherever it can run), a falsy
+                                           string or False (always the
+                                           pipeline). Both give the same
+                                           bytes ("auto").
 ===================  ====================  ==================================
 
 Precedence per knob: programmatic assignment > environment variable >
@@ -77,6 +86,7 @@ class Settings:
     noise_stream: str = _Knob("PVW_TPU_NOISE", "kernel")
     noise_value_mac: bool = _Knob("PVW_TPU_NOISE_VALS", True, _parse_bool)
     decode_mode: str = _Knob("PVW_TPU_DECODE", "auto")
+    fused_prescale: str = _Knob("PVW_TPU_FUSED_PRESCALE", "auto")
 
     def __init__(self) -> None:
         self._overrides: dict = {}
@@ -96,6 +106,29 @@ class Settings:
                 stacklevel=2,
             )
         return None
+
+    def use_fused_prescale(self, num_digits: int) -> bool:
+        """True when the r-stage should take the one-pass NTT + prescale
+        kernel (callers still check
+        :func:`~pvw_tpu_torch.ops.fused_modmat.ntt_prescale_available`).
+        The JAX package's rule: ``auto`` means deep chains only
+        (``num_digits >= 8``); booleans and the truthy/falsy strings force
+        the choice; an unknown string warns and means ``auto``."""
+        mode = self.fused_prescale
+        if isinstance(mode, bool):
+            return mode
+        norm = str(mode).strip().lower()
+        if norm in ("1", "true", "on", "yes", "force"):
+            return True
+        if norm in _FALSY:
+            return False
+        if norm != "auto":
+            warnings.warn(
+                f"PVW_TPU_FUSED_PRESCALE={mode!r} is not a recognized mode "
+                "(auto/1/0/true/false/on/off); using 'auto'",
+                stacklevel=2,
+            )
+        return num_digits >= 8
 
     def resolved_decode_mode(self) -> str:
         """``"python"``; raises NotImplementedError for the decode engines

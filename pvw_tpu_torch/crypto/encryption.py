@@ -4,7 +4,9 @@ The counterpart of ``pvw_tpu.crypto.encryption`` (the reference's
 ``encryption.rs``): c1 = A·r + e1, c2 = B·r + e2 + encode(m), batched over
 d independent encryptions so both products are one fused scaled-digit
 matmul each (:func:`~pvw_tpu_torch.ops.fused_modmat.matmul_fold_scaled`),
-with the noise NTT and the gadget encode inside the kernel.
+with the noise NTT and the gadget encode inside the kernel. On deep chains
+the r-stage (signed NTT + scaled-digit band) is one kernel too
+(:func:`~pvw_tpu_torch.ops.fused_modmat.ntt_prescale_band`).
 
 Randomness is counter-based: the same key gives the same ciphertexts as
 the JAX package on the CPU. Stream routing follows the JAX package off the
@@ -21,7 +23,8 @@ import numpy as np
 from ..errors import InvalidParameters
 from ..keys.public_key import GlobalPublicKey
 from ..ops import modmat, ntt as ntt_ops, u64 as u64op
-from ..ops.fused_modmat import encode_tab, matmul_fold_scaled
+from ..ops.fused_modmat import (encode_tab, matmul_fold_scaled, ntt_prescale_available,
+                                ntt_prescale_band)
 from ..params.parameters import PvwParameters
 from ..poly import Poly, Representation
 from ..random import split
@@ -86,8 +89,12 @@ def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
     """d-batched PVW encryption. a_dig int8 [L, l, k, k*nd] and b_dig int8
     [L, l, n, k*nd] are the cached lhs planes; sc int64 [d, n] are the u64
     scalars (bit patterns); ``encode32``: all scalars < 2^32; ``stream``:
-    None (v3 planes) or "v3k". Returns channel-major c1 [L, l, k, d] and
-    c2 [L, l, n, d]."""
+    None (v3 planes) or "v3k". The r-stage takes the fused NTT + prescale
+    kernel where ``settings.use_fused_prescale`` and
+    :func:`ntt_prescale_available` allow. Returns channel-major c1
+    [L, l, k, d] and c2 [L, l, n, d]."""
+    from ..config import settings
+
     ring = params.ring
     k, n, l = params.k, params.n, params.l
     d = sc.shape[0]
@@ -104,8 +111,14 @@ def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
     else:
         r_coeffs = sample_vec_cbd_rows(k_r, 0, k, (d, l),
                                        params.secret_variance, dev)
-    r_ch = ntt_ops.ntt_forward_signed_ch(r_coeffs, ring, cbd_bound(params.secret_variance))
-    r_op = modmat.prescale_digits_band(r_ch, ring)           # [L, l, nd, k*nd, d]
+    r_bound = cbd_bound(params.secret_variance)
+    if (settings.use_fused_prescale(ring.num_digits)
+            and ntt_prescale_available(ring, k, d, r_bound, dev)):
+        # deep chains (nd >= 8): NTT + prescale in one kernel
+        r_op = ntt_prescale_band(r_coeffs, ring, r_bound)
+    else:
+        r_ch = ntt_ops.ntt_forward_signed_ch(r_coeffs, ring, r_bound)
+        r_op = modmat.prescale_digits_band(r_ch, ring)       # [L, l, nd, k*nd, d]
 
     def noise_planes(kk, rows, bound):
         if stream == "v3k":

@@ -16,58 +16,77 @@
 // twiddles). Every output is the canonical residue, so any exact arithmetic
 // gives the same bytes as the TPU kernel.
 //
-// What bounds it on an H100: the digit products. At the c2 shape of the
-// n = 4096 main path (CH = 16, m = n = 4096, kd = 1280, nd = 5) they are
-// 1.72e12 int8 MACs, 1.74 ms at the int8 tensor-core peak (1,979 TOPS,
-// 2 ops a MAC); the bytes it must move (int8 inputs, the int64 output of
-// 2.1 GB) take 0.87 ms at 3.35 TB/s. So the bound is compute.
+// What bounds it on an H100: the digit products. At the config-4 c2 shape
+// (CH = 272, m = n = 1024, kd = 4096, nd = 8) they are 9.35e12 int8 MACs,
+// 9.45 ms at the int8 tensor-core peak (1,979 TOPS, 2 ops a MAC); the bytes
+// it must move (the int8 inputs, the int64 output of 2.3 GB) take 3.75 ms at
+// 3.35 TB/s. So the bound is compute, and the contraction runs on the
+// tensor cores: mma.sync m16n8k32 s8 x s8 -> s32.
 //
-// This first design is simple and exact, not fast: one block per
-// (channel, 64x64 output tile), the int8 tiles staged in shared memory with
-// 4 k-values packed per word, __dp4a into nd int32 accumulators per
-// output, and the fold done with native 64-bit Shoup multiplies (the TPU
-// kernel's u32-pair fold exists only because the TPU lacks 64-bit
-// integers). dp4a runs on the CUDA cores, far below the tensor-core rate.
-// Left for later: int8 tensor cores (mma.sync / wgmma s8), TMA loads with
-// a multi-stage pipeline, and overlap of the epilogue with the next tile's
-// loads; the noise planes are re-read by each channel's block (from L2,
-// since the channel is the fastest grid index).
+// The design: one block of 16 warps per (channel, 128 x 32 output tile);
+// each warp owns a 16 x 16 tile and keeps nd x 2 accumulator fragments (64
+// registers at nd = 8). The contraction is staged in steps of 64 bytes: the
+// lhs rows as they lie (k contiguous, the A operand's layout), the band
+// transposed on the way in (four k rows of 16 columns loaded as 16-byte
+// vectors, their bytes transposed with __byte_perm so that each 32-bit word
+// holds four k of one column, the B operand's layout). The next step's
+// global loads are in flight in registers while the tensor cores work on
+// the current one. The shared tiles are padded so that fragment reads hit
+// 32 distinct banks. 128-row tiles halve the band's re-reads from L2
+// against 64-row ones: at nd = 8 the band is the larger operand. The
+// epilogue adds the noise NTT to the int32 columns and folds them with
+// native 64-bit Shoup multiplies (the TPU kernel's u32-pair fold exists
+// only because the TPU lacks 64-bit integers). The grid walks the n tiles
+// fastest and the channel slowest, so the blocks in flight share one
+// channel's operands in L2.
+// Left for later: wgmma with TMA loads and a multi-stage ring, a band laid
+// out k-packed by its producer (no transposing here), and overlap of the
+// epilogue with the next tile.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "modarith.cuh"
+
 namespace {
 
-constexpr int TM = 64;         // output rows per block
-constexpr int TN = 64;         // output columns per block
-constexpr int KT = 32;         // contraction bytes staged per step
+constexpr int BM = 128;        // output rows per block: 8 warps of 16
+constexpr int BN = 32;         // output columns per block: 2 warps of 16
+constexpr int KT = 64;         // contraction bytes staged per step
 constexpr int KW = KT / 4;     // packed 32-bit words per staged row
-constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
+constexpr int SA = KW + 4;     // sA row stride (words): conflict-free A fragments
+constexpr int SB = BN + 8;     // sB row stride (words): conflict-free B fragments
+constexpr int THREADS = BM / 16 * (BN / 16) * 32;   // a warp per 16 x 16 tile
+constexpr int A_TASKS = BM * KT / 16;               // 16-byte lhs chunks a step
+constexpr int B_TASKS = KW * (BN / 16);             // 4 x 16-byte band chunks a plane
+static_assert(A_TASKS <= THREADS && 8 * B_TASKS <= THREADS, "one staging task a thread");
 constexpr int MAX_ROWS = 64;   // noise MAC rows: l * jr <= 32 * 2
 constexpr int TAB = 8;         // per-channel fold table width
 
-__device__ __forceinline__ uint64_t shoup(uint64_t x, uint64_t w, uint64_t wp,
-                                          uint64_t q) {
-  // w * x mod q for any x < 2^64, w < q < 2^62, wp = floor(w * 2^64 / q)
-  uint64_t t = __umul64hi(wp, x);
-  uint64_t r = w * x - t * q;  // in [0, 2q)
-  return r >= q ? r - q : r;
+// 16 bytes at p, zero from byte ``avail`` on; one vector load when allowed.
+__device__ __forceinline__ uint4 load16(const int8_t* p, long long avail, bool vec) {
+  if (vec && avail >= 16) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int b = 0; b < 16; ++b)
+    if (b < avail) w[b / 4] |= (uint32_t)(uint8_t)p[b] << (8 * (b % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__device__ __forceinline__ uint64_t addmod(uint64_t a, uint64_t b, uint64_t q) {
-  uint64_t s = a + b;
-  return s >= q ? s - q : s;
-}
-
-__device__ __forceinline__ uint64_t submod(uint64_t a, uint64_t b, uint64_t q) {
-  return a >= b ? a - b : a + q - b;
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // tables [CH, TAB] int64: q, bias K (sum_c 2^31 * 2^(8c) mod q), then
 // (w_g, w_g') for the groups g = 0, 1 of four columns: w_g = 2^(32g) mod q
 // and its 64-bit Shoup companion. etab [CH, 3] int64: g, g', (2^64 mod q)*g.
 template <int ND>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_scaled_noise_matmul_kernel(const int8_t* __restrict__ lhs,
                                  const int8_t* __restrict__ band,
                                  const int64_t* __restrict__ tables,
@@ -78,73 +97,91 @@ fused_scaled_noise_matmul_kernel(const int8_t* __restrict__ lhs,
                                  int64_t* __restrict__ out,
                                  int m, int n, int kd, int nrows, int jr,
                                  int vals, int encode32) {
-  __shared__ int32_t sA[TM][KW + 1];
-  __shared__ int32_t sB[ND][KW][TN];
+  __shared__ __align__(16) uint32_t sA[BM * SA];
+  __shared__ __align__(16) uint32_t sB[ND * KW * SB];
   __shared__ int32_t sN[MAX_ROWS * ND];
 
-  const int ch = blockIdx.x;
-  const int n0 = blockIdx.y * TN;
-  const int m0 = blockIdx.z * TM;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int ch = blockIdx.z;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;                 // mma fragment coordinates
+  const int wm = warp % (BM / 16) * 16, wn = warp / (BM / 16) * 16;  // the warp's tile
   const int8_t* A = lhs + (size_t)ch * m * kd;
   const int8_t* B = band + (size_t)ch * ND * kd * n;
+  const bool vecA = kd % 16 == 0 && (reinterpret_cast<uintptr_t>(lhs) & 15) == 0;
+  const bool vecB = n % 16 == 0 && (reinterpret_cast<uintptr_t>(band) & 15) == 0;
 
   for (int i = tid; i < nrows * ND; i += THREADS)
     sN[i] = ntab[(size_t)ch * nrows * ND + i];
 
-  int32_t acc[ND][4][4];
+  // staging tasks: A, 16 k-bytes of one row; B, four k rows x 16 columns
+  // of one plane
+  const int a_row = tid / (KT / 16), a_kq = tid % (KT / 16);
+  const int b_nq = tid % (BN / 16), b_kw = (tid / (BN / 16)) % KW;
+  const int b_c = tid / B_TASKS;
+  const bool a_task = tid < A_TASKS, b_task = b_c < ND;
+  uint4 ra, rb[4];
+  auto load = [&](int k0) {
+    const int ka = k0 + 16 * a_kq;
+    if (a_task)
+      ra = load16(A + (size_t)(m0 + a_row) * kd + ka,
+                  m0 + a_row < m ? (long long)kd - ka : 0, vecA);
+    if (b_task) {
+      const int col = n0 + 16 * b_nq;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = k0 + 4 * b_kw + r;
+        rb[r] = load16(B + ((size_t)b_c * kd + k) * n + col,
+                       k < kd ? (long long)n - col : 0, vecB);
+      }
+    }
+  };
+  auto store = [&]() {
+    if (a_task) *reinterpret_cast<uint4*>(&sA[a_row * SA + 4 * a_kq]) = ra;
+    if (b_task) {
+      const uint32_t x[4] = {rb[0].x, rb[1].x, rb[2].x, rb[3].x};
+      const uint32_t y[4] = {rb[0].y, rb[1].y, rb[2].y, rb[3].y};
+      const uint32_t z[4] = {rb[0].z, rb[1].z, rb[2].z, rb[3].z};
+      const uint32_t w[4] = {rb[0].w, rb[1].w, rb[2].w, rb[3].w};
+      uint32_t o[16];
+      transpose_bytes(x, o);
+      transpose_bytes(y, o + 4);
+      transpose_bytes(z, o + 8);
+      transpose_bytes(w, o + 12);
+      uint4* dst = reinterpret_cast<uint4*>(&sB[(b_c * KW + b_kw) * SB + 16 * b_nq]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        dst[q] = make_uint4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]);
+    }
+  };
+
+  int32_t acc[ND][2][4];
 #pragma unroll
   for (int c = 0; c < ND; ++c)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[c][i][j] = 0;
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0;
 
+  load(0);
   for (int k0 = 0; k0 < kd; k0 += KT) {
-    // lhs tile: 4 consecutive k bytes of a row per word
-    for (int w = tid; w < TM * KW; w += THREADS) {
-      const int r = w / KW, kw = w % KW, row = m0 + r;
-      uint32_t word = 0;
-      if (row < m) {
-        const int8_t* p = A + (size_t)row * kd;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int k = k0 + kw * 4 + b;
-          if (k < kd) word |= (uint32_t)(uint8_t)p[k] << (8 * b);
-        }
-      }
-      sA[r][kw] = (int32_t)word;
-    }
-    // band tile, transposed so 4 consecutive k bytes share a word
-    for (int w = tid; w < ND * KW * TN; w += THREADS) {
-      const int nn = w % TN, rest = w / TN;
-      const int kw = rest % KW, c = rest / KW, col = n0 + nn;
-      uint32_t word = 0;
-      if (col < n) {
-        const int8_t* p = B + (size_t)c * kd * n + col;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int k = k0 + kw * 4 + b;
-          if (k < kd) word |= (uint32_t)(uint8_t)p[(size_t)k * n] << (8 * b);
-        }
-      }
-      sB[c][kw][nn] = (int32_t)word;
-    }
+    store();
     __syncthreads();
+    if (k0 + KT < kd) load(k0 + KT);  // in flight while the tensor cores run
 #pragma unroll
-    for (int kw = 0; kw < KW; ++kw) {
-      int32_t a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sA[ty + 16 * i][kw];
+    for (int ks = 0; ks < KW; ks += 8) {
+      const uint32_t a0 = sA[(wm + g) * SA + ks + t];
+      const uint32_t a1 = sA[(wm + g + 8) * SA + ks + t];
+      const uint32_t a2 = sA[(wm + g) * SA + ks + 4 + t];
+      const uint32_t a3 = sA[(wm + g + 8) * SA + ks + 4 + t];
 #pragma unroll
       for (int c = 0; c < ND; ++c)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int32_t b = sB[c][kw][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[c][i][j] = __dp4a(a[i], b, acc[c][i][j]);
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t* b = sB + (c * KW + ks + t) * SB + wn + 8 * j + g;
+          mma_s8(acc[c][j], a0, a1, a2, a3, b[0], b[4 * SB]);
         }
     }
     __syncthreads();
@@ -154,36 +191,55 @@ fused_scaled_noise_matmul_kernel(const int8_t* __restrict__ lhs,
   const uint64_t q = (uint64_t)T[0], bias = (uint64_t)T[1];
   const uint64_t w0 = (uint64_t)T[2], wp0 = (uint64_t)T[3];
   const uint64_t w1 = (uint64_t)T[4], wp1 = (uint64_t)T[5];
-  uint64_t g = 0, gs = 0, wrap = 0;
+  uint64_t gg = 0, gs = 0, wrap = 0;
   if (sc != nullptr) {
-    g = (uint64_t)etab[(size_t)ch * 3];
+    gg = (uint64_t)etab[(size_t)ch * 3];
     gs = (uint64_t)etab[(size_t)ch * 3 + 1];
     wrap = (uint64_t)etab[(size_t)ch * 3 + 2];
   }
   const size_t plane = (size_t)m * n;
+  // accumulator e of fragment j: row g (+8 for e >= 2), column 2t (+1 for odd e)
+  auto row_of = [&](int e) { return m0 + wm + g + 8 * (e >> 1); };
+  auto col_of = [&](int j, int e) { return n0 + wn + 8 * j + 2 * t + (e & 1); };
+  // noise NTT into the columns: value rows (coefficient r composed from its
+  // jr digit planes, against the jr = 1 table) or raw digit rows; the loads
+  // of the thread's eight outputs for one row are in flight together
+  for (int r = 0; r < nrows; ++r) {
+    int32_t v[2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
+      for (int e = 0; e < 4; ++e) {
+        const int row = row_of(e), col = col_of(j, e);
+        v[j][e] = 0;
+        if (row >= m || col >= n) continue;
+        const size_t idx = (size_t)row * n + col;
+        if (vals) {
+          v[j][e] = noise[(size_t)(r * jr) * plane + idx];
+          if (jr == 2) v[j][e] += 256 * (int32_t)noise[(size_t)(r * 2 + 1) * plane + idx];
+        } else {
+          v[j][e] = noise[(size_t)r * plane + idx];
+        }
+      }
+#pragma unroll
+    for (int c = 0; c < ND; ++c) {
+      const int32_t w = sN[r * ND + c];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][j][e] += v[j][e] * w;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row_of(e), col = col_of(j, e);
       if (row >= m || col >= n) continue;
       const size_t idx = (size_t)row * n + col;
       int32_t p[ND];
 #pragma unroll
-      for (int c = 0; c < ND; ++c) p[c] = acc[c][i][j];
-      // noise NTT: value rows (coefficient r composed from its jr digit
-      // planes, against the jr = 1 table) or raw digit rows
-      for (int r = 0; r < nrows; ++r) {
-        int32_t v;
-        if (vals) {
-          v = noise[(size_t)(r * jr) * plane + idx];
-          if (jr == 2) v += 256 * (int32_t)noise[(size_t)(r * 2 + 1) * plane + idx];
-        } else {
-          v = noise[(size_t)r * plane + idx];
-        }
-#pragma unroll
-        for (int c = 0; c < ND; ++c) p[c] += v * sN[r * ND + c];
-      }
+      for (int c = 0; c < ND; ++c) p[c] = acc[c][j][e];
       // exact fold: bias each column by 2^31, group four columns per u64
       uint64_t G0 = 0, G1 = 0;
 #pragma unroll
@@ -197,15 +253,15 @@ fused_scaled_noise_matmul_kernel(const int8_t* __restrict__ lhs,
       res = submod(res, bias, q);
       if (sc != nullptr) {
         const uint64_t s = (uint64_t)sc[idx];
-        uint64_t e;
+        uint64_t enc;
         if (encode32) {
-          e = shoup(s & 0xFFFFFFFFull, g, gs, q);
+          enc = shoup(s & 0xFFFFFFFFull, gg, gs, q);
         } else {
-          e = shoup(s, g, gs, q);
+          enc = shoup(s, gg, gs, q);
           // Rust `as i64` (encryption.rs:195): m >= 2^63 encodes m - 2^64
-          if (s >> 63) e = submod(e, wrap, q);
+          if (s >> 63) enc = submod(enc, wrap, q);
         }
-        res = addmod(res, e, q);
+        res = addmod(res, enc, q);
       }
       out[(size_t)ch * plane + idx] = (int64_t)res;
     }
@@ -231,12 +287,12 @@ extern "C" int pvw_fused_scaled_noise_matmul(
     const void* noise, const void* sc, const void* etab, void* out, int ch,
     int m, int n, int kd, int nd, int nrows, int jr, int vals, int encode32,
     void* stream) {
-  if (ch <= 0 || m <= 0 || n <= 0 || kd <= 0 || nd < 1 || nd > 8 ||
+  if (ch <= 0 || ch > 65535 || m <= 0 || n <= 0 || kd <= 0 || nd < 1 || nd > 8 ||
       nrows < 0 || nrows > MAX_ROWS || (nrows > 0 && jr != 1 && jr != 2) ||
       (nrows > 0 && noise == nullptr) || (sc == nullptr) != (etab == nullptr) ||
-      (n + TN - 1) / TN > 65535 || (m + TM - 1) / TM > 65535)
+      (m + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(ch, (n + TN - 1) / TN, (m + TM - 1) / TM);
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, ch);
   cudaStream_t s = (cudaStream_t)stream;
   const int8_t* l8 = (const int8_t*)lhs;
   const int8_t* b8 = (const int8_t*)band;

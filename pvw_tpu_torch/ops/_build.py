@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C function and is compiled on its
 own into ``build/kernels/<name>-<hash>.so`` beside the package (the hash
-covers the source and the flags, so an edited source rebuilds). Builds
+covers the source, the shared headers and the flags, so an edited source
+rebuilds). Builds
 happen at first use, or up front with :func:`build_all`, which starts one
 nvcc per source at once. A failed build raises with nvcc's output; there is
 no fallback.
@@ -37,8 +38,10 @@ def nvcc_path() -> str:
 
 
 def target(name: str) -> Path:
-    """The library path of ``csrc/<name>.cu`` for its current source."""
+    """The library path of ``csrc/<name>.cu`` for its current source and
+    the shared headers ``csrc/*.cuh``."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

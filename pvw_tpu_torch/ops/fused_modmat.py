@@ -1,4 +1,5 @@
-"""The fused scaled-digit modular matmul: Hopper kernel and plain twin.
+"""The fused scaled-digit modular matmul and the fused r-stage: Hopper
+kernels and plain twins.
 
 The counterpart of ``pvw_tpu.ops.pallas_modmat.matmul_fold_scaled``. For
 each channel (limb, NTT slot) it contracts the lhs digit planes against the
@@ -13,6 +14,12 @@ encode(m). :func:`matmul_fold_scaled` runs the CUDA kernel
 (``csrc/fused_scaled_noise_matmul.cu``) for CUDA tensors and the plain
 twin :func:`matmul_fold_scaled_plain` for CPU tensors; it raises for
 anything else. The twin repeats the JAX package's XLA route.
+
+:func:`ntt_prescale_band` is the counterpart of
+``pvw_tpu.ops.pallas_modmat.ntt_prescale_band``: small signed coefficients
+-> signed NTT -> scaled-digit band in one pass, the r-stage of encryption
+on deep chains (``csrc/ntt_prescale_band.cu``; plain twin
+:func:`ntt_prescale_band_plain`).
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import torch
 
 from . import u64 as u
 from ._build import load
-from .modmat import _fold_leading, digits, exact_int_matmul, scaled_cols
+from .modmat import (_fold_leading, digits, exact_int_matmul, prescale_digits_band,
+                     scaled_cols)
+from .ntt import ntt_forward_signed_ch, signed_digit_count
 from .tfry import reduce96
 
 if TYPE_CHECKING:
@@ -33,6 +42,9 @@ if TYPE_CHECKING:
 
 KERNEL = "fused_scaled_noise_matmul"
 TABLE_WIDTH = 8
+PRESCALE_KERNEL = "ntt_prescale_band"
+PRESCALE_TABLE_WIDTH = 22
+PRESCALE_DEGREES = (8, 16, 32, 64)
 
 
 # --------------------------------------------------------------------------
@@ -268,3 +280,101 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
         None if noise is None else noise.contiguous(),
         sc, etab, jr, vals, encode32)
     return out.reshape(L, S, m, n)
+
+
+# --------------------------------------------------------------------------
+# the fused r-stage: signed NTT + scaled-digit band
+# --------------------------------------------------------------------------
+
+def _prescale_tabs(ring: "RingPlan", C1: int) -> np.ndarray:
+    """Per-limb constants of the prescale kernel, uint64 [L, 22]: q, the
+    bias K of ``C1`` columns, (2^(32g) mod q, its 64-bit Shoup companion)
+    for g < 3, then (2^(8t) mod q, its Shoup companion) for t = 1..7, zero
+    where unused. The JAX package keeps the same values per channel as
+    u32 pairs."""
+    L, nd = ring.num_limbs, ring.num_digits
+    t = np.zeros((L, PRESCALE_TABLE_WIDTH), np.uint64)
+    t[:, 0] = ring.q
+    t[:, 1] = ring.bias_for_columns(C1)
+    for g in range((C1 + 3) // 4):
+        t[:, 2 + 2 * g], t[:, 3 + 2 * g] = ring.grp_w[:, g], ring.grp_s[:, g]
+    for i in range(1, nd):
+        t[:, 6 + 2 * i], t[:, 7 + 2 * i] = ring.pow_w[:, i], ring.pow_s64[:, i]
+    return t
+
+
+def _prescale_ntab(ring: "RingPlan", jr: int, device):
+    """Scaled twiddle digits of the signed NTT, int8 [L*l, C1, l*jr]:
+    entry (ch, c, j*jr + dd) multiplies digit dd of coefficient j into
+    NTT column c of channel ch (the banded ``ntt_band_jr`` table, channel
+    major)."""
+    L, l = ring.num_limbs, ring.degree
+    band = ring.table("ntt_band_jr", device, "fwd", jr)           # [L, C1*l, l*jr]
+    C1 = band.shape[1] // l
+    return band.reshape(L, C1, l, l * jr).permute(0, 2, 1, 3).reshape(L * l, C1, l * jr)
+
+
+def ntt_prescale_available(ring: "RingPlan", k: int, d: int, max_abs: int,
+                           device) -> bool:
+    """True when :func:`ntt_prescale_band` takes the call: the bound is in
+    the signed-digit range and the device is a CUDA card or the CPU. ``ring``,
+    ``k`` and ``d`` keep the JAX package's signature, whose TPU tiling
+    depends on them; the CUDA kernel takes any positive sizes, and a ring
+    degree it lacks raises in :func:`ntt_prescale_band` rather than falling
+    back."""
+    if not signed_digit_count(max_abs) or k <= 0 or d <= 0:
+        return False
+    return torch.device(device).type in ("cpu", "cuda")
+
+
+def ntt_prescale_band_plain(coeffs, ring: "RingPlan", max_abs: int):
+    """Plain PyTorch version of :func:`ntt_prescale_band`: the signed NTT
+    emitted channel-major, then the scaled-digit band."""
+    return prescale_digits_band(ntt_forward_signed_ch(coeffs, ring, max_abs), ring)
+
+
+def _prescale_fn():
+    fn = load(PRESCALE_KERNEL).pvw_ntt_prescale_band
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ntt_prescale_band(coeffs, ring: "RingPlan", max_abs: int):
+    """Signed coefficients int32/int64 [k, d, l] (|c| <= max_abs) ->
+    scaled-digit band int8 [L, l, nd, k*nd, d], bit-identical to
+    ``prescale_digits_band(ntt_forward_signed_ch(coeffs, ring, max_abs))``.
+
+    CUDA tensors launch ``csrc/ntt_prescale_band.cu`` on the current
+    stream (counted in ``ntt_prescale_band.launches``); CPU tensors take
+    :func:`ntt_prescale_band_plain`; anything else raises."""
+    jr = signed_digit_count(max_abs)
+    if not jr:
+        raise ValueError(f"coefficients up to {max_abs} need the residue path")
+    k, d, l = coeffs.shape
+    if l != ring.degree:
+        raise ValueError(f"coefficient vectors of length {l}, ring degree {ring.degree}")
+    dev = coeffs.device
+    if dev.type == "cpu":
+        return ntt_prescale_band_plain(coeffs, ring, max_abs)
+    if dev.type != "cuda":
+        raise ValueError(f"ntt_prescale_band: unsupported device {dev}")
+    if l not in PRESCALE_DEGREES:
+        raise ValueError(f"ntt_prescale_band: the kernel takes ring degrees "
+                         f"{PRESCALE_DEGREES}, got {l}")
+    L, nd = ring.num_limbs, ring.num_digits
+    C1 = nd + jr - 1
+    x = coeffs.to(torch.int32).contiguous()
+    ntab = _prescale_ntab(ring, jr, dev).contiguous()
+    tabs = u.u64_tensor(_prescale_tabs(ring, C1), dev)
+    out = torch.empty((L * l, nd, k * nd, d), dtype=torch.int8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _prescale_fn()(_ptr(x), _ptr(ntab), _ptr(tabs), _ptr(out), L, l, jr, k, d,
+                         nd, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{PRESCALE_KERNEL}: launch failed with CUDA error {err}")
+    ntt_prescale_band.launches += 1
+    return out.reshape(L, l, nd, k * nd, d)
+
+
+ntt_prescale_band.launches = 0

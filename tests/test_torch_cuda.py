@@ -1,7 +1,7 @@
-"""The port's CUDA kernel against its plain PyTorch twin, on a card.
+"""The port's CUDA kernels against their plain PyTorch twins, on a card.
 
-Every test here is marked ``cuda`` and skips without a card: the kernel
-has no CPU mode. This file imports neither ``jax`` nor ``pvw_tpu``, so it
+Every test here is marked ``cuda`` and skips without a card: the kernels
+have no CPU mode. This file imports neither ``jax`` nor ``pvw_tpu``, so it
 runs on a machine with PyTorch alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -17,9 +17,12 @@ import torch
 from pvw_tpu_torch.ops import fused_modmat as fm
 from pvw_tpu_torch.ops import modmat, ntt, u64
 from pvw_tpu_torch.params.ring import RingPlan
+from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
 TOY = (0xFFFFC4001, 0x1FFFFE0001)
 BIG = (0x800000022A0001, 0x800000021A0001)     # 55-bit primes: nd = 8
+CHAIN_61X17 = generate_ntt_primes(61, 17, 16)  # config 4's chain: nd = 8
+CHAIN_61X2_L64 = generate_ntt_primes(61, 2, 64)  # nd = 8 at the largest kernel degree
 
 
 @pytest.fixture
@@ -34,17 +37,17 @@ def rand_u64(rng, shape):
         + rng.integers(0, 2, size=shape, dtype=np.uint64)
 
 
-def operands(moduli, jr, encode, seed, m, k, n):
+def operands(moduli, jr, encode, seed, m, k, n, l=8):
     rng = np.random.default_rng(seed)
-    ring = RingPlan(moduli, 8)
-    L, S, nd = ring.num_limbs, 8, ring.num_digits
+    ring = RingPlan(moduli, l)
+    L, S, nd = ring.num_limbs, l, ring.num_digits
     qs = ring.q.reshape(L, 1, 1, 1)
     lhs_dig = modmat.digits(u64.u64_tensor(rand_u64(rng, (L, S, m, k)) % qs), nd)
     band = modmat.prescale_digits_band(u64.u64_tensor(rand_u64(rng, (L, S, k, n)) % qs), ring)
     noise = None
     bound = 50 if jr == 1 else 2000
     if jr:
-        ev = rng.integers(-bound, bound + 1, (m, n, 8)).astype(np.int32)
+        ev = rng.integers(-bound, bound + 1, (m, n, l)).astype(np.int32)
         noise = ntt._digit_planes(torch.from_numpy(ev), jr)
     enc = None
     if encode:
@@ -63,15 +66,18 @@ def operands(moduli, jr, encode, seed, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("moduli,jr,encode,vals", [
-    (TOY, 1, None, True), (TOY, 2, "enc64", False), (TOY, 0, "enc32", False),
-    (BIG, 1, "enc32", True), (BIG, 2, "enc64", True), (BIG, 2, None, False),
+@pytest.mark.parametrize("moduli,jr,encode,vals,l", [
+    (TOY, 1, None, True, 8), (TOY, 2, "enc64", False, 8), (TOY, 0, "enc32", False, 8),
+    (BIG, 1, "enc32", True, 8), (BIG, 2, "enc64", True, 8), (BIG, 2, None, False, 8),
+    (CHAIN_61X17, 1, "enc64", True, 16), (CHAIN_61X17, 2, "enc32", False, 16),
 ])
-def test_kernel_equals_plain_twin(cuda_device, moduli, jr, encode, vals):
+def test_kernel_equals_plain_twin(cuda_device, moduli, jr, encode, vals, l):
+    """The fused matmul; the 61-bit rows are CH = 272 channels at nd = 8."""
     from pvw_tpu_torch.config import settings
 
+    m, k, n = (70, 33, 130) if l == 8 else (40, 9, 70)
     ring, lhs_dig, band, noise, bound, enc = operands(moduli, jr, encode, 25,
-                                                      m=70, k=33, n=130)
+                                                      m=m, k=k, n=n, l=l)
     want = fm.matmul_fold_scaled(None, band, ring, noise=noise, encode=enc, lhs_dig=lhs_dig)
     move = lambda t: None if t is None else t.to(cuda_device)
     before = fm.fused_scaled_noise_matmul.launches
@@ -86,6 +92,98 @@ def test_kernel_equals_plain_twin(cuda_device, moduli, jr, encode, vals):
     torch.cuda.synchronize()
     assert fm.fused_scaled_noise_matmul.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l,m,k,n,jr", [
+    (TOY, 8, 80, 32, 48, 1), (CHAIN_61X17, 16, 72, 16, 48, 1),
+    (TOY, 8, 70, 33, 129, 2), (CHAIN_61X17, 16, 40, 9, 69, 1),
+])
+def test_kernel_tile_edges_equal_plain_twin(cuda_device, moduli, l, m, k, n, jr):
+    """The fused matmul with m and n off its 128 x 32 block tile: k*nd and n
+    multiples of 16 (tiles staged with 16-byte loads), and odd n (byte-wise
+    staging)."""
+    ring, lhs_dig, band, noise, bound, enc = operands(moduli, jr, "enc64", 27,
+                                                      m=m, k=k, n=n, l=l)
+    want = fm.matmul_fold_scaled(None, band, ring, noise=noise, encode=enc, lhs_dig=lhs_dig)
+    move = lambda t: t.to(cuda_device)
+    got = fm.matmul_fold_scaled(None, move(band), ring, noise=move(noise),
+                                encode=tuple(map(move, enc)), lhs_dig=move(lhs_dig),
+                                noise_bound=bound)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l,bound,k,d", [
+    (TOY, 8, 1, 16, 128), (TOY, 8, 200, 5, 130), (CHAIN_61X17, 16, 1, 8, 1000),
+    (CHAIN_61X17, 16, 2000, 3, 70), (TOY, 64, 1, 4, 70), (CHAIN_61X2_L64, 64, 2000, 3, 130),
+])
+def test_prescale_kernel_equals_plain_twin(cuda_device, moduli, l, bound, k, d):
+    """The fused r-stage: nd = 5 and config 4's chain, jr = 1 and 2, d off
+    the kernel's 256-column tile and off its 4-column quads, and l = 64
+    (the twiddle digits' 74 KB of dynamic shared memory at jr = 2)."""
+    ring = RingPlan(moduli, l)
+    rng = np.random.default_rng(26)
+    c = torch.from_numpy(rng.integers(-bound, bound + 1, (k, d, l)).astype(np.int32))
+    c[0, 0], c[0, 1] = bound, -bound
+    want = fm.ntt_prescale_band(c, ring, bound)
+    before = fm.ntt_prescale_band.launches
+    got = fm.ntt_prescale_band(c.to(cuda_device), ring, bound)
+    torch.cuda.synchronize()
+    assert fm.ntt_prescale_band.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_prescale_failures_raise(cuda_device, monkeypatch, tmp_path):
+    """No fallback: a refused launch and a failed build both raise."""
+    from pvw_tpu_torch.ops import _build
+
+    c = torch.zeros((2, 8, 128), dtype=torch.int32, device=cuda_device)
+    before = fm.ntt_prescale_band.launches
+    with pytest.raises(ValueError, match="ring degrees"):
+        fm.ntt_prescale_band(c, RingPlan(TOY, 128), 1)     # a degree it lacks raises
+    monkeypatch.setattr(fm, "PRESCALE_DEGREES", (8, 16, 32, 64, 128))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fm.ntt_prescale_band(c, RingPlan(TOY, 128), 1)     # the kernel refuses l = 128
+    assert fm.ntt_prescale_band.launches == before
+    (tmp_path / "ntt_prescale_band.cu").write_text("#error deliberately broken\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fm.ntt_prescale_band(c[..., :8].contiguous(), RingPlan(TOY, 8), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,moduli", [(16, CHAIN_61X17), (64, CHAIN_61X2_L64)])
+def test_deep_chain_encryption_reaches_the_kernel(cuda_device, monkeypatch, l, moduli):
+    """Deep chains on the card (config 4's, and l = 64): the default (auto)
+    r-stage launches the prescale kernel once per encryption and gives the
+    CPU's residues; a failing launch raises out of the entry point."""
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+
+    params = P.PvwParameters(4, 8, l, moduli, 0.5, 50, 50)
+    sc = np.array([[1, 1 << 63, (1 << 64) - 1, 5], [0, 7, 8, 1 << 40]], np.uint64)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        key = R.key(5)
+        crs = P.PvwCrs.new(params, R.fold_in(key, 1), device=dev)
+        parties = [P.Party.new(i, params, R.fold_in(key, 10 + i), device=dev)
+                   for i in range(4)]
+        gpk = P.GlobalPublicKey(crs)
+        gpk.generate_all_party_keys(parties, R.fold_in(key, 2))
+        before = fm.ntt_prescale_band.launches
+        ct = P.encrypt_batch(sc, gpk, R.fold_in(key, 3))
+        assert fm.ntt_prescale_band.launches == before + (dev != "cpu")
+        out[str(dev)] = (gpk.matrix.residues_np(), ct.c1.residues_np(), ct.c2.residues_np())
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(fm, "_prescale_fn", lambda: (lambda *args: 700))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        P.encrypt_batch(sc, gpk, R.fold_in(key, 4))
 
 
 @pytest.mark.cuda
