@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold its kernel
-against the plain version.
+"""Drive the PyTorch port's paths on one CUDA card and hold its kernels
+against their plain versions.
 
 Run from the root of the repository, on a machine with an NVIDIA H100:
 
@@ -9,7 +9,7 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   both kernels from ``pvw_tpu_torch/csrc`` (one nvcc each, started
+   the three kernels from ``pvw_tpu_torch/csrc`` (one nvcc each, started
    together, into ``build/kernels``);
 2. kernel_vs_plain: the fused scaled-noise matmul against its plain
    PyTorch twin at the keygen, c1 and c2 shapes of the main path at a
@@ -25,7 +25,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    batch keygen, 4096 dealers' shares encrypted in one batch, four parties'
    shares decrypted exactly, and one encryption with scalars >= 2^63
    decrypted with the reference's `as i64` semantics; the kernels' launch
-   counts over this phase;
+   counts over this phase (the fused matmul and the r-stage kernel);
 6. breakdown: the stages of one full-width encryption and decryption,
    each timed alone;
 7. prescale_vs_plain: the fused r-stage kernel (signed NTT + scaled-digit
@@ -40,16 +40,41 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 9. deep_timing: the r-stage kernel at the full config-4 r shape and the
    fused matmul at the full config-4 c2 shape, each beside its bound, its
    plain twin and (for the matmul) ``torch._int_mm``; and the r-stage
-   kernel at the toy chain's r shape (k = 256, d = 4096, nd = 5), where
-   ``fused_prescale=auto`` keeps the plain pipeline;
+   kernel at the toy chain's r shape (k = 256, d = 4096, nd = 5);
 10. deep_path: BASELINE config 4, ``presets.threshold_256bit(1024)`` (17 x
     61-bit limbs, k = 512, l = 16, nd = 8): CRS, batch keygen of 1024
     parties, 1024 dealers' shares encrypted in one batch (the r-stage
     through the prescale kernel), threshold decryption of a 921-dealer
     valid subset at threshold 683 for four parties and full decryption for
     two, every share exact, the abort below threshold; per-stage ms and
-    both kernels' launch counts over the path;
-11. the kernels line, then the last line ``{"ok": true, "device": ...}``.
+    both kernels' launch counts over the path; then deep_breakdown;
+11. v3k_vs_plain: the v3k noise generator against its plain twin, every
+    byte, at the toy, config-4 and reference c1/c2 shapes (l = 8, 16, 32;
+    jr = 1 and 2; row and column offsets; widths off its column tile); the
+    fused matmul with ``gen_noise`` against the plain fold of the same
+    planes (value and digit rows); the fused matmul bare and encode-only
+    (no noise rows) at the toy and the reference shapes, the encode-only
+    launch also at the full reference c2 shape (m = n = k = 1024);
+12. v3k_timing: the generator at the full width of every product it
+    serves (toy, config-4 and reference c1/c2 with their bounds, and the
+    toy c2 at jr = 2), every byte against its plain twin, then timed beside
+    its integer-operation bound and its plain twin;
+13. v3k_path: the toy chain under ``noise_stream="v3k"``: keygen, 4096
+    dealers, four parties decrypted exactly, then v3k_breakdown;
+14. v3k_deep_path: config 4 under v3k on the deep path's keys: 1024
+    dealers, threshold decryption of the 921-dealer subset for two parties,
+    full decryption for one;
+15. reference_path: the reference's own 128-bit parameters,
+    ``presets.secure_128_reference(1024)`` (k = 1024, l = 8, 4 x 55-bit
+    limbs, variance 10, bounds (1, 1172385)) under v3k: CRS, batch keygen
+    of 1024 parties, 1024 dealers (c1's noise from the generator, c2's as
+    row-keyed residues after the encode-only fused matmul), all dealers
+    decrypted for parties 0, 511 and 1023, then reference_breakdown;
+16. the kernels line, then the last line ``{"ok": true, "device": ...}``.
+
+Every path runs with the three kernels' launch counts set to 0 just
+before it and read just after, and fails if a kernel of the path was not
+launched.
 """
 
 from __future__ import annotations
@@ -63,11 +88,22 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense int8 rate and
-# the CUDA cores' float32 rate (the ceiling of their 32-bit integer work)
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the dense int8
+# tensor-core rate. 32-bit integer instructions (add, logic, shift,
+# multiply-add: one each) on the CUDA cores: at most one warp instruction a
+# clock from each of an SM's four schedulers, 132 SMs x 128 lanes x the 1.98
+# GHz boost clock. Not the 64 INT32 lanes alone (16.7e12 a second): the
+# compiler also issues integer adds as IMAD on the FP32 pipe, and the v3k
+# generator measured faster than the INT32 lanes allow (PERF.md). Not the
+# 67e12 float32 rate, which counts an FMA twice.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
-CORE_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# 32-bit operations of one v3k value: 1.5 Threefry-2x32-20 evaluations
+# (20 rounds of add, rotate and xor, five key injections of two adds, two
+# initial adds: 72) and the 96-bit reduction (three wide products, two
+# carries, the offset: 8); counters and digit splits not counted
+V3K_OPS_PER_VALUE = 1.5 * (20 * 3 + 5 * 2 + 2) + 8
 
 N_RECEIVERS, K_DIM, ELL = 4096, 256, 8
 MODULI = (0xFFFFC4001, 0x1FFFFE0001)
@@ -80,6 +116,9 @@ GOLDEN = {"crs": "87295f5306ea364d", "secret_key": "d3bc51f25628c4f5",
 DEEP_N, DEEP_K, DEEP_ELL = 1024, 512, 16
 DEEP_COMPARE_BATCH = 256
 DEEP_THRESHOLD = 683                                  # ceil(2n/3)
+# the reference's 128-bit example: presets.secure_128_reference(1024)
+REF_N, REF_K = 1024, 1024
+V3K_KEY = (0xDEADBEEF, 0x12345678)
 
 
 def emit(obj) -> None:
@@ -138,6 +177,24 @@ def max_abs_err(got, want) -> int:
     rows = got.shape[0] * got.shape[1]
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                for g, w in zip(got.reshape(rows, -1), want.reshape(rows, -1)))
+
+
+def _counted():
+    """Each kernel's wrapper, which counts its launches."""
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    return {fm.KERNEL: fm.fused_scaled_noise_matmul,
+            fm.PRESCALE_KERNEL: fm.ntt_prescale_band,
+            fm.NOISE_KERNEL: fm.v3k_noise_planes}
+
+
+def reset_launches() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def operands(ring, m, k, n, jr, encode, gen, dev):
@@ -334,8 +391,7 @@ def phase_main_path(dev, card: str) -> dict:
     wrap_parties = (0, 1, N_RECEIVERS // 2, N_RECEIVERS - 1)   # two >= 2^63
     torch.cuda.reset_peak_memory_stats()
 
-    fm.fused_scaled_noise_matmul.launches = 0
-    fm.ntt_prescale_band.launches = 0
+    reset_launches()
     crs = timed(times, "crs_ms", lambda: P.PvwCrs.new(params, R.fold_in(key, 0), device=dev))
     coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (N_RECEIVERS, K_DIM, ELL),
                               params.secret_variance, device=dev)
@@ -351,8 +407,7 @@ def phase_main_path(dev, card: str) -> dict:
     wrap_ct = timed(times, "wrap_encrypt_ms",
                     lambda: P.encrypt(wrap_sc, gpk, R.fold_in(key, 778)))
     wrap_got = {i: P.decrypt_party_value(wrap_ct, sks[i], i) for i in wrap_parties}
-    launches = fm.fused_scaled_noise_matmul.launches
-    prescale_launches = fm.ntt_prescale_band.launches
+    counts = launches()
 
     shares_exact = all(got[i] == [int(v) for v in shares[:, i]] for i in parties)
     q = params.q_total()
@@ -364,59 +419,46 @@ def phase_main_path(dev, card: str) -> dict:
            "decrypt_parties": list(parties), "shares_exact": shares_exact,
            "wrap_scalars": {str(i): int(wrap_sc[i]) for i in wrap_parties},
            "wrap_decoded": {str(i): wrap_got[i] for i in wrap_parties},
-           "wrap_ok": wrap_ok, "launches": launches,
-           "prescale_launches": prescale_launches,
+           "wrap_ok": wrap_ok, "launches": counts,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     check(shares_exact, "a decrypted share differs from the encrypted one")
     check(wrap_ok, "the >= 2^63 scalars did not decode with `as i64` semantics")
-    check(launches >= 3, f"the kernel ran {launches} times on the main path")
+    check(counts[fm.KERNEL] >= 3, f"the fused matmul ran {counts[fm.KERNEL]} times "
+                                  "on the main path")
+    check(counts[fm.PRESCALE_KERNEL] >= 2, f"the r-stage kernel ran "
+                                           f"{counts[fm.PRESCALE_KERNEL]} times on the "
+                                           "main path")
     return out, {"params": params, "gpk": gpk, "shares": shares, "sk": sks[parties[0]]}
 
 
-def phase_breakdown(dev, card: str, ctx, name: str = "breakdown") -> dict:
+def phase_breakdown(dev, card: str, ctx, name: str = "breakdown",
+                    stream: str | None = "v4") -> dict:
     """The stages of one full-width encryption and decryption, each timed
     alone (host clock around work ending in a synchronize): where a path's
-    time goes. Same calls as ``encryption._encrypt_kernel``, the r-stage
-    routed as it routes it."""
-    import torch
-
+    time goes. The encryption is the entry point's own
+    ``encryption._encrypt_kernel`` under ``stream`` (a value of
+    ``settings.kernel_noise_stream()``), each stage timed through its
+    ``stage`` hook."""
     from pvw_tpu_torch import random as R
-    from pvw_tpu_torch.config import settings
-    from pvw_tpu_torch.crypto import decryption
-    from pvw_tpu_torch.ops import fused_modmat as fm, modmat, ntt, u64
-    from pvw_tpu_torch.sampling.cbd import sample_vec_cbd_rows
+    from pvw_tpu_torch.crypto import decryption, encryption
+    from pvw_tpu_torch.ops import u64
 
     params, gpk, shares = ctx["params"], ctx["gpk"], ctx["shares"]
-    ring, k, n, l = params.ring, params.k, params.n, params.l
     d = shares.shape[0]
     times = {}
-    k_r, k_e1, k_e2 = R.split(R.fold_in(R.key(0), 779), 3)
+    key = R.fold_in(R.key(0), 779)
     sc = timed(times, "scalars_to_device_ms", lambda: u64.u64_tensor(shares, dev))
-    r = timed(times, "r_sample_ms", lambda: sample_vec_cbd_rows(k_r, 0, k, (d, l), 0.5, dev))
-    if settings.use_fused_prescale(ring.num_digits) \
-            and fm.ntt_prescale_available(ring, k, d, 1, dev):
-        r_op = timed(times, "r_ntt_prescale_kernel_ms", lambda: fm.ntt_prescale_band(r, ring, 1))
-    else:
-        r_ch = timed(times, "r_ntt_ms", lambda: ntt.ntt_forward_signed_ch(r, ring, 1))
-        r_op = timed(times, "r_prescale_ms", lambda: modmat.prescale_digits_band(r_ch, ring))
-    n1 = timed(times, "noise_c1_ms", lambda: ntt.noise_digit_planes(
-        k_e1, 0, k, d, l, params.error_bound_1, dev))
-    n2 = timed(times, "noise_c2_ms", lambda: ntt.noise_digit_planes(
-        k_e2, 0, n, d, l, params.error_bound_2, dev))
     a_dig, b_dig = gpk.encrypt_operands()
-    etab = u64.u64_tensor(fm.encode_tab(params.gadget_ntt, params.gadget_ntt_shoup,
-                                        params.gadget_wrap), dev)
-    c1 = timed(times, "kernel_c1_ms", lambda: fm.matmul_fold_scaled(
-        None, r_op, ring, noise=n1, lhs_dig=a_dig, noise_bound=params.error_bound_1))
-    c2 = timed(times, "kernel_c2_ms", lambda: fm.matmul_fold_scaled(
-        None, r_op, ring, noise=n2, encode=(sc.t().contiguous(), etab), lhs_dig=b_dig,
-        encode32=True, noise_bound=params.error_bound_2))
+    c1, c2 = encryption._encrypt_kernel(
+        params, a_dig, b_dig, sc, key, int(shares.max()) < 1 << 32,
+        *encryption._host_noise_pairs(params, key, d, dev), stream,
+        stage=lambda stage, fn: timed(times, f"{stage}_ms", fn))
     sk = ctx["sk"].to_polynomials(dev).res
     z = timed(times, "decrypt_contract_ntt_ms", lambda: decryption._noisy_messages(
         params, sk, c1, c2[:, :, 0]))
     timed(times, "decode_python_ms", lambda: decryption._decode_batch(z, params))
-    out = {"phase": name, "card": card, "dealers": d, **times,
+    out = {"phase": name, "card": card, "stream": stream, "dealers": d, **times,
            "decode_ms_per_message": times["decode_python_ms"] / d}
     emit(out)
     return out
@@ -429,8 +471,8 @@ def prescale_bound(ring, k: int, d: int, jr: int) -> dict:
     """The least time of one r-stage call: the band written and the
     coefficients read once, against its operations: the NTT's int8 digit
     MACs at the int8 rate, and the fold and scale Shoup products (three
-    64-bit products each, four 32-bit multiply-adds a product) on the CUDA
-    cores."""
+    64-bit products each, four 32-bit multiply-adds a product, one INT32
+    lane-operation each) on the CUDA cores."""
     L, l, nd = ring.num_limbs, ring.degree, ring.num_digits
     C1 = nd + jr - 1
     groups = L * l * k * d
@@ -438,7 +480,7 @@ def prescale_bound(ring, k: int, d: int, jr: int) -> dict:
     int8_macs = groups * C1 * l * jr
     core_madds = groups * ((C1 + 3) // 4 + nd - 1) * 3 * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (2 * int8_macs / INT8_OPS_PER_S + 2 * core_madds / CORE_OPS_PER_S) * 1e3
+    ops_ms = (2 * int8_macs / INT8_OPS_PER_S + core_madds / INT32_OPS_PER_S) * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -617,8 +659,7 @@ def phase_deep_path(dev, card: str) -> dict:
     full_parties = (0, n - 1)
     torch.cuda.reset_peak_memory_stats()
 
-    fm.fused_scaled_noise_matmul.launches = 0
-    fm.ntt_prescale_band.launches = 0
+    reset_launches()
     crs = timed(times, "crs_ms", lambda: P.PvwCrs.new(params, R.fold_in(key, 0), device=dev))
     coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (n, params.k, params.l),
                               params.secret_variance, device=dev)
@@ -638,8 +679,7 @@ def phase_deep_path(dev, card: str) -> dict:
         aborted = False
     except InsufficientValidCiphertexts:
         aborted = True
-    launches = {fm.KERNEL: fm.fused_scaled_noise_matmul.launches,
-                fm.PRESCALE_KERNEL: fm.ntt_prescale_band.launches}
+    counts = launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     shares_exact = all(got[i] == [(dl, int(shares[dl, i])) for dl in valid] for i in parties) \
@@ -652,21 +692,237 @@ def phase_deep_path(dev, card: str) -> dict:
            "threshold_parties": list(parties), "full_parties": list(full_parties),
            **times, "enc_per_s": n / (times["encrypt_ms"] / 1e3),
            "shares_exact": shares_exact, "aborted_below_threshold": aborted,
-           "launches": launches, "peak_mem_gb": peak}
+           "launches": counts, "peak_mem_gb": peak}
     emit(out)
     check(shares_exact, "a threshold-decrypted share differs from the encrypted one")
     check(aborted, f"{DEEP_THRESHOLD - 1} valid dealers did not abort at threshold "
                    f"{DEEP_THRESHOLD}")
-    check(launches[fm.PRESCALE_KERNEL] >= 1, "the r-stage kernel never ran on the deep path")
-    check(launches[fm.KERNEL] >= 3, f"the fused matmul ran {launches[fm.KERNEL]} times "
-                                    "on the deep path")
-    return out, {"params": params, "gpk": gpk, "shares": shares, "sk": sks[0]}
+    check(counts[fm.PRESCALE_KERNEL] >= 1, "the r-stage kernel never ran on the deep path")
+    check(counts[fm.KERNEL] >= 3, f"the fused matmul ran {counts[fm.KERNEL]} times "
+                                  "on the deep path")
+    return out, {"params": params, "gpk": gpk, "shares": shares, "sk": sks[0],
+                 "coeffs": host_coeffs}
+
+# --------------------------------------------------------------------------
+# stream v3k: the noise generator, and the reference's 128-bit parameters
+# --------------------------------------------------------------------------
+
+def phase_v3k_vs_plain(dev) -> int:
+    """The v3k generator against its plain twin, every byte; the fused
+    matmul with ``gen_noise`` against the plain fold of the same planes;
+    the fused matmul bare and encode-only against its plain twin."""
+    import torch
+
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm, tfry
+    from pvw_tpu_torch.params import presets
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    d, dd = COMPARE_BATCH, DEEP_COMPARE_BATCH
+    worst = 0
+
+    def compare(what: dict, got, want) -> None:
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        emit({"phase": "v3k_vs_plain", **what, "bit_exact": err == 0, "max_abs_err": err})
+        check(err == 0, f"{what['kernel']} differs from its plain twin at {what['shape']}")
+
+    # the generator: name, rows, cols, l, bound, row offset, column offset
+    for name, rows, cols, l, bound, row_off, col_off in (
+            ("toy c1", K_DIM, d, ELL, 50, 0, 0),
+            ("toy c2", N_RECEIVERS, d, ELL, 2000, 0, 0),
+            ("config-4 c1", DEEP_K, dd, DEEP_ELL, 2000, 0, 0),
+            ("config-4 c2", DEEP_N, dd, DEEP_ELL, 50, 0, 0),
+            ("reference c1", REF_K, dd, 8, 1, 0, 0),
+            ("l = 32, offsets, cols off the 128-column tile", 64, 300, 32, 2000, 77, 1 << 20),
+            ("l = 16, offsets, cols off the tile", 100, 129, DEEP_ELL, 127, 3, 5)):
+        compare({"kernel": fm.NOISE_KERNEL, "shape": name, "rows": rows, "cols": cols,
+                 "l": l, "bound": bound, "jr": 1 if bound <= 127 else 2,
+                 "row_off": row_off, "col_off": col_off, "compared": "every byte"},
+                fm.v3k_noise_planes(*V3K_KEY, row_off, rows, cols, l, bound, col_off, dev),
+                tfry.v3k_noise_digit_planes(*V3K_KEY, row_off, rows, cols, l, bound,
+                                            col_off, dev))
+
+    toy = get_ring(MODULI, ELL)
+    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    ref = get_ring(presets.MODULI_55BIT4, 8)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    # gen_noise: name, ring, m, k, n, jr, value rows, row offset, column offset
+    for name, ring, m, k, n, jr, vals, row_off, col_off in (
+            ("toy c2", toy, N_RECEIVERS, K_DIM, d, 1, True, 0, 3),
+            ("toy c2", toy, N_RECEIVERS, K_DIM, d, 2, False, 0, 0),
+            ("config-4 c1", deep, DEEP_K, DEEP_K, dd, 1, True, 0, 0),
+            ("config-4 c2", deep, DEEP_N, DEEP_K, dd, 2, False, 5, 0)):
+        lhs_dig, band, _, bound, _ = operands(ring, m, k, n, jr, None, gen, dev)
+        settings.noise_value_mac = vals
+        try:
+            got = fm.matmul_fold_scaled(None, band, ring, lhs_dig=lhs_dig, gen_noise=(
+                (*V3K_KEY, row_off, col_off), jr, bound, "tfry"))
+        finally:
+            del settings.noise_value_mac
+        planes = tfry.v3k_noise_digit_planes(*V3K_KEY, row_off, m, n, ring.degree, bound,
+                                             col_off, dev)
+        compare({"kernel": f"{fm.NOISE_KERNEL} + {fm.KERNEL}", "shape": f"gen_noise {name}",
+                 "m": m, "n": n, "kd": lhs_dig.shape[-1], "jr": jr,
+                 "noise_rows": "values" if vals else "digits"},
+                got, fold_plain_by_limb(ring, band, lhs_dig, planes))
+        del lhs_dig, band, got, planes
+    # no noise rows: name, ring, m, k, n, encode
+    for name, ring, m, k, n, encode in (
+            ("toy c2", toy, N_RECEIVERS, K_DIM, d, None),
+            ("toy c2", toy, N_RECEIVERS, K_DIM, d, "enc64"),
+            ("reference c1", ref, REF_K, REF_K, dd, None),
+            ("reference c2", ref, REF_N, REF_K, dd, "enc32"),
+            ("reference c2, full width", ref, REF_N, REF_K, REF_N, "enc32")):
+        lhs_dig, band, _, _, enc = operands(ring, m, k, n, 1, encode, gen, dev)
+        got = fm.matmul_fold_scaled(None, band, ring, encode=enc, lhs_dig=lhs_dig,
+                                    encode32=encode == "enc32")
+        compare({"kernel": fm.KERNEL, "shape": f"{'encode-only' if encode else 'bare'} {name}",
+                 "m": m, "n": n, "kd": lhs_dig.shape[-1], "channels": ring.num_limbs * 8,
+                 "encode": encode or "none"},
+                got, fold_plain_by_limb(ring, band, lhs_dig, None, enc))
+        del lhs_dig, band, enc, got
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_v3k_timing(dev, card: str) -> dict:
+    """The generator at the full width of every product it serves on the
+    v3k paths, with their bounds, and at the toy c2 shape with jr = 2:
+    every byte against its plain twin, then both timed (CUDA events, median
+    of 3) beside the bound (its 32-bit integer operations, or the planes
+    written once, whichever is longer). No PyTorch call computes
+    Threefry-2x32: no library time."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm, tfry
+
+    out = {}
+    for name, rows, cols, l, bound in (
+            ("toy c1", K_DIM, N_RECEIVERS, ELL, 50),
+            ("toy c2", N_RECEIVERS, N_RECEIVERS, ELL, 50),
+            ("toy c2, jr = 2", N_RECEIVERS, N_RECEIVERS, ELL, 2000),
+            ("config-4 c1", DEEP_K, DEEP_N, DEEP_ELL, 50),
+            ("config-4 c2", DEEP_N, DEEP_N, DEEP_ELL, 50),
+            ("reference c1", REF_K, REF_N, 8, 1)):
+        args = (*V3K_KEY, 0, rows, cols, l, bound, 0, dev)
+        err = max_abs_err(fm.v3k_noise_planes(*args), tfry.v3k_noise_digit_planes(*args))
+        check(err == 0, f"the v3k generator differs from its plain twin at full-width {name}")
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fm.v3k_noise_planes(*args), reps=3)
+        plain_ms = cuda_ms(lambda: tfry.v3k_noise_digit_planes(*args), reps=3)
+        jr = 1 if bound <= 127 else 2
+        values = rows * cols * l
+        ops = values * V3K_OPS_PER_VALUE
+        ops_ms = ops / INT32_OPS_PER_S * 1e3
+        bytes_ms = values * jr / HBM_BYTES_PER_S * 1e3
+        out[name] = {"phase": "v3k_timing", "kernel": fm.NOISE_KERNEL,
+                     "shape": f"{name} rows={rows} cols={cols} l={l} jr={jr}",
+                     "bound": bound, "card": card, "compared": "every byte",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                     "values": values, "int32_ops": ops, "bytes": values * jr,
+                     "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        emit(out[name])
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str,
+                      full_parties, threshold_parties=(), keys=None, **info):
+    """One configuration through the entry points under ``stream``: CRS and
+    batch keygen of n parties (or ``keys`` = (gpk, secret coefficients) of
+    an earlier path), n dealers' shares in one batch, threshold decryption
+    of the dealers whose index is not a multiple of 10 (at ceil(2n/3)) for
+    ``threshold_parties``, full decryption for ``full_parties``, every
+    share exact; per-stage ms, the three kernels' launches over the path
+    and over the encryption alone."""
+    import torch
+
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.ops.ntt import signed_digit_count
+
+    times = {}
+    n = params.n
+    key = R.key(seed)
+    shares = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, n), dtype=np.uint64)
+    valid = [i for i in range(n) if i % 10]
+    threshold = -(-2 * n // 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    settings.noise_stream = stream
+    try:
+        reset_launches()
+        if keys is None:
+            crs = timed(times, "crs_ms", lambda: P.PvwCrs.new(params, R.fold_in(key, 0),
+                                                              device=dev))
+            coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (n, params.k, params.l),
+                                      params.secret_variance, device=dev)
+            gpk = P.GlobalPublicKey(crs)
+            timed(times, "keygen_ms", lambda: gpk.generate_all_keys_device(
+                coeffs, R.fold_in(key, 1)))
+            host_coeffs = coeffs.cpu().numpy()
+            del coeffs
+        else:
+            gpk, host_coeffs = keys
+        timed(times, "operands_ms", gpk.encrypt_operands)
+        before = launches()
+        ct = timed(times, "encrypt_ms", lambda: P.encrypt_all_party_shares_batched(
+            shares, gpk, R.fold_in(key, 777)))
+        enc_counts = {name: c - before[name] for name, c in launches().items()}
+        sks = {i: P.SecretKey(params, host_coeffs[i])
+               for i in (*full_parties, *threshold_parties)}
+        got = {i: timed(times, f"threshold_decrypt_party_{i}_ms",
+                        lambda: P.decrypt_valid_shares(ct, valid, threshold, sks[i], i))
+               for i in threshold_parties}
+        full = {i: timed(times, f"decrypt_party_{i}_ms",
+                         lambda: P.decrypt_party_shares(ct, sks[i], i))
+                for i in full_parties}
+        counts = launches()
+    finally:
+        del settings.noise_stream
+    shares_exact = all(got[i] == [(dl, int(shares[dl, i])) for dl in valid]
+                       for i in threshold_parties) \
+        and all(full[i] == [int(v) for v in shares[:, i]] for i in full_parties)
+    generated = sum(1 for b in (params.error_bound_1, params.error_bound_2)
+                    if signed_digit_count(b))
+    ring = params.ring
+    out = {"phase": phase, "card": card, **info, "stream": stream, "n": n, "k": params.k,
+           "l": params.l, "limbs": ring.num_limbs, "q_bits": params.q_total().bit_length(),
+           "nd": ring.num_digits, "variance": params.secret_variance,
+           "error_bounds": [params.error_bound_1, params.error_bound_2],
+           "keys": "fresh" if keys is None else "reused", "dealers": n,
+           "threshold_parties": list(threshold_parties),
+           "valid_dealers": len(valid) if threshold_parties else None,
+           "threshold": threshold if threshold_parties else None,
+           "full_parties": list(full_parties), **times,
+           "enc_per_s": n / (times["encrypt_ms"] / 1e3), "shares_exact": shares_exact,
+           "launches": counts, "encrypt_launches": enc_counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    check(shares_exact, f"a decrypted share differs from the encrypted one ({phase})")
+    check(enc_counts[fm.NOISE_KERNEL] >= generated,
+          f"the v3k generator ran {enc_counts[fm.NOISE_KERNEL]} times in the encryption "
+          f"of {phase}, which has {generated} products with signed-digit noise")
+    check(enc_counts[fm.KERNEL] >= 2, f"the fused matmul ran {enc_counts[fm.KERNEL]} "
+                                      f"times in the encryption of {phase}")
+    check(enc_counts[fm.PRESCALE_KERNEL] >= 1, f"the r-stage kernel never ran in {phase}")
+    return out, {"params": params, "gpk": gpk, "shares": shares,
+                 "sk": sks[full_parties[0]]}
 
 
 def main() -> int:
     import torch
 
     from pvw_tpu_torch.ops import _build, fused_modmat as fm
+    from pvw_tpu_torch.params import presets
     from pvw_tpu_torch.params.ring import get_ring
 
     if not torch.cuda.is_available():
@@ -675,7 +931,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     t0 = time.perf_counter()
-    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL])
+    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL])
     build_s = time.perf_counter() - t0
     print(card, flush=True)
     emit({"phase": "device", "card": card, "torch": torch.__version__,
@@ -693,14 +949,36 @@ def main() -> int:
     deep_timing = phase_deep_timing(dev, card)
     deep_path, ctx = phase_deep_path(dev, card)
     phase_breakdown(dev, card, ctx, "deep_breakdown")
+    deep_keys = (ctx["gpk"], ctx["coeffs"])
     del ctx
-    by_path = {
-        fm.KERNEL: {"main_path": main_path["launches"],
-                    "deep_path": deep_path["launches"][fm.KERNEL]},
-        fm.PRESCALE_KERNEL: {"main_path": main_path["prescale_launches"],
-                             "deep_path": deep_path["launches"][fm.PRESCALE_KERNEL]},
-    }
+    torch.cuda.empty_cache()
+    v3k_worst = phase_v3k_vs_plain(dev)
+    v3k_timing = phase_v3k_timing(dev, card)
+    v3k_path, ctx = phase_dealer_path(
+        "v3k_path", presets.pvss_8192(N_RECEIVERS), dev, card, 5, "v3k",
+        full_parties=(0, 1, N_RECEIVERS // 2 - 1, N_RECEIVERS - 1), config="toy chain")
+    phase_breakdown(dev, card, ctx, "v3k_breakdown", stream="v3k")
+    del ctx
+    torch.cuda.empty_cache()
+    v3k_deep_path, _ = phase_dealer_path(
+        "v3k_deep_path", deep_keys[0].params, dev, card, 6, "v3k", full_parties=(0,),
+        threshold_parties=(DEEP_N // 2 - 1, DEEP_N - 1), keys=deep_keys,
+        config="BASELINE config 4", preset="threshold_256bit")
+    del deep_keys, _
+    torch.cuda.empty_cache()
+    reference_path, ctx = phase_dealer_path(
+        "reference_path", presets.secure_128_reference(REF_N), dev, card, 7, "v3k",
+        full_parties=(0, REF_N // 2 - 1, REF_N - 1),
+        config="the reference's 128-bit example (examples/pvw_valid_dec.py:40-48)",
+        preset="secure_128_reference")
+    phase_breakdown(dev, card, ctx, "reference_breakdown", stream="v3k")
+    del ctx
+    paths = {"main_path": main_path, "deep_path": deep_path, "v3k_path": v3k_path,
+             "v3k_deep_path": v3k_deep_path, "reference_path": reference_path}
+    by_path = {name: {path: out["launches"][name] for path, out in paths.items()}
+               for name in (fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL)}
     dm, dp = deep_timing["matmul"], deep_timing["prescale"]
+    vt, vt4 = v3k_timing["toy c2"], v3k_timing["config-4 c2"]
     emit({"kernels": [{
         "name": fm.KERNEL,
         "route": "cuda",
@@ -710,7 +988,8 @@ def main() -> int:
         "launches": sum(by_path[fm.KERNEL].values()),
         "launches_by_path": by_path[fm.KERNEL],
         "bit_exact": True,
-        "max_abs_err": max(worst, timing["max_abs_err"], deep_worst, dm["max_abs_err"]),
+        "max_abs_err": max(worst, timing["max_abs_err"], deep_worst, dm["max_abs_err"],
+                           v3k_worst),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
@@ -736,6 +1015,25 @@ def main() -> int:
         "bound_by": dp["bound_by"],
         "library_ms": None,
         "shape": dp["shape"],
+        "card": card,
+    }, {
+        "name": fm.NOISE_KERNEL,
+        "route": "cuda",
+        "source": "pvw_tpu_torch/csrc/v3k_noise_planes.cu",
+        "replaces": "pvw_tpu/ops/pallas_modmat.py:232",
+        "replaces_function": "_fused_scaled_noise_matmul (in-kernel v3k generation)",
+        "launches": sum(by_path[fm.NOISE_KERNEL].values()),
+        "launches_by_path": by_path[fm.NOISE_KERNEL],
+        "bit_exact": True,
+        "max_abs_err": max(v3k_worst, *(t["max_abs_err"] for t in v3k_timing.values())),
+        "ms": vt["ms"],
+        "plain_ms": vt["plain_ms"],
+        "bound_ms": vt["bound_ms"],
+        "bound_by": vt["bound_by"],
+        "library_ms": None,
+        "shape": vt["shape"],
+        "config4": {key: vt4[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
         "card": card,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

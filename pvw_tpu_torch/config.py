@@ -10,9 +10,11 @@ noise_stream         PVW_TPU_NOISE         Encryption-noise stream:
                                            is the TPU's hardware PRNG and
                                            exists on no other device, so the
                                            port routes it as the JAX package
-                                           does off the TPU); ``"v3k"`` draws
-                                           the global-counter v3k planes and
-                                           the cbd-k r stream ("kernel").
+                                           does off the TPU); ``"v3k"``
+                                           generates the global-counter v3k
+                                           planes (``gen_noise``: a kernel on
+                                           the card) and draws the cbd-k r
+                                           stream ("kernel").
 noise_value_mac      PVW_TPU_NOISE_VALS    Let the fused kernel compose the
                                            noise digit planes into int32
                                            values when the int32 column
@@ -21,15 +23,15 @@ decode_mode          PVW_TPU_DECODE        ``"auto"``/``"python"``: the exact
                                            Python decode. ``"device"``,
                                            ``"host"`` and ``"native"`` are
                                            not ported yet ("auto").
-fused_prescale       PVW_TPU_FUSED_        r-stage engine: ``"auto"`` (the
-                     PRESCALE              one-pass NTT + prescale kernel on
-                                           deep chains, nd >= 8; the plain
-                                           torch pipeline elsewhere), a
-                                           truthy string or True (the kernel
-                                           wherever it can run), a falsy
-                                           string or False (always the
-                                           pipeline). Both give the same
-                                           bytes ("auto").
+fused_prescale       PVW_TPU_FUSED_        The JAX package's r-stage engine
+                     PRESCALE              choice, parsed as there
+                                           (:meth:`use_fused_prescale`) and
+                                           read by nothing: the port's
+                                           r-stage always takes
+                                           ``ntt_prescale_band``, the kernel
+                                           on a card and on the CPU its twin,
+                                           which is the plain pipeline
+                                           ("auto").
 ===================  ====================  ==================================
 
 Precedence per knob: programmatic assignment > environment variable >
@@ -92,26 +94,29 @@ class Settings:
         self._overrides: dict = {}
 
     def kernel_noise_stream(self) -> Optional[str]:
-        """``"v3k"`` for the global-counter stream, else None (v3 planes).
-        ``"kernel"``/``"v4"`` name the TPU hardware PRNG, which only a TPU
-        has: like the JAX package off the TPU, they draw v3 planes. Unknown
-        values warn and take the default."""
+        """``"v4"`` for ``"kernel"``/``"v4"``, ``"v3k"`` for the
+        global-counter stream, None for ``"v3"``, as in the JAX package.
+        v4 is the TPU hardware PRNG, which only a TPU has: its in-kernel
+        generation is never available here, so encryption draws v3 planes
+        for it, as the JAX package does off the TPU. Unknown values warn
+        and take the default."""
         s = str(self.noise_stream).strip().lower()
+        if s == "v3":
+            return None
         if s == "v3k":
             return "v3k"
-        if s not in ("kernel", "v4", "v3"):
+        if s not in ("kernel", "v4"):
             warnings.warn(
                 f"PVW_TPU_NOISE={self.noise_stream!r} is not a recognized "
                 "stream (kernel/v4/v3k/v3); using the default 'kernel'",
                 stacklevel=2,
             )
-        return None
+        return "v4"
 
     def use_fused_prescale(self, num_digits: int) -> bool:
-        """True when the r-stage should take the one-pass NTT + prescale
-        kernel (callers still check
-        :func:`~pvw_tpu_torch.ops.fused_modmat.ntt_prescale_available`).
-        The JAX package's rule: ``auto`` means deep chains only
+        """The JAX package's choice of the one-pass NTT + prescale kernel
+        for the r-stage, kept for parity of the setting; the port has one
+        r-stage route. The JAX package's rule: ``auto`` means deep chains only
         (``num_digits >= 8``); booleans and the truthy/falsy strings force
         the choice; an unknown string warns and means ``auto``."""
         mode = self.fused_prescale

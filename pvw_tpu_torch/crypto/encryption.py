@@ -4,14 +4,17 @@ The counterpart of ``pvw_tpu.crypto.encryption`` (the reference's
 ``encryption.rs``): c1 = A·r + e1, c2 = B·r + e2 + encode(m), batched over
 d independent encryptions so both products are one fused scaled-digit
 matmul each (:func:`~pvw_tpu_torch.ops.fused_modmat.matmul_fold_scaled`),
-with the noise NTT and the gadget encode inside the kernel. On deep chains
-the r-stage (signed NTT + scaled-digit band) is one kernel too
+with the noise NTT and the gadget encode inside the kernel. On a card the
+r-stage (signed NTT + scaled-digit band) is one kernel too
 (:func:`~pvw_tpu_torch.ops.fused_modmat.ntt_prescale_band`).
 
 Randomness is counter-based: the same key gives the same ciphertexts as
-the JAX package on the CPU. Stream routing follows the JAX package off the
-TPU: ``"kernel"``/``"v4"`` and ``"v3"`` draw v3 noise planes, ``"v3k"``
-draws v3k planes and the cbd-k r stream.
+the JAX package on the CPU. Stream routing follows the JAX package:
+``"kernel"``/``"v4"`` and ``"v3"`` draw v3 noise planes (v4's hardware
+PRNG exists only on a TPU), ``"v3k"`` generates v3k planes (``gen_noise``;
+the v3k kernel on a card) and draws the cbd-k r stream. Bounds above the
+signed-digit range (> 32639) add row-keyed residue noise after the fused
+matmul, and bounds >= the smallest modulus exact host-sampled noise.
 """
 
 from __future__ import annotations
@@ -22,13 +25,15 @@ import numpy as np
 
 from ..errors import InvalidParameters
 from ..keys.public_key import GlobalPublicKey
-from ..ops import modmat, ntt as ntt_ops, u64 as u64op
-from ..ops.fused_modmat import (encode_tab, matmul_fold_scaled, ntt_prescale_available,
-                                ntt_prescale_band)
+from ..ops import ntt as ntt_ops, u64 as u64op
+from ..ops.fused_modmat import (encode_tab, gen_noise_planes, kernel_noise_available,
+                                matmul_fold_scaled, ntt_prescale_band)
+from ..ops.tfry import key_words as tfry_key_words
 from ..params.parameters import PvwParameters
 from ..poly import Poly, Representation
 from ..random import split
 from ..sampling.cbd import cbd_bound, sample_vec_cbd_rows
+from ..sampling.uniform import sample_uniform_residues_host, sample_uniform_residues_rows
 
 
 class PvwCiphertext:
@@ -69,75 +74,123 @@ class PvwCiphertext:
         return f"PvwCiphertext(k={self.c1.batch_shape}, n={self.c2.batch_shape})"
 
 
-def _check_bounds(params: PvwParameters) -> None:
-    """The port draws noise as signed digit planes only."""
-    for name, b in (("error_bound_1", params.error_bound_1),
-                    ("error_bound_2", params.error_bound_2)):
-        if b >= min(params.ring.moduli):
-            raise NotImplementedError(
-                f"{name} {b} >= smallest modulus needs the exact host noise "
-                "path, which is not ported to pvw_tpu_torch yet")
-        if not ntt_ops.signed_digit_count(b):
-            raise NotImplementedError(
-                f"{name} {b} > 32639 needs the residue-noise path, which is "
-                "not ported to pvw_tpu_torch yet")
+def _run(name: str, fn):
+    """The default stage hook: run the stage."""
+    return fn()
 
 
-def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
-                    encode32: bool = False, stream: str | None = None,
-                    col_off: int = 0):
-    """d-batched PVW encryption. a_dig int8 [L, l, k, k*nd] and b_dig int8
-    [L, l, n, k*nd] are the cached lhs planes; sc int64 [d, n] are the u64
-    scalars (bit patterns); ``encode32``: all scalars < 2^32; ``stream``:
-    None (v3 planes) or "v3k". The r-stage takes the fused NTT + prescale
-    kernel where ``settings.use_fused_prescale`` and
-    :func:`ntt_prescale_available` allow. Returns channel-major c1
-    [L, l, k, d] and c2 [L, l, n, d]."""
-    from ..config import settings
-
-    ring = params.ring
-    k, n, l = params.k, params.n, params.l
-    d = sc.shape[0]
-    dev = sc.device
-    k_r, k_e1, k_e2 = split(key, 3)
-
-    # r: CBD coefficients [k, d, l] -> signed NTT -> scaled digit band
+def _r_band(params: PvwParameters, k_r, d: int, stream: str | None, col_off: int,
+            device, stage=_run):
+    """The r-stage: CBD coefficients [k, d, l] (the cbd-k stream under v3k,
+    else row-keyed) -> scaled-digit band int8 [L, l, nd, k*nd, d] through
+    :func:`ntt_prescale_band` (the kernel on a card, its twin on the CPU)."""
+    k, l, var = params.k, params.l, params.secret_variance
     if stream == "v3k":
         from ..ops import tfry
 
-        rk0, rk1 = tfry.key_words(k_r)
-        r_coeffs = tfry.v3k_cbd_values(rk0, rk1, 0, k, d, l,
-                                       params.secret_variance, col_off, dev)
+        r = stage("r_sample_v3k", lambda: tfry.v3k_cbd_values(
+            *tfry.key_words(k_r), 0, k, d, l, var, col_off, device))
     else:
-        r_coeffs = sample_vec_cbd_rows(k_r, 0, k, (d, l),
-                                       params.secret_variance, dev)
-    r_bound = cbd_bound(params.secret_variance)
-    if (settings.use_fused_prescale(ring.num_digits)
-            and ntt_prescale_available(ring, k, d, r_bound, dev)):
-        # deep chains (nd >= 8): NTT + prescale in one kernel
-        r_op = ntt_prescale_band(r_coeffs, ring, r_bound)
-    else:
-        r_ch = ntt_ops.ntt_forward_signed_ch(r_coeffs, ring, r_bound)
-        r_op = modmat.prescale_digits_band(r_ch, ring)       # [L, l, nd, k*nd, d]
+        r = stage("r_sample", lambda: sample_vec_cbd_rows(k_r, 0, k, (d, l), var, device))
+    return stage("r_ntt_prescale_kernel",
+                 lambda: ntt_prescale_band(r, params.ring, cbd_bound(var)))
 
-    def noise_planes(kk, rows, bound):
-        if stream == "v3k":
-            from ..ops import tfry
 
-            k0, k1 = tfry.key_words(kk)
-            return tfry.v3k_noise_digit_planes(k0, k1, 0, rows, d, l, bound,
-                                               col_off, dev)
-        return ntt_ops.noise_digit_planes(kk, 0, rows, d, l, bound, dev)
+def _gen_noise(kk, bound: int, stream: str | None, col_off: int, device):
+    """(seeds, jr, bound, "tfry") for the v3k generator, or None."""
+    if stream != "v3k" or not kernel_noise_available(bound, tfry=True, device=device):
+        return None
+    return ((*tfry_key_words(kk), 0, col_off), ntt_ops.signed_digit_count(bound),
+            int(bound), "tfry")
 
-    b1, b2 = params.error_bound_1, params.error_bound_2
-    c1 = matmul_fold_scaled(None, r_op, ring, noise=noise_planes(k_e1, k, b1),
-                            lhs_dig=a_dig, noise_bound=b1)
+
+def _product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, bound: int,
+             stream: str | None, host_e=None, encode=None, encode32: bool = False,
+             col_off: int = 0, stage=_run):
+    """One noisy product lhs·r + e (+ encode(sc)·g) -> channel-major
+    [L, l, rows, d], with the JAX package's noise routing
+    (``encryption.py:190-316``): a bound with signed digits under v3k takes
+    ``gen_noise`` (the v3k kernel on a card, launched ahead of the fused
+    matmul, which reads its planes), under v4 and v3 it draws v3 planes;
+    larger bounds run the fused matmul without noise rows and add residue
+    noise (row-keyed, stream v2) or ``host_e`` after it. ``stage(name, fn)``
+    runs each step: "noise_gen" or "noise", "kernel", then "noise_residues"
+    and "addmod" where the noise comes after."""
+    ring, l = params.ring, params.l
+    d, dev = r_op.shape[-1], r_op.device
+
+    def kernel(planes, noise_bound):
+        return stage("kernel", lambda: matmul_fold_scaled(
+            None, r_op, ring, noise=planes, encode=encode, lhs_dig=lhs_dig,
+            encode32=encode32, noise_bound=noise_bound))
+
+    g = None if host_e is not None else _gen_noise(kk, bound, stream, col_off, dev)
+    if g is not None:
+        return kernel(stage("noise_gen", lambda: gen_noise_planes(g, rows, d, l, dev)),
+                      g[2])
+    if host_e is None and ntt_ops.signed_digit_count(bound):
+        return kernel(stage("noise", lambda: ntt_ops.noise_digit_planes(
+            kk, 0, rows, d, l, bound, dev)), bound)
+    c = kernel(None, None)
+    if host_e is None:
+        host_e = stage("noise_residues", lambda: ntt_ops.ntt_forward(
+            sample_uniform_residues_rows(kk, 0, rows, (d, l), bound, ring, dev),
+            ring).permute(2, 3, 0, 1))
+    q = ring.table("q", dev).reshape(-1, 1, 1, 1)
+    return stage("addmod", lambda: u64op.addmod(c, host_e, q))
+
+
+def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
+                    encode32: bool = False, host_e1=None, host_e2=None,
+                    stream: str | None = "v4", col_off: int = 0, stage=_run):
+    """d-batched PVW encryption. a_dig int8 [L, l, k, k*nd] and b_dig int8
+    [L, l, n, k*nd] are the cached lhs planes; sc int64 [d, n] are the u64
+    scalars (bit patterns); ``encode32``: all scalars < 2^32;
+    ``host_e1``/``host_e2``: NTT-domain channel-major noise [L, l, rows, d]
+    sampled on the host (:func:`_host_noise_pairs`) for bounds >= the
+    smallest modulus, or None; ``stream``: "v4", "v3k" or None (v3), from
+    ``settings.kernel_noise_stream()``; ``stage(name, fn)``: runs each step
+    (:func:`_r_band`, then :func:`_product` for c1 and c2, their names
+    suffixed ``_c1``/``_c2``), a hook for timing them. Returns
+    channel-major c1 [L, l, k, d] and c2 [L, l, n, d]."""
+    k_r, k_e1, k_e2 = split(key, 3)
+    dev = sc.device
+    r_op = _r_band(params, k_r, sc.shape[0], stream, col_off, dev, stage)
+    c1 = _product(params, r_op, a_dig, k_e1, params.k, params.error_bound_1, stream,
+                  host_e1, col_off=col_off,
+                  stage=lambda name, fn: stage(f"{name}_c1", fn))
     etab = u64op.u64_tensor(encode_tab(params.gadget_ntt, params.gadget_ntt_shoup,
                                        params.gadget_wrap), dev)
-    c2 = matmul_fold_scaled(None, r_op, ring, noise=noise_planes(k_e2, n, b2),
-                            encode=(sc.t().contiguous(), etab), lhs_dig=b_dig,
-                            encode32=encode32, noise_bound=b2)
+    c2 = _product(params, r_op, b_dig, k_e2, params.n, params.error_bound_2, stream,
+                  host_e2, (sc.t().contiguous(), etab), encode32, col_off,
+                  stage=lambda name, fn: stage(f"{name}_c2", fn))
     return c1, c2
+
+
+def _host_noise_ch(kk, rows: int, d: int, bound: int, params: PvwParameters, device):
+    """Exact host sampling of uniform noise in [-bound, bound] for bounds
+    >= the smallest modulus, as NTT-domain channel-major residues
+    [L, l, rows, d] ready to add after the fused matmul. Deterministic in
+    ``kk``."""
+    e = sample_uniform_residues_host(kk, (rows, d, params.l), bound, params.ring, device)
+    return ntt_ops.ntt_forward(e, params.ring).permute(2, 3, 0, 1)
+
+
+def _host_noise_pairs(params: PvwParameters, key, d: int, device):
+    """(host_e1, host_e2) for :func:`_encrypt_kernel`: non-None only for the
+    bounds the device samplers cannot embed (>= min(q_i)). Splits ``key``
+    as the kernel does, so the host draw takes the stream slot the device
+    draw would have."""
+    min_q = min(params.ring.moduli)
+    if max(params.error_bound_1, params.error_bound_2) < min_q:
+        return None, None
+    _, k_e1, k_e2 = split(key, 3)
+    host_e1 = host_e2 = None
+    if params.error_bound_1 >= min_q:
+        host_e1 = _host_noise_ch(k_e1, params.k, d, params.error_bound_1, params, device)
+    if params.error_bound_2 >= min_q:
+        host_e2 = _host_noise_ch(k_e2, params.n, d, params.error_bound_2, params, device)
+    return host_e1, host_e2
 
 
 def encrypt_batch(all_scalars, global_pk: GlobalPublicKey, key) -> PvwCiphertext:
@@ -161,11 +214,14 @@ def encrypt_batch(all_scalars, global_pk: GlobalPublicKey, key) -> PvwCiphertext
             "Parameters do not satisfy correctness condition - decryption "
             "may fail"
         )
-    _check_bounds(params)
-    encode32 = not bool(np.any(arr >> np.uint64(32)))
+    # one max over the scalars: no shifted copy of a 4096 x 4096 array
+    encode32 = int(arr.max(initial=0)) < 1 << 32
     sc = u64op.u64_tensor(arr, global_pk.device)
+    # bounds >= min(q_i): exact host sampling (the reference's BigInt path
+    # accepts any bound, encryption.rs:161-173)
+    host_e1, host_e2 = _host_noise_pairs(params, key, arr.shape[0], sc.device)
     a_dig, b_dig = global_pk.encrypt_operands()
-    c1, c2 = _encrypt_kernel(params, a_dig, b_dig, sc, key, encode32,
+    c1, c2 = _encrypt_kernel(params, a_dig, b_dig, sc, key, encode32, host_e1, host_e2,
                              settings.kernel_noise_stream())
     return PvwCiphertext(Poly.from_channel_major(c1, Representation.Ntt, params.ring),
                          Poly.from_channel_major(c2, Representation.Ntt, params.ring),

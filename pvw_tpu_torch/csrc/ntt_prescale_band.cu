@@ -36,7 +36,8 @@
 // ms at 3.35 TB/s; the coefficients are 34 MB. Its operations are 1.8e10
 // int8 MACs (0.02 ms at the int8 tensor-core rate) and nine 64-bit Shoup
 // products per (channel, k-row, column), counted as 1.5e10 32-bit
-// multiply-adds on the CUDA cores (0.46 ms at the 67e12 float32 rate). A
+// multiply-adds on the CUDA cores (0.46 ms at the SMs' issue rate of 132 x
+// 128 lanes x 1.98 GHz). A
 // block serves one limb and loops over its l slots, so each coefficient
 // vector is read and split into digits once per limb, not once per channel;
 // the twiddle digits sit in (dynamic) shared memory, 74 KB at l = 64, jr = 2.

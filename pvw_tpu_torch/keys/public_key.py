@@ -3,7 +3,9 @@
 The counterpart of ``pvw_tpu.keys.public_key`` (the reference's
 ``public_key.rs``). B is one n x k Poly on the CRS's device. Batch key
 generation is one fused scaled-digit matmul, b = sᵀA + e1, with the e1
-NTT inside the kernel (:func:`_batch_keygen_kernel`).
+NTT inside the kernel (:func:`_batch_keygen_kernel`); bounds above the
+signed-digit range add residue noise after it, and bounds >= the smallest
+modulus exact host-sampled noise (``generate_all_keys`` only).
 """
 
 from __future__ import annotations
@@ -14,11 +16,12 @@ import numpy as np
 import torch
 
 from ..errors import InvalidParameters
-from ..ops import modmat, ntt as ntt_ops
+from ..ops import modmat, ntt as ntt_ops, u64
 from ..ops.fused_modmat import matmul_fold_scaled
 from ..params.crs import PvwCrs
 from ..params.parameters import PvwParameters
 from ..poly import Poly, Representation
+from ..sampling.uniform import sample_uniform_residues_host, sample_uniform_residues_rows
 from .secret_key import SecretKey
 
 
@@ -28,9 +31,12 @@ def _batch_keygen_kernel(params: PvwParameters, a_res, coeffs, key,
     + e1[p, i]. coeffs: int32 [p, k, l] CBD secrets of parties
     [row_offset, row_offset + p); a_res: A [k, k, L, l] (NTT). Returns
     [p, k, L, l]. e1 rows are keyed by global party index (stream v2), so
-    any chunking gives the same values."""
+    any chunking gives the same values: signed digit planes in the fused
+    matmul for bounds <= 32639, else residue noise added after it.
+    ``key`` None gives sᵀA alone (the host keygen path adds its noise)."""
     ring = params.ring
     p, k, l = coeffs.shape
+    dev = coeffs.device
     if ntt_ops.signed_digit_count(coeff_bound):
         sk_ch = ntt_ops.ntt_forward_signed_ch(coeffs, ring, coeff_bound)
     else:
@@ -38,12 +44,13 @@ def _batch_keygen_kernel(params: PvwParameters, a_res, coeffs, key,
                                     ring).permute(2, 3, 0, 1)
     a_scaled = modmat.prescale_digits_band(a_res.permute(2, 3, 0, 1), ring)
     b1 = params.error_bound_1
-    noise = ntt_ops.noise_digit_planes(key, row_offset, p, k, l, b1, coeffs.device)
-    if noise is None:
-        raise NotImplementedError(
-            f"error_bound_1 {b1} > 32639 needs the residue-noise keygen path, "
-            "which is not ported to pvw_tpu_torch yet")
+    noise = None if key is None else ntt_ops.noise_digit_planes(key, row_offset, p, k, l,
+                                                                b1, dev)
     out = matmul_fold_scaled(sk_ch, a_scaled, ring, noise=noise, noise_bound=b1)
+    if noise is None and key is not None:
+        e1 = sample_uniform_residues_rows(key, row_offset, p, (k, l), b1, ring, dev)
+        out = u64.addmod(out, ntt_ops.ntt_forward(e1, ring).permute(2, 3, 0, 1),
+                         ring.table("q", dev).reshape(-1, 1, 1, 1))
     return out.permute(2, 3, 0, 1)                      # [p, k, L, l]
 
 
@@ -137,32 +144,41 @@ class GlobalPublicKey:
             raise InvalidParameters(
                 f"Too many secret keys: {coeffs.shape[0]} > {self.params.n}"
             )
-        self._check_device_bound()
+        if self.params.error_bound_1 >= min(self.params.ring.moduli):
+            # the JAX package's rule: the host-sampling path is
+            # generate_all_keys' alone
+            raise InvalidParameters(
+                f"error_bound_1 {self.params.error_bound_1:#x} >= smallest "
+                "modulus: device keygen unsupported, use generate_all_keys"
+            )
         if coeff_bound is None:
             coeff_bound = cbd_bound(self.params.secret_variance)
         for b in (127, 32639):
             if coeff_bound <= b:
                 coeff_bound = b
                 break
-        self._batch_generate_device(coeffs.to(self.device),
-                                    list(range(coeffs.shape[0])), key, coeff_bound)
-
-    def _check_device_bound(self) -> None:
-        if self.params.error_bound_1 >= min(self.params.ring.moduli):
-            raise NotImplementedError(
-                f"error_bound_1 {self.params.error_bound_1:#x} >= smallest "
-                "modulus needs the host-sampling keygen path, which is not "
-                "ported to pvw_tpu_torch yet")
+        self._place_rows(self._products(coeffs.to(self.device), key, coeff_bound),
+                         list(range(coeffs.shape[0])))
 
     def _batch_generate(self, secret_keys: list[SecretKey], indices: list[int],
                         key) -> None:
-        self._check_device_bound()
+        params = self.params
         coeffs = np.stack([sk.secret_coeffs for sk in secret_keys])
-        self._batch_generate_device(torch.from_numpy(coeffs).to(self.device),
-                                    indices, key, _quantized_coeff_bound(coeffs))
+        ct = torch.from_numpy(coeffs).to(self.device)
+        cb = _quantized_coeff_bound(coeffs)
+        if params.error_bound_1 < min(params.ring.moduli):
+            self._place_rows(self._products(ct, key, cb), indices)
+            return
+        # huge bound (>= min q): sᵀA on the card, then exact host-sampled
+        # errors over the whole batch (``public_key.py:360-368``)
+        e = sample_uniform_residues_host(key, (len(secret_keys), params.k, params.l),
+                                         params.error_bound_1, params.ring, self.device)
+        b = modmat.poly_add(self._products(ct, None, cb),
+                            ntt_ops.ntt_forward(e, params.ring), params.ring)
+        self._place_rows(b, indices)
 
-    def _batch_generate_device(self, coeffs, indices: list[int], key,
-                               cb: int) -> None:
+    def _products(self, coeffs, key, cb: int):
+        """:func:`_batch_keygen_kernel` over party chunks -> [p, k, L, l]."""
         a_res = self.crs.matrix.res
         chunk = _keygen_chunk_size(self.params)
         parts = [
@@ -170,7 +186,7 @@ class GlobalPublicKey:
                                  key, cb, s)
             for s in range(0, coeffs.shape[0], chunk)
         ]
-        self._place_rows(parts[0] if len(parts) == 1 else torch.cat(parts), indices)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _place_rows(self, b, indices: list[int]) -> None:
         if indices == list(range(self.params.n)):

@@ -15,11 +15,17 @@ encode(m). :func:`matmul_fold_scaled` runs the CUDA kernel
 twin :func:`matmul_fold_scaled_plain` for CPU tensors; it raises for
 anything else. The twin repeats the JAX package's XLA route.
 
+:func:`v3k_noise_planes` draws the stream-v3k noise digit planes that the
+TPU kernel generates in VMEM (``gen_noise=(seeds, jr, bound, "tfry")``):
+on a card it is its own kernel (``csrc/v3k_noise_planes.cu``), launched
+once per product ahead of the fused matmul, which reads the planes as its
+noise input; its plain twin is :func:`~pvw_tpu_torch.ops.tfry.
+v3k_noise_digit_planes`.
+
 :func:`ntt_prescale_band` is the counterpart of
 ``pvw_tpu.ops.pallas_modmat.ntt_prescale_band``: small signed coefficients
 -> signed NTT -> scaled-digit band in one pass, the r-stage of encryption
-on deep chains (``csrc/ntt_prescale_band.cu``; plain twin
-:func:`ntt_prescale_band_plain`).
+(``csrc/ntt_prescale_band.cu``; plain twin :func:`ntt_prescale_band_plain`).
 """
 
 from __future__ import annotations
@@ -35,12 +41,13 @@ from ._build import load
 from .modmat import (_fold_leading, digits, exact_int_matmul, prescale_digits_band,
                      scaled_cols)
 from .ntt import ntt_forward_signed_ch, signed_digit_count
-from .tfry import reduce96
+from .tfry import reduce96, v3k_noise_digit_planes
 
 if TYPE_CHECKING:
     from ..params.ring import RingPlan
 
 KERNEL = "fused_scaled_noise_matmul"
+NOISE_KERNEL = "v3k_noise_planes"
 TABLE_WIDTH = 8
 PRESCALE_KERNEL = "ntt_prescale_band"
 PRESCALE_TABLE_WIDTH = 22
@@ -203,6 +210,81 @@ fused_scaled_noise_matmul.launches = 0
 
 
 # --------------------------------------------------------------------------
+# stream-v3k noise generation
+# --------------------------------------------------------------------------
+
+def _noise_fn():
+    fn = load(NOISE_KERNEL).pvw_v3k_noise_planes
+    fn.argtypes = [ctypes.c_uint32] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def v3k_noise_planes(k0, k1, row_off: int, rows: int, cols: int, l: int, bound: int,
+                     col_off: int = 0, device="cuda"):
+    """Stream-v3k noise as int8 signed digit planes [l*jr, rows, cols] for
+    global rows from ``row_off`` and columns from ``col_off``, equal to
+    :func:`~pvw_tpu_torch.ops.tfry.v3k_noise_digit_planes`. A CUDA device
+    launches ``csrc/v3k_noise_planes.cu`` on the current stream (counted in
+    ``v3k_noise_planes.launches``); the CPU takes the plain twin; anything
+    else raises. The bound must have signed digits (<= 32639)."""
+    jr = signed_digit_count(bound)
+    if not jr:
+        raise ValueError(f"noise bound {bound} has no signed digits (> 32639)")
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return v3k_noise_digit_planes(k0, k1, row_off, rows, cols, l, bound, col_off, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"v3k_noise_planes: unsupported device {dev}")
+    out = torch.empty((l * jr, rows, cols), dtype=torch.int8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _noise_fn()(int(k0) & u.M32, int(k1) & u.M32, int(row_off) & u.M32,
+                      int(col_off) & u.M32, rows, cols, l, jr, int(bound), _ptr(out),
+                      ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{NOISE_KERNEL}: launch failed with CUDA error {err}")
+    v3k_noise_planes.launches += 1
+    return out
+
+
+v3k_noise_planes.launches = 0
+
+
+def kernel_noise_available(bound: int, tfry: bool = False, device="cuda") -> bool:
+    """True when :func:`matmul_fold_scaled` takes ``gen_noise``: the v3k
+    stream (``tfry``) with a bound that has signed digits, on a CUDA card
+    (the generator kernel) or the CPU (its plain twin); the card takes any
+    size, so the JAX package's shape arguments are not needed. Stream v4
+    is the TPU hardware PRNG, which no other device has: False on every
+    device."""
+    if not tfry or not signed_digit_count(bound):
+        return False
+    return torch.device(device).type in ("cpu", "cuda")
+
+
+def gen_noise_planes(gen_noise, m: int, n: int, l: int, device):
+    """The planes [l*jr, m, n] that ``gen_noise`` = (seeds, jr, bound,
+    "tfry") stands for, from :func:`v3k_noise_planes`: seeds (key0, key1,
+    row_offset, col_offset) as int32 words, the JAX layout."""
+    if len(gen_noise) < 4 or gen_noise[3] != "tfry":
+        raise NotImplementedError(
+            "gen_noise without 'tfry' is stream v4, the TPU hardware PRNG "
+            "(pltpu.prng_*), which no other device has; use stream v3k or "
+            "noise digit planes")
+    seeds, jr, bound = gen_noise[0], int(gen_noise[1]), int(gen_noise[2])
+    words = [int(w) & u.M32 for w in (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
+    if len(words) != 4:
+        raise NotImplementedError(
+            f"gen_noise seeds of {len(words)} words: the masked row range "
+            "(6 words) waits for the sharded path; pass (key0, key1, "
+            "row_offset, col_offset)")
+    if jr != signed_digit_count(bound):
+        raise ValueError(f"gen_noise jr {jr} does not match bound {bound}")
+    k0, k1, row_off, col_off = words
+    return v3k_noise_planes(k0, k1, row_off, m, n, l, bound, col_off, device)
+
+
+# --------------------------------------------------------------------------
 # the public wrapper
 # --------------------------------------------------------------------------
 
@@ -224,12 +306,19 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
     ``encode``: (sc int64 [m, n] u64 patterns, etab int64 [L*S, 3] from
     :func:`encode_tab`); adds encode(sc)·g with the ``as i64`` wrap.
     ``encode32``: every scalar is < 2^32 (the caller checked).
-    ``gen_noise`` (in-kernel noise generation) is not ported yet.
+    ``gen_noise``: (seeds, jr, bound, "tfry") draws the stream-v3k planes
+    [l*jr, m, n] (:func:`v3k_noise_planes`; seeds (key0, key1, row_offset,
+    col_offset) as int32 words) and adds them as ``noise`` with
+    ``noise_bound`` = bound. Stream v4 (a 3-tuple) and masked seeds (6
+    words) raise ``NotImplementedError``.
     """
     if gen_noise is not None:
-        raise NotImplementedError(
-            "gen_noise (in-kernel noise generation) is not ported to "
-            "pvw_tpu_torch yet; pass noise digit planes")
+        if noise is not None:
+            raise ValueError("gen_noise and noise are mutually exclusive")
+        src = lhs_dig if lhs_dig is not None else lhs
+        noise = gen_noise_planes(gen_noise, src.shape[2], rhs_band.shape[4],
+                                 ring.degree, rhs_band.device)
+        noise_bound = int(gen_noise[2])
     nd = ring.num_digits
     if lhs_dig is None:
         L, S, m, k = lhs.shape
@@ -312,19 +401,6 @@ def _prescale_ntab(ring: "RingPlan", jr: int, device):
     band = ring.table("ntt_band_jr", device, "fwd", jr)           # [L, C1*l, l*jr]
     C1 = band.shape[1] // l
     return band.reshape(L, C1, l, l * jr).permute(0, 2, 1, 3).reshape(L * l, C1, l * jr)
-
-
-def ntt_prescale_available(ring: "RingPlan", k: int, d: int, max_abs: int,
-                           device) -> bool:
-    """True when :func:`ntt_prescale_band` takes the call: the bound is in
-    the signed-digit range and the device is a CUDA card or the CPU. ``ring``,
-    ``k`` and ``d`` keep the JAX package's signature, whose TPU tiling
-    depends on them; the CUDA kernel takes any positive sizes, and a ring
-    degree it lacks raises in :func:`ntt_prescale_band` rather than falling
-    back."""
-    if not signed_digit_count(max_abs) or k <= 0 or d <= 0:
-        return False
-    return torch.device(device).type in ("cpu", "cuda")
 
 
 def ntt_prescale_band_plain(coeffs, ring: "RingPlan", max_abs: int):

@@ -2,7 +2,8 @@
 
 ``toy``/``vector_k256``/``pvss_8192`` use the reference's example chain
 (``examples/pvw.rs:32``); ``secure_128_reference`` is the reference's
-128-bit example (``examples/pvw_valid_dec.rs:40-52``); the 61-bit chains
+128-bit example (``examples/pvw_valid_dec.py:40-48``, from the upstream
+``examples/pvw_valid_dec.rs:40-52``); the 61-bit chains
 come from :func:`generate_ntt_primes`. Each preset returns a fresh
 :class:`PvwParameters`.
 """

@@ -4,10 +4,15 @@ The counterpart of ``pvw_tpu.sampling.uniform``: uniform integers in
 [-bound, bound] as floor(X * range / 2^W) of W random bits, W = 96 for
 range < 2^30 and W = 128 otherwise (distance from uniform < 2^-66).
 Values are int64 tensors; ``_embed_centered`` turns them into residues.
+Bounds at or above the smallest modulus take the exact host sampler
+:func:`sample_uniform_residues_host`.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from ..errors import SamplingError
@@ -81,3 +86,45 @@ def sample_uniform_residues(key, shape, bound: int, ring: RingPlan,
         )
     v = sample_bounded_u64(key, shape, 2 * bound + 1, device)
     return _embed_centered(v, bound, ring)
+
+
+def sample_uniform_residues_rows(key, row_offset: int, num_rows: int, shape_tail,
+                                 bound: int, ring: RingPlan, device="cuda") -> torch.Tensor:
+    """Row-keyed uniform values in [-bound, bound] ("stream v2") as
+    residues [num_rows, *shape_tail[:-1], L, l]: row i from
+    ``fold_in(key, row_offset + i)``, so any row block of a call holds the
+    values the whole call would. Requires bound < min(q_i)."""
+    bound = int(bound)
+    if bound <= 0:
+        raise SamplingError("bound must be positive")
+    if bound >= min(ring.moduli):
+        raise SamplingError(
+            f"bound {bound} >= smallest modulus; use host-side sampling"
+        )
+    dev = resolve_device(device)
+    range_size = 2 * bound + 1
+    keys = fold_in(key.to(dev), row_offset + torch.arange(num_rows, device=dev))
+    words = bits(keys, tuple(shape_tail) + (_words_needed(range_size),))
+    return _embed_centered(_bounded_from_words(words, range_size), bound, ring)
+
+
+def sample_uniform_residues_host(key, shape, bound: int, ring: RingPlan,
+                                 device="cuda") -> torch.Tensor:
+    """Exact host sampling of uniform values in [-bound, bound] of any
+    magnitude (the reference's BigInt path, for bounds >= min(q_i)) as
+    residues [..., L, l] (``shape`` ends with l). Python's
+    ``random.Random`` seeded with the key's two 32-bit words as native
+    uint32 bytes, the JAX package's ``key_data(key).tobytes()``, so the
+    values match it."""
+    import random as _random
+
+    bound = int(bound)
+    if bound <= 0:
+        raise SamplingError("bound must be positive")
+    data = np.asarray(key.detach().cpu().numpy(), np.uint32).ravel().tobytes()
+    rng = _random.Random(data)
+    count = math.prod(shape)
+    vals = [rng.randint(-bound, bound) for _ in range(count)]
+    res = np.array([[v % q for q in ring.moduli] for v in vals], np.uint64)
+    res = np.moveaxis(res.reshape(tuple(shape) + (ring.num_limbs,)), -1, -2)
+    return u.u64_tensor(res, resolve_device(device))

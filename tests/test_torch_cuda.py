@@ -233,6 +233,81 @@ def test_card_path_equals_cpu_path(cuda_device, stream):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l,bound,rows,cols,row_off,col_off", [
+    (8, 50, 70, 130, 0, 0), (16, 2000, 33, 257, 5, 1000), (32, 32639, 9, 64, 0, 7),
+    (8, 127, 3, 200, (1 << 32) - 2, 1 << 31)])
+def test_v3k_generator_equals_plain_twin(cuda_device, l, bound, rows, cols, row_off,
+                                         col_off):
+    """The v3k generator: jr = 1 and 2 (the 96-bit reduction at 2*bound+1 up
+    to 65279), columns off its 128-column block, offsets, and counters that
+    wrap mod 2^32; every byte."""
+    want = fm.v3k_noise_planes(0xDEADBEEF, 0x12345678, row_off, rows, cols, l, bound,
+                               col_off, "cpu")
+    before = fm.v3k_noise_planes.launches
+    got = fm.v3k_noise_planes(0xDEADBEEF, 0x12345678, row_off, rows, cols, l, bound,
+                              col_off, cuda_device)
+    torch.cuda.synchronize()
+    assert fm.v3k_noise_planes.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l,encode", [(TOY, 8, None), (BIG, 8, "enc64"),
+                                             (CHAIN_61X17, 16, "enc32")])
+def test_kernel_bare_and_encode_only_equal_plain_twin(cuda_device, moduli, l, encode):
+    """The fused matmul with no noise rows: bare (the scaled band alone, what
+    keygen and c1 take at bounds without signed digits) and with the
+    encode only (c2 there)."""
+    ring, lhs_dig, band, _, _, enc = operands(moduli, 0, encode, 28, m=70, k=9, n=130, l=l)
+    want = fm.matmul_fold_scaled(None, band, ring, encode=enc, lhs_dig=lhs_dig)
+    move = lambda t: t.to(cuda_device)
+    before = fm.fused_scaled_noise_matmul.launches
+    got = fm.matmul_fold_scaled(None, move(band), ring, lhs_dig=move(lhs_dig),
+                                encode=None if enc is None else tuple(map(move, enc)),
+                                encode32=encode == "enc32")
+    torch.cuda.synchronize()
+    assert fm.fused_scaled_noise_matmul.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bound", [50, 2000, 40000])
+def test_toy_chain_encryption_on_the_card_takes_the_kernels(cuda_device, bound):
+    """On the card every r-stage takes the prescale kernel (nd = 5 here), and
+    v3k generates its noise with the generator: one launch per product whose
+    bound has signed digits, none at 40000 (residue noise). Residues equal
+    the CPU's."""
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+
+    params = P.PvwParameters(5, 16, 8, TOY, 0.5, 50, bound)
+    sc = np.array([[1, 2, 1 << 63, 4, 5], [0, 7, 8, 9, 1 << 40]], np.uint64)
+    out = {}
+    settings.noise_stream = "v3k"
+    try:
+        for dev in ("cpu", cuda_device):
+            key = R.key(9)
+            crs = P.PvwCrs.new(params, R.fold_in(key, 1), device=dev)
+            parties = [P.Party.new(i, params, R.fold_in(key, 10 + i), device=dev)
+                       for i in range(5)]
+            gpk = P.GlobalPublicKey(crs)
+            gpk.generate_all_party_keys(parties, R.fold_in(key, 2))
+            before = (fm.ntt_prescale_band.launches, fm.v3k_noise_planes.launches)
+            ct = P.encrypt_batch(sc, gpk, R.fold_in(key, 3))
+            after = (fm.ntt_prescale_band.launches, fm.v3k_noise_planes.launches)
+            if dev != "cpu":
+                assert after[0] - before[0] == 1
+                assert after[1] - before[1] == (2 if bound <= 32639 else 1)
+            out[str(dev)] = (gpk.matrix.residues_np(), ct.c1.residues_np(),
+                             ct.c2.residues_np())
+    finally:
+        del settings.noise_stream
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
 def test_exact_int_matmul_on_the_card(cuda_device):
     rng = np.random.default_rng(3)
     a = rng.integers(-128, 128, size=(3, 70, 1280), dtype=np.int64).astype(np.int8)

@@ -170,13 +170,22 @@ def test_keygen_residue_ntt_path_equals_signed_path(toy):
 
 
 def test_unported_paths_raise_clearly(toy):
-    jp, tp, _, _, tcrs, _, tsks, _, tgpk = toy
-    sc = np.zeros((1, jp.n), np.uint64)
+    """A bound above the signed-digit range (the residue-noise path) now
+    encrypts as the JAX package does; the unported decode engines raise."""
+    jp, tp, jkey, jcrs, tcrs, jparties, tsks, jgpk, tgpk = toy
+    sc = np.arange(jp.n * jp.n, dtype=np.uint64).reshape(jp.n, jp.n)
     big = dict(tp.to_dict(), error_bound_2="40000")
     bgpk = convert.global_pk_from_residues(tgpk.matrix.residues_np(), P.PvwCrs(
         tcrs.matrix, convert.params_from_dict(big)))
-    with pytest.raises(NotImplementedError, match="32639"):
-        P.encrypt_batch(sc, bgpk, R.key(1))
+    jbgpk = J.GlobalPublicKey(J.PvwCrs(jcrs.matrix, J.PvwParameters.from_dict(big)))
+    jbgpk.matrix, jbgpk.num_keys = jgpk.matrix, jp.n
+    key = jax.random.fold_in(jkey, 11)
+    tct = P.encrypt_batch(sc, bgpk, kw(key))
+    jct = J.encrypt_batch(sc, jbgpk, key)
+    np.testing.assert_array_equal(tct.c1.residues_np(), jct.c1.residues_np())
+    np.testing.assert_array_equal(tct.c2.residues_np(), jct.c2.residues_np())
+    assert P.decrypt_party_shares(tct, tsks[1], 1) == [int(v) for v in sc[:, 1]]
+    sc = np.zeros((1, jp.n), np.uint64)
     ct = P.encrypt(sc[0], tgpk, R.key(1))
     try:
         tsettings.decode_mode = "device"
