@@ -6,75 +6,81 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure raises and exits non-zero:
+Phases, one JSON line each; any failure raises and exits non-zero. Every
+path is ``phase_dealer_path`` (CRS, batch keygen or an earlier path's keys,
+the encryption operands, n dealers' shares in one batch, decryption with
+every sampled share exact), with the kernels' launch counts set to 0 just
+before it and read just after, per stage (keygen, encryption, the wrap
+encryption): it fails if a kernel of its route did not launch, or if a
+kernel of another route did.
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   the three kernels from ``pvw_tpu_torch/csrc`` (one nvcc each, started
-   together, into ``build/kernels``);
-2. kernel_vs_plain: the fused scaled-noise matmul against its plain
-   PyTorch twin at the keygen, c1 and c2 shapes of the main path at a
-   dealer batch of 512 (CH=16, kd=1280, nd=5), with jr=1/2 noise planes,
+   the four kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
+   started together, into ``build/kernels``);
+2. kernel_vs_plain: kernel 1, the fused scaled-noise matmul, against its
+   plain PyTorch twin at the keygen, c1 and c2 shapes of the main path at
+   a dealer batch of 512 (CH=16, kd=1280, nd=5), with jr=1/2 noise planes,
    value and digit noise rows, the 32-bit encode and the 64-bit encode
    with scalars around 2^63: bit-exact;
-3. timing: kernel, plain twin (one limb at a time) and ``torch._int_mm``
-   (the int8 contraction alone, a yardstick the port never calls) at the
-   full c2 shape (m = n = 4096), CUDA events, median of several runs;
+3. timing: kernel 1, its plain twin (one limb at a time) and
+   ``torch._int_mm`` (the int8 contraction alone, a yardstick the port
+   never calls) at the full c2 shape (m = n = 4096), CUDA events, median;
 4. golden: the golden system of tests/test_golden.py on the card must give
    its five pinned hashes;
-5. main_path: n = 4096 receivers, k = 256, l = 8, the 2-limb chain: CRS,
-   batch keygen, 4096 dealers' shares encrypted in one batch, four parties'
-   shares decrypted exactly, and one encryption with scalars >= 2^63
-   decrypted with the reference's `as i64` semantics; the kernels' launch
-   counts over this phase (the fused matmul and the r-stage kernel);
-6. breakdown: the stages of one full-width encryption and decryption,
-   each timed alone;
-7. prescale_vs_plain: the fused r-stage kernel (signed NTT + scaled-digit
-   band) against its plain twin: the toy chain (nd = 5), the 4 x 55-bit
-   chain, the 17 x 61-bit chain at l = 16 with jr = 1 and 2, a 61-bit chain
-   at l = 64, a d off the kernel's column tile and quads, and the full
+5. main_path: ``presets.pvss_8192(4096)`` (k = 256, l = 8, the 2-limb
+   chain), default stream: 4096 dealers, four parties' shares decrypted,
+   and one encryption with scalars >= 2^63 decoded with the reference's
+   `as i64` semantics; then breakdown (each stage of one encryption and
+   decryption timed alone);
+6. prescale_vs_plain: kernel 4, the fused r-stage (signed NTT +
+   scaled-digit band), against its twin: the toy chain (nd = 5), the 4 x
+   55-bit chain, the 17 x 61-bit chain at l = 16 with jr = 1 and 2, a
+   61-bit chain at l = 64, a d off its column tile and quads, and the full
    config-4 r shape (k = 512, d = 1024): every band byte equal;
-8. deep_kernel_vs_plain: the fused matmul at config 4's keygen, c1 and c2
-   shapes (CH = 272, nd = 8, kd = 4096) at a dealer batch of 256, value
-   and digit noise rows, both encodes: bit-exact (the twin runs one limb
-   at a time to bound its float64 operands);
-9. deep_timing: the r-stage kernel at the full config-4 r shape and the
-   fused matmul at the full config-4 c2 shape, each beside its bound, its
-   plain twin and (for the matmul) ``torch._int_mm``; and the r-stage
-   kernel at the toy chain's r shape (k = 256, d = 4096, nd = 5);
-10. deep_path: BASELINE config 4, ``presets.threshold_256bit(1024)`` (17 x
-    61-bit limbs, k = 512, l = 16, nd = 8): CRS, batch keygen of 1024
-    parties, 1024 dealers' shares encrypted in one batch (the r-stage
-    through the prescale kernel), threshold decryption of a 921-dealer
-    valid subset at threshold 683 for four parties and full decryption for
-    two, every share exact, the abort below threshold; per-stage ms and
-    both kernels' launch counts over the path; then deep_breakdown;
-11. v3k_vs_plain: the v3k noise generator against its plain twin, every
-    byte, at the toy, config-4 and reference c1/c2 shapes (l = 8, 16, 32;
-    jr = 1 and 2; row and column offsets; widths off its column tile); the
-    fused matmul with ``gen_noise`` against the plain fold of the same
-    planes (value and digit rows); the fused matmul bare and encode-only
-    (no noise rows) at the toy and the reference shapes, the encode-only
-    launch also at the full reference c2 shape (m = n = k = 1024);
-12. v3k_timing: the generator at the full width of every product it
-    serves (toy, config-4 and reference c1/c2 with their bounds, and the
-    toy c2 at jr = 2), every byte against its plain twin, then timed beside
-    its integer-operation bound and its plain twin;
-13. v3k_path: the toy chain under ``noise_stream="v3k"``: keygen, 4096
-    dealers, four parties decrypted exactly, then v3k_breakdown;
-14. v3k_deep_path: config 4 under v3k on the deep path's keys: 1024
-    dealers, threshold decryption of the 921-dealer subset for two parties,
-    full decryption for one;
-15. reference_path: the reference's own 128-bit parameters,
+7. deep_kernel_vs_plain: kernel 1 at config 4's keygen, c1 and c2 shapes
+   (CH = 272, nd = 8, kd = 4096) at a dealer batch of 256;
+8. deep_timing: kernel 4 at the full config-4 and toy r shapes and kernel
+   1 at the full config-4 c2 shape, each beside its bound and twin;
+9. deep_path: BASELINE config 4, ``presets.threshold_256bit(1024)`` (17 x
+   61-bit limbs, k = 512, l = 16, nd = 8): 1024 dealers, threshold
+   decryption of the 921 dealers whose index is not a multiple of 10 at
+   threshold 683 for four parties, the abort one dealer below it, full
+   decryption for two; then deep_breakdown;
+10. v3k_vs_plain: the v3k noise generator against its twin, every byte, at
+    the toy, config-4 and reference c1/c2 shapes (l = 8, 16, 32; jr = 1
+    and 2; offsets; widths off its column tile); kernel 1 with ``gen_noise``
+    and kernel 1 bare and encode-only (also at the full reference c2 shape);
+11. v3k_timing: the generator at the full width of every product it serves,
+    every byte against its twin, then timed beside its bound and twin;
+12. swapped_vs_plain: kernel 1's swapped form against its twin at reduced
+    shapes (nd = 5 and 8, jr = 1 and 2, value and digit rows, bare, both
+    encodes, m and n off its tile);
+13. pipelined_vs_plain: the pipelined kernel 3 against its twin at reduced
+    shapes (nd = 5 and 8, input planes and in-kernel v3k at jr = 1 and 2
+    with offsets, value and digit rows, the encode alone, both encodes, m
+    and n off its tile);
+14. opt_in_timing: both at the full toy and config-4 c2 shapes, every
+    output against the twin, then timed beside the bound, the twin,
+    ``torch._int_mm`` and, for kernel 3, the generator + kernel 1 pair it
+    replaces;
+15. v3k_path: the toy chain under ``noise_stream="v3k"``, then
+    v3k_breakdown;
+16. v3k_deep_path: config 4 under v3k on the deep path's keys: threshold
+    decryption for two parties, full for one;
+17. swapped_path: config 4 under v3k on the same keys with
+    ``settings.swapped_form``: the scaled key planes built (timed, and the
+    peak device memory), threshold decryption for party 1023, full for
+    party 0; then swapped_breakdown;
+18. reference_path: the reference's own 128-bit parameters,
     ``presets.secure_128_reference(1024)`` (k = 1024, l = 8, 4 x 55-bit
-    limbs, variance 10, bounds (1, 1172385)) under v3k: CRS, batch keygen
-    of 1024 parties, 1024 dealers (c1's noise from the generator, c2's as
-    row-keyed residues after the encode-only fused matmul), all dealers
+    limbs, variance 10, bounds (1, 1172385)) under v3k: all dealers
     decrypted for parties 0, 511 and 1023, then reference_breakdown;
-16. the kernels line, then the last line ``{"ok": true, "device": ...}``.
-
-Every path runs with the three kernels' launch counts set to 0 just
-before it and read just after, and fails if a kernel of the path was not
-launched.
+19. pipelined_path: the toy chain at n = 4096 under v3k with
+    ``settings.pipeline_fold`` (keygen and both products through kernel 3,
+    no generator launch), full decryption for parties 0 and 4095; then
+    pipelined_breakdown;
+20. the kernels line (five kernels), then the last line
+    ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -185,7 +191,9 @@ def _counted():
 
     return {fm.KERNEL: fm.fused_scaled_noise_matmul,
             fm.PRESCALE_KERNEL: fm.ntt_prescale_band,
-            fm.NOISE_KERNEL: fm.v3k_noise_planes}
+            fm.NOISE_KERNEL: fm.v3k_noise_planes,
+            fm.SWAPPED_KERNEL: fm.fused_scaled_noise_matmul_swapped,
+            fm.PIPELINED_KERNEL: fm.fused_pipelined_matmul}
 
 
 def reset_launches() -> None:
@@ -198,10 +206,11 @@ def launches() -> dict:
 
 
 def operands(ring, m, k, n, jr, encode, gen, dev):
-    """Random operands of one fused-matmul call, made on the card."""
+    """Random operands of one fused-matmul call, made on the card: lhs
+    digit planes, the scaled band, then :func:`noise_and_encode`."""
     import torch
 
-    from pvw_tpu_torch.ops import fused_modmat as fm, modmat, ntt, u64
+    from pvw_tpu_torch.ops import modmat
 
     L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
     q = ring.table("q", dev).reshape(L, 1, 1, 1)
@@ -209,6 +218,19 @@ def operands(ring, m, k, n, jr, encode, gen, dev):
     b = torch.randint(0, 1 << 62, (L, S, k, n), generator=gen, device=dev) % q
     lhs_dig = modmat.digits(a, nd).reshape(L, S, m, k * nd)
     band = modmat.prescale_digits_band(b, ring)
+    return (lhs_dig, band, *noise_and_encode(ring, m, n, max(jr, 1), encode, gen, dev))
+
+
+def noise_and_encode(ring, m, n, jr, encode, gen, dev):
+    """(noise digit planes [l*jr, m, n] of values up to the bound, the
+    bound (50 at jr = 1, else 2000), the encode operands or None): scalars
+    below 2^32 for "enc32", and for "enc64" 64-bit ones with 0, 2^63,
+    2^64 - 1 and 2^63 - 1 among them."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm, ntt, u64
+
+    L, S = ring.num_limbs, ring.degree
     bound = 50 if jr == 1 else 2000
     ev = torch.randint(-bound, bound + 1, (m, n, S), generator=gen, device=dev,
                        dtype=torch.int32)
@@ -230,7 +252,7 @@ def operands(ring, m, k, n, jr, encode, gen, dev):
                          for i, qi in enumerate(ring.moduli)], np.uint64)
         etab = fm.encode_tab(g, (gs & 0xFFFFFFFFFFFFFFFF).astype(np.uint64), wrap)
         enc = (sc, u64.u64_tensor(etab, dev))
-    return lhs_dig, band, noise, bound, enc
+    return noise, bound, enc
 
 
 def phase_kernel_vs_plain(ring, dev) -> int:
@@ -301,16 +323,7 @@ def phase_timing(ring, m: int, k: int, dev, card: str, phase: str) -> dict:
     ms = cuda_ms(kernel, reps=3)
     plain_ms = cuda_ms(plain, reps=3)
     torch.cuda.empty_cache()
-    a = lhs_dig.reshape(L * S, m, kd)
-    # the rhs column-major ([nd*n, kd] rows, transposed), as cuBLASLt's
-    # int8 GEMM takes it
-    bt = band.reshape(L * S, nd, kd, n).permute(0, 1, 3, 2).reshape(L * S, nd * n, kd).contiguous()
-
-    def library():
-        for c in range(L * S):
-            torch._int_mm(a[c], bt[c].t())
-
-    library_ms = cuda_ms(library, reps=3)
+    library_ms = cuda_ms(int_mm_banded(ring, lhs_dig, band), reps=3)
     macs = L * S * m * n * kd * nd
     nbytes = (lhs_dig.numel() + band.numel() + noise.numel() + 8 * m * n
               + 8 * L * S * m * n)
@@ -324,9 +337,28 @@ def phase_timing(ring, m: int, k: int, dev, card: str, phase: str) -> dict:
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "bytes": nbytes, "int8_macs": macs, "max_abs_err": err}
     emit(out)
-    del lhs_dig, band, noise, enc, a, bt
+    del lhs_dig, band, noise, enc
     torch.cuda.empty_cache()
     return out
+
+
+def int_mm_banded(ring, lhs_dig, band):
+    """One ``torch._int_mm`` a channel of the banded contraction (lhs
+    [m, kd] against the band's nd planes side by side), a yardstick the port
+    never calls: the rhs column-major ([nd*n, kd] rows, transposed), as
+    cuBLASLt's int8 GEMM takes it."""
+    import torch
+
+    L, S, m, kd = lhs_dig.shape
+    nd, n = band.shape[2], band.shape[4]
+    a = lhs_dig.reshape(L * S, m, kd)
+    bt = band.reshape(L * S, nd, kd, n).permute(0, 1, 3, 2).reshape(L * S, nd * n, kd).contiguous()
+
+    def library():
+        for c in range(L * S):
+            torch._int_mm(a[c], bt[c].t())
+
+    return library
 
 
 def phase_golden(dev) -> None:
@@ -370,77 +402,17 @@ def expected_wrapped(m: int, q: int) -> int:
     return mf if mf < 1 << 64 else 0
 
 
-def phase_main_path(dev, card: str) -> dict:
-    import torch
-
-    import pvw_tpu_torch as P
-    from pvw_tpu_torch import random as R
-    from pvw_tpu_torch.ops import fused_modmat as fm
-
-    times = {}
-    b1, b2 = P.PvwParameters.suggest_error_bounds(N_RECEIVERS, K_DIM, ELL, MODULI, 0.5)
-    params = (P.PvwParametersBuilder().set_parties(N_RECEIVERS).set_dimension(K_DIM)
-              .set_l(ELL).set_moduli(MODULI).set_secret_variance(0.5)
-              .set_error_bounds_u32(b1, b2).build())
-    key = R.key(0)
-    rng = np.random.default_rng(0)
-    shares = rng.integers(0, 1 << 32, size=(N_RECEIVERS, N_RECEIVERS), dtype=np.uint64)
-    wrap_sc = rng.integers(0, 1 << 32, size=N_RECEIVERS, dtype=np.uint64)
-    wrap_sc[::2] |= np.uint64(1 << 63)
-    parties = (0, 1, N_RECEIVERS // 2 - 1, N_RECEIVERS - 1)
-    wrap_parties = (0, 1, N_RECEIVERS // 2, N_RECEIVERS - 1)   # two >= 2^63
-    torch.cuda.reset_peak_memory_stats()
-
-    reset_launches()
-    crs = timed(times, "crs_ms", lambda: P.PvwCrs.new(params, R.fold_in(key, 0), device=dev))
-    coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (N_RECEIVERS, K_DIM, ELL),
-                              params.secret_variance, device=dev)
-    gpk = P.GlobalPublicKey(crs)
-    timed(times, "keygen_ms", lambda: gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1)))
-    timed(times, "operands_ms", gpk.encrypt_operands)
-    ct = timed(times, "encrypt_ms", lambda: P.encrypt_all_party_shares_batched(
-        shares, gpk, R.fold_in(key, 777)))
-    host_coeffs = coeffs.cpu().numpy()
-    sks = {i: P.SecretKey(params, host_coeffs[i]) for i in parties + wrap_parties}
-    got = timed(times, "decrypt_ms",
-                lambda: {i: P.decrypt_party_shares(ct, sks[i], i) for i in parties})
-    wrap_ct = timed(times, "wrap_encrypt_ms",
-                    lambda: P.encrypt(wrap_sc, gpk, R.fold_in(key, 778)))
-    wrap_got = {i: P.decrypt_party_value(wrap_ct, sks[i], i) for i in wrap_parties}
-    counts = launches()
-
-    shares_exact = all(got[i] == [int(v) for v in shares[:, i]] for i in parties)
-    q = params.q_total()
-    wrap_ok = all(wrap_got[i] == expected_wrapped(int(wrap_sc[i]), q) for i in wrap_parties)
-    out = {"phase": "main_path", "card": card, "n": N_RECEIVERS, "k": K_DIM, "l": ELL,
-           "moduli": [hex(m) for m in MODULI], "error_bounds": [b1, b2],
-           "dealers": N_RECEIVERS, **times,
-           "enc_per_s": N_RECEIVERS / (times["encrypt_ms"] / 1e3),
-           "decrypt_parties": list(parties), "shares_exact": shares_exact,
-           "wrap_scalars": {str(i): int(wrap_sc[i]) for i in wrap_parties},
-           "wrap_decoded": {str(i): wrap_got[i] for i in wrap_parties},
-           "wrap_ok": wrap_ok, "launches": counts,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    emit(out)
-    check(shares_exact, "a decrypted share differs from the encrypted one")
-    check(wrap_ok, "the >= 2^63 scalars did not decode with `as i64` semantics")
-    check(counts[fm.KERNEL] >= 3, f"the fused matmul ran {counts[fm.KERNEL]} times "
-                                  "on the main path")
-    check(counts[fm.PRESCALE_KERNEL] >= 2, f"the r-stage kernel ran "
-                                           f"{counts[fm.PRESCALE_KERNEL]} times on the "
-                                           "main path")
-    return out, {"params": params, "gpk": gpk, "shares": shares, "sk": sks[parties[0]]}
-
-
 def phase_breakdown(dev, card: str, ctx, name: str = "breakdown",
-                    stream: str | None = "v4") -> dict:
+                    stream: str | None = "v4", route: str = "banded") -> dict:
     """The stages of one full-width encryption and decryption, each timed
     alone (host clock around work ending in a synchronize): where a path's
     time goes. The encryption is the entry point's own
     ``encryption._encrypt_kernel`` under ``stream`` (a value of
-    ``settings.kernel_noise_stream()``), each stage timed through its
-    ``stage`` hook."""
+    ``settings.kernel_noise_stream()``) and ``route`` (the swapped form's
+    scaled key planes, or ``settings.pipeline_fold`` on for "pipelined"),
+    each stage timed through its ``stage`` hook."""
     from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
     from pvw_tpu_torch.crypto import decryption, encryption
     from pvw_tpu_torch.ops import u64
 
@@ -449,17 +421,22 @@ def phase_breakdown(dev, card: str, ctx, name: str = "breakdown",
     times = {}
     key = R.fold_in(R.key(0), 779)
     sc = timed(times, "scalars_to_device_ms", lambda: u64.u64_tensor(shares, dev))
-    a_dig, b_dig = gpk.encrypt_operands()
-    c1, c2 = encryption._encrypt_kernel(
-        params, a_dig, b_dig, sc, key, int(shares.max()) < 1 << 32,
-        *encryption._host_noise_pairs(params, key, d, dev), stream,
-        stage=lambda stage, fn: timed(times, f"{stage}_ms", fn))
+    a_dig, b_dig = (gpk.encrypt_operands_swapped() if route == "swapped"
+                    else gpk.encrypt_operands())
+    settings.pipeline_fold = route == "pipelined"
+    try:
+        c1, c2 = encryption._encrypt_kernel(
+            params, a_dig, b_dig, sc, key, int(shares.max()) < 1 << 32,
+            *encryption._host_noise_pairs(params, key, d, dev), stream,
+            stage=lambda stage, fn: timed(times, f"{stage}_ms", fn))
+    finally:
+        del settings.pipeline_fold
     sk = ctx["sk"].to_polynomials(dev).res
     z = timed(times, "decrypt_contract_ntt_ms", lambda: decryption._noisy_messages(
         params, sk, c1, c2[:, :, 0]))
     timed(times, "decode_python_ms", lambda: decryption._decode_batch(z, params))
-    out = {"phase": name, "card": card, "stream": stream, "dealers": d, **times,
-           "decode_ms_per_message": times["decode_python_ms"] / d}
+    out = {"phase": name, "card": card, "stream": stream, "route": route, "dealers": d,
+           **times, "decode_ms_per_message": times["decode_python_ms"] / d}
     emit(out)
     return out
 
@@ -470,9 +447,10 @@ def phase_breakdown(dev, card: str, ctx, name: str = "breakdown",
 def prescale_bound(ring, k: int, d: int, jr: int) -> dict:
     """The least time of one r-stage call: the band written and the
     coefficients read once, against its operations: the NTT's int8 digit
-    MACs at the int8 rate, and the fold and scale Shoup products (three
+    MACs at the int8 rate or the fold and scale Shoup products (three
     64-bit products each, four 32-bit multiply-adds a product, one INT32
-    lane-operation each) on the CUDA cores."""
+    lane-operation each) on the CUDA cores, whichever takes longer (the two
+    units run side by side)."""
     L, l, nd = ring.num_limbs, ring.degree, ring.num_digits
     C1 = nd + jr - 1
     groups = L * l * k * d
@@ -480,7 +458,7 @@ def prescale_bound(ring, k: int, d: int, jr: int) -> dict:
     int8_macs = groups * C1 * l * jr
     core_madds = groups * ((C1 + 3) // 4 + nd - 1) * 3 * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (2 * int8_macs / INT8_OPS_PER_S + core_madds / INT32_OPS_PER_S) * 1e3
+    ops_ms = max(2 * int8_macs / INT8_OPS_PER_S, core_madds / INT32_OPS_PER_S) * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -539,13 +517,12 @@ def phase_prescale_vs_plain(dev) -> int:
     return worst
 
 
-def fold_plain_by_limb(ring, band, lhs_dig, noise=None, encode=None):
-    """The fused matmul's plain twin, one limb at a time (its float64
-    operands at config 4 would not fit whole; every limb of the chains here
-    has the chain's digit count)."""
+def plain_by_limb(ring, twin, lhs, rhs, noise=None, encode=None):
+    """A fused matmul's plain twin ``twin(lhs, rhs, ring, noise, encode)``,
+    one limb at a time (its float64 operands at config 4 would not fit
+    whole; every limb of the chains here has the chain's digit count)."""
     import torch
 
-    from pvw_tpu_torch.ops import fused_modmat as fm
     from pvw_tpu_torch.params.ring import get_ring
 
     S, outs = ring.degree, []
@@ -553,9 +530,23 @@ def fold_plain_by_limb(ring, band, lhs_dig, noise=None, encode=None):
         sub = get_ring((q,), S)
         check(sub.num_digits == ring.num_digits, "a limb's digit width differs")
         enc = None if encode is None else (encode[0], encode[1][i * S:(i + 1) * S])
-        outs.append(fm.matmul_fold_scaled_plain(None, band[i:i + 1], sub, noise=noise,
-                                                encode=enc, lhs_dig=lhs_dig[i:i + 1]))
+        outs.append(twin(lhs[i:i + 1], rhs[i:i + 1], sub, noise, enc))
     return torch.cat(outs)
+
+
+def fold_plain_by_limb(ring, band, lhs_dig, noise=None, encode=None):
+    """:func:`plain_by_limb` of kernel 1's twin (and the pipelined kernel's)."""
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    return plain_by_limb(ring, lambda lhs, rhs, sub, nz, enc: fm.matmul_fold_scaled_plain(
+        None, rhs, sub, noise=nz, encode=enc, lhs_dig=lhs), lhs_dig, band, noise, encode)
+
+
+def swapped_plain_by_limb(ring, planes, rhs_dig, noise=None, encode=None):
+    """:func:`plain_by_limb` of the swapped form's twin."""
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    return plain_by_limb(ring, fm.matmul_fold_swapped_plain, planes, rhs_dig, noise, encode)
 
 
 def phase_deep_kernel_vs_plain(dev) -> int:
@@ -635,73 +626,6 @@ def phase_deep_timing(dev, card: str) -> dict:
                                             dev, card),
             "matmul": phase_timing(ring, DEEP_N, DEEP_K, dev, card, "deep_timing")}
 
-
-def phase_deep_path(dev, card: str) -> dict:
-    """BASELINE config 4 through the entry points: keygen, 1024 dealers,
-    threshold decryption."""
-    import torch
-
-    import pvw_tpu_torch as P
-    from pvw_tpu_torch import random as R
-    from pvw_tpu_torch.errors import InsufficientValidCiphertexts
-    from pvw_tpu_torch.ops import fused_modmat as fm
-    from pvw_tpu_torch.params import presets
-
-    times = {}
-    params = presets.threshold_256bit(DEEP_N)
-    ring = params.ring
-    n = params.n
-    key = R.key(4)
-    rng = np.random.default_rng(4)
-    shares = rng.integers(0, 1 << 32, size=(n, n), dtype=np.uint64)
-    valid = [i for i in range(n) if i % 10]                    # 921 dealers
-    parties = (0, 1, n // 2 - 1, n - 1)
-    full_parties = (0, n - 1)
-    torch.cuda.reset_peak_memory_stats()
-
-    reset_launches()
-    crs = timed(times, "crs_ms", lambda: P.PvwCrs.new(params, R.fold_in(key, 0), device=dev))
-    coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (n, params.k, params.l),
-                              params.secret_variance, device=dev)
-    gpk = P.GlobalPublicKey(crs)
-    timed(times, "keygen_ms", lambda: gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1)))
-    timed(times, "operands_ms", gpk.encrypt_operands)
-    ct = timed(times, "encrypt_ms", lambda: P.encrypt_all_party_shares_batched(
-        shares, gpk, R.fold_in(key, 777)))
-    host_coeffs = coeffs.cpu().numpy()
-    sks = {i: P.SecretKey(params, host_coeffs[i]) for i in parties + full_parties}
-    got = {i: timed(times, f"threshold_decrypt_party_{i}_ms", lambda: P.decrypt_valid_shares(
-        ct, valid, DEEP_THRESHOLD, sks[i], i)) for i in parties}
-    full = {i: timed(times, f"decrypt_party_{i}_ms",
-                     lambda: P.decrypt_party_shares(ct, sks[i], i)) for i in full_parties}
-    try:
-        P.decrypt_valid_shares(ct, valid[:DEEP_THRESHOLD - 1], DEEP_THRESHOLD, sks[0], 0)
-        aborted = False
-    except InsufficientValidCiphertexts:
-        aborted = True
-    counts = launches()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-
-    shares_exact = all(got[i] == [(dl, int(shares[dl, i])) for dl in valid] for i in parties) \
-        and all(full[i] == [int(v) for v in shares[:, i]] for i in full_parties)
-    out = {"phase": "deep_path", "card": card, "config": "BASELINE config 4",
-           "preset": "threshold_256bit", "n": n, "k": params.k, "l": params.l,
-           "limbs": ring.num_limbs, "q_bits": params.q_total().bit_length(),
-           "nd": ring.num_digits, "error_bounds": [params.error_bound_1, params.error_bound_2],
-           "dealers": n, "valid_dealers": len(valid), "threshold": DEEP_THRESHOLD,
-           "threshold_parties": list(parties), "full_parties": list(full_parties),
-           **times, "enc_per_s": n / (times["encrypt_ms"] / 1e3),
-           "shares_exact": shares_exact, "aborted_below_threshold": aborted,
-           "launches": counts, "peak_mem_gb": peak}
-    emit(out)
-    check(shares_exact, "a threshold-decrypted share differs from the encrypted one")
-    check(aborted, f"{DEEP_THRESHOLD - 1} valid dealers did not abort at threshold "
-                   f"{DEEP_THRESHOLD}")
-    check(counts[fm.PRESCALE_KERNEL] >= 1, "the r-stage kernel never ran on the deep path")
-    check(counts[fm.KERNEL] >= 3, f"the fused matmul ran {counts[fm.KERNEL]} times "
-                                  "on the deep path")
-    return out, {"params": params, "gpk": gpk, "shares": shares, "sk": sks[0],
-                 "coeffs": host_coeffs}
 
 # --------------------------------------------------------------------------
 # stream v3k: the noise generator, and the reference's 128-bit parameters
@@ -832,32 +756,311 @@ def phase_v3k_timing(dev, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the opt-in forms: kernel 1's swapped variant and the pipelined kernel
+# --------------------------------------------------------------------------
+
+def swapped_operands(ring, m, k, n, jr, encode, gen, dev, digits_only: bool = False):
+    """Operands of one swapped-form call on the card: the scaled planes
+    [L, S, nd, m, k*nd] and plain digits [L, S, k*nd, n] of random residues
+    (or, with ``digits_only``, random int8 digits: any digits are inputs of
+    the same function, and they are made at full width in a moment), then
+    :func:`noise_and_encode`; no noise at jr = 0."""
+    import torch
+
+    from pvw_tpu_torch.ops import modmat
+
+    L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+    if digits_only:
+        planes = torch.randint(-128, 128, (L, S, nd, m, k * nd), generator=gen, device=dev,
+                               dtype=torch.int8)
+        rd = torch.randint(-128, 128, (L, S, k * nd, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+    else:
+        q = ring.table("q", dev)
+        a = torch.randint(0, 1 << 62, (m, k, L, S), generator=gen, device=dev) \
+            % q.reshape(1, 1, L, 1)
+        r = torch.randint(0, 1 << 62, (L, S, k, n), generator=gen, device=dev) \
+            % q.reshape(L, 1, 1, 1)
+        planes, rd = modmat.lhs_scaled_planes(a, ring), modmat.rhs_digit_cols(r, ring)
+    noise, bound, enc = noise_and_encode(ring, m, n, max(jr, 1), encode, gen, dev)
+    return planes, rd, noise if jr else None, bound if jr else None, enc
+
+
+def compared(phase: str, what: dict, wrapper, got_fn, want):
+    """Run ``got_fn`` (one launch of the kernel behind ``wrapper``, counted),
+    hold it against ``want`` and emit the line; returns max |got - want|."""
+    import torch
+
+    before = wrapper.launches
+    got = got_fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    emit({"phase": phase, **what, "launches": wrapper.launches - before,
+          "bit_exact": err == 0, "max_abs_err": err})
+    check(wrapper.launches == before + 1, f"{what['shape']}: the kernel did not launch once")
+    check(err == 0, f"{phase}: the kernel differs from its plain twin at {what['shape']}")
+    return err
+
+
+def phase_swapped_vs_plain(dev) -> int:
+    """Kernel 1's swapped form against its twin at reduced shapes: nd = 5
+    (toy chain) and nd = 8 (config 4's chain, CH = 272), noise jr = 1 and 2
+    as value and digit rows, bare, both encodes, m and n off its 32 x 128
+    tile; the operands are the scaled planes and plain digits of random
+    residues."""
+    import torch
+
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    toy = get_ring(MODULI, ELL)
+    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst = 0
+    # name, ring, m, k, n, jr, encode, value rows
+    for name, ring, m, k, n, jr, encode, vals in (
+            ("toy", toy, 250, 64, 300, 1, "enc32", True),
+            ("toy", toy, 97, 33, 129, 2, "enc64", False),
+            ("toy, bare", toy, 64, 32, 256, 0, None, False),
+            ("toy c2 rows", toy, N_RECEIVERS, K_DIM, 200, 2, "enc64", True),
+            ("config-4", deep, 100, 40, 130, 2, "enc64", True),
+            ("config-4", deep, 64, 32, 128, 1, "enc32", False),
+            ("config-4, bare", deep, 33, 17, 200, 0, None, False),
+            ("config-4", deep, 70, 64, 257, 1, "enc64", True)):
+        planes, rd, noise, bound, enc = swapped_operands(ring, m, k, n, jr, encode, gen, dev)
+
+        def got():
+            settings.noise_value_mac = vals
+            try:
+                return fm.matmul_fold_swapped(planes, rd, ring, noise=noise, encode=enc,
+                                              encode32=encode == "enc32", noise_bound=bound)
+            finally:
+                del settings.noise_value_mac
+
+        worst = max(worst, compared(
+            "swapped_vs_plain",
+            {"kernel": fm.SWAPPED_KERNEL, "shape": f"{name} m={m} k={k} n={n}",
+             "channels": ring.num_limbs * ring.degree, "nd": ring.num_digits, "jr": jr,
+             "noise_rows": "values" if vals else "digits", "encode": encode or "none"},
+            fm.fused_scaled_noise_matmul_swapped, got,
+            swapped_plain_by_limb(ring, planes, rd, noise, enc)))
+        del planes, rd, noise, enc
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_pipelined_vs_plain(dev) -> int:
+    """The pipelined kernel against its twin (kernel 1's) at reduced
+    shapes: nd = 5 and 8, input planes and in-kernel v3k at jr = 1 and 2
+    (the twin with the v3k planes; row and column offsets, some whose
+    counters wrap mod 2^32), value and digit rows, the encode alone, both
+    encodes, m and n off its 64 x 32 tile."""
+    import torch
+
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm, tfry
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    toy = get_ring(MODULI, ELL)
+    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = 0
+    # name, ring, m, k, n, noise, jr, encode, value rows, (row, column) offsets
+    for name, ring, m, k, n, kind, jr, encode, vals, offs in (
+            ("toy", toy, 250, 64, 300, "planes", 1, "enc32", True, None),
+            ("toy", toy, 97, 33, 129, "v3k", 2, "enc64", False, (0, 0)),
+            ("toy", toy, 130, 32, 96, "v3k", 1, "enc32", True, ((1 << 32) - 2, 1 << 31)),
+            ("toy, encode only", toy, 64, 32, 64, None, 1, "enc64", False, None),
+            ("config-4", deep, 100, 40, 130, "v3k", 2, "enc64", True, (5, (1 << 32) - 7)),
+            ("config-4", deep, 65, 32, 33, "planes", 2, "enc32", False, None),
+            ("config-4", deep, 70, 64, 257, "v3k", 1, "enc64", False, (1 << 31, 3))):
+        lhs_dig, band, noise, bound, enc = operands(ring, m, k, n, jr, encode, gen, dev)
+        g = None
+        if kind == "v3k":
+            g = ((*V3K_KEY, *offs), jr, bound, "tfry")
+            noise = tfry.v3k_noise_digit_planes(*V3K_KEY, offs[0], m, n, ring.degree, bound,
+                                                offs[1], dev)
+        elif kind is None:
+            noise = bound = None
+
+        def got():
+            settings.noise_value_mac = vals
+            settings.pipeline_fold = True
+            try:
+                return fm.matmul_fold_scaled(
+                    None, band, ring, noise=None if g else noise, encode=enc, lhs_dig=lhs_dig,
+                    encode32=encode == "enc32", gen_noise=g, noise_bound=bound)
+            finally:
+                del settings.noise_value_mac, settings.pipeline_fold
+
+        worst = max(worst, compared(
+            "pipelined_vs_plain",
+            {"kernel": fm.PIPELINED_KERNEL, "shape": f"{name} m={m} k={k} n={n}",
+             "channels": ring.num_limbs * ring.degree, "nd": ring.num_digits,
+             "noise": kind or "none", "jr": jr if kind else 0, "offsets": offs,
+             "noise_rows": "values" if vals else "digits", "encode": encode or "none"},
+            fm.fused_pipelined_matmul, got, fold_plain_by_limb(ring, band, lhs_dig, noise, enc)))
+        del lhs_dig, band, noise, enc
+    torch.cuda.empty_cache()
+    return worst
+
+
+def contraction_bound(ring, m: int, k: int, n: int, nbytes: int, int32_ops: float = 0) -> dict:
+    """The least time of one fused product: its bytes (each input read and
+    each output written once) against its operations, the int8 digit MACs at
+    the int8 rate or ``int32_ops`` at the SMs' issue rate, whichever takes
+    longer (the tensor cores and the INT32 lanes run side by side)."""
+    macs = ring.num_limbs * ring.degree * m * n * k * ring.num_digits ** 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(2 * macs / INT8_OPS_PER_S, int32_ops / INT32_OPS_PER_S) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "int8_macs": macs,
+            "int32_ops": int32_ops}
+
+
+def phase_opt_in_timing(dev, card: str) -> dict:
+    """Both new kernels at the full c2 shapes of the toy chain (CH = 16,
+    m = n = 4096, kd = 1280, nd = 5) and config 4 (CH = 272, m = n = 1024,
+    kd = 4096, nd = 8), 32-bit encode, bound 50: every output against the
+    plain twin (one limb at a time), then the kernel, the twin and
+    ``torch._int_mm`` of the same contraction (a yardstick the port never
+    calls) timed, CUDA events, median of 3, beside the bound. The pipelined
+    kernel draws v3k in-kernel; its twin draws the v3k planes and folds,
+    and the pair it replaces, the generator and banded kernel 1, is timed
+    in the same call."""
+    import torch
+
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm, tfry
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    out = {"swapped": {}, "pipelined": {}}
+    for label, ring, m, k in (
+            ("toy c2", get_ring(MODULI, ELL), N_RECEIVERS, K_DIM),
+            ("config-4 c2", get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL),
+             DEEP_N, DEEP_K)):
+        L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+        n, kd = m, k * nd
+        shape = f"c2 m={m} n={n} channels={L * S} kd={kd} nd={nd}"
+        gen = torch.Generator(device=dev).manual_seed(10)
+
+        # the pipelined kernel, in-kernel v3k
+        lhs_dig, band, _, bound, enc = operands(ring, m, k, n, 1, "enc32", gen, dev)
+        g = ((*V3K_KEY, 0, 0), 1, bound, "tfry")
+
+        def pipelined(on: bool = True):
+            settings.pipeline_fold = on
+            try:
+                return fm.matmul_fold_scaled(None, band, ring, encode=enc, lhs_dig=lhs_dig,
+                                             encode32=True, gen_noise=g)
+            finally:
+                del settings.pipeline_fold
+
+        def plain():
+            planes = tfry.v3k_noise_digit_planes(*V3K_KEY, 0, m, n, S, bound, 0, dev)
+            return fold_plain_by_limb(ring, band, lhs_dig, planes, enc)
+
+        err = max(max_abs_err(pipelined(), plain()), max_abs_err(pipelined(), pipelined(False)))
+        check(err == 0, f"the pipelined kernel differs from its twin at full-width {label}")
+        torch.cuda.empty_cache()
+        nbytes = lhs_dig.numel() + band.numel() + 8 * m * n + 8 * L * S * m * n
+        out["pipelined"][label] = {
+            "phase": "opt_in_timing", "kernel": fm.PIPELINED_KERNEL, "shape": shape,
+            "noise": "v3k in-kernel, jr=1", "card": card, "compared": "every output",
+            "max_abs_err": err, "ms": cuda_ms(pipelined, reps=3),
+            "plain_ms": cuda_ms(plain, reps=3),
+            "banded_plus_generator_ms": cuda_ms(lambda: pipelined(False), reps=3),
+            "library_ms": cuda_ms(int_mm_banded(ring, lhs_dig, band), reps=3),
+            **contraction_bound(ring, m, k, n, nbytes, m * n * S * V3K_OPS_PER_VALUE)}
+        emit(out["pipelined"][label])
+        del lhs_dig, band, enc
+        torch.cuda.empty_cache()
+
+        # kernel 1's swapped form, noise planes
+        planes, rd, noise, bound, enc = swapped_operands(ring, m, k, n, 1, "enc32", gen, dev,
+                                                         digits_only=True)
+
+        def swapped():
+            return fm.matmul_fold_swapped(planes, rd, ring, noise=noise, encode=enc,
+                                          encode32=True, noise_bound=bound)
+
+        def swapped_plain():
+            return swapped_plain_by_limb(ring, planes, rd, noise, enc)
+
+        err = max_abs_err(swapped(), swapped_plain())
+        check(err == 0, f"the swapped kernel differs from its twin at full-width {label}")
+        torch.cuda.empty_cache()
+        a = planes.reshape(L * S, nd * m, kd)
+        rt = rd.reshape(L * S, kd, n).transpose(1, 2).contiguous()    # column-major rhs
+
+        def library():
+            for c in range(L * S):
+                torch._int_mm(a[c], rt[c].t())
+
+        nbytes = planes.numel() + rd.numel() + noise.numel() + 8 * m * n + 8 * L * S * m * n
+        out["swapped"][label] = {
+            "phase": "opt_in_timing", "kernel": fm.SWAPPED_KERNEL, "shape": shape,
+            "noise": "planes, jr=1", "card": card, "compared": "every output",
+            "max_abs_err": err, "ms": cuda_ms(swapped, reps=3),
+            "plain_ms": cuda_ms(swapped_plain, reps=3), "library_ms": cuda_ms(library, reps=3),
+            **contraction_bound(ring, m, k, n, nbytes)}
+        emit(out["swapped"][label])
+        del planes, rd, noise, enc, a, rt
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str,
-                      full_parties, threshold_parties=(), keys=None, **info):
-    """One configuration through the entry points under ``stream``: CRS and
-    batch keygen of n parties (or ``keys`` = (gpk, secret coefficients) of
-    an earlier path), n dealers' shares in one batch, threshold decryption
-    of the dealers whose index is not a multiple of 10 (at ceil(2n/3)) for
-    ``threshold_parties``, full decryption for ``full_parties``, every
-    share exact; per-stage ms, the three kernels' launches over the path
-    and over the encryption alone."""
+                      full_parties, threshold_parties=(), keys=None, route: str = "banded",
+                      wrap_parties=(), **info):
+    """One configuration through the entry points under ``stream`` and
+    ``route`` ("banded", the default; "swapped", ``settings.swapped_form``;
+    "pipelined", ``settings.pipeline_fold``): CRS and batch keygen of n
+    parties (or ``keys`` = (gpk, secret coefficients) of an earlier path),
+    the encryption operands, n dealers' shares in one batch, threshold
+    decryption of the dealers whose index is not a multiple of 10 (at
+    ceil(2n/3)) for ``threshold_parties`` and the abort one dealer below the
+    threshold, full decryption for ``full_parties``, every share exact; with
+    ``wrap_parties``, one more encryption of scalars half of them >= 2^63,
+    decoded with the reference's `as i64` semantics. Per-stage ms, and the
+    kernels' launches over the path and over each of keygen, the encryption
+    and the wrap encryption, each gated by the route."""
     import torch
 
     import pvw_tpu_torch as P
     from pvw_tpu_torch import random as R
     from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.errors import InsufficientValidCiphertexts
     from pvw_tpu_torch.ops import fused_modmat as fm
     from pvw_tpu_torch.ops.ntt import signed_digit_count
 
-    times = {}
+    times, stage_launches = {}, {}
     n = params.n
     key = R.key(seed)
-    shares = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, n), dtype=np.uint64)
+    rng = np.random.default_rng(seed)
+    shares = rng.integers(0, 1 << 32, size=(n, n), dtype=np.uint64)
+    wrap_sc = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+    wrap_sc[::2] |= np.uint64(1 << 63)
     valid = [i for i in range(n) if i % 10]
     threshold = -(-2 * n // 3)
+
+    def counted(name: str, fn):
+        before = launches()
+        out = timed(times, f"{name}_ms", fn)
+        stage_launches[name] = {k: c - before[k] for k, c in launches().items()}
+        return out
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     settings.noise_stream = stream
+    settings.swapped_form = route == "swapped"
+    settings.pipeline_fold = route == "pipelined"
     try:
         reset_launches()
         if keys is None:
@@ -866,56 +1069,119 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
             coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (n, params.k, params.l),
                                       params.secret_variance, device=dev)
             gpk = P.GlobalPublicKey(crs)
-            timed(times, "keygen_ms", lambda: gpk.generate_all_keys_device(
-                coeffs, R.fold_in(key, 1)))
+            counted("keygen", lambda: gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1)))
             host_coeffs = coeffs.cpu().numpy()
             del coeffs
         else:
             gpk, host_coeffs = keys
-        timed(times, "operands_ms", gpk.encrypt_operands)
-        before = launches()
-        ct = timed(times, "encrypt_ms", lambda: P.encrypt_all_party_shares_batched(
+        timed(times, "operands_ms", gpk.encrypt_operands_swapped if route == "swapped"
+              else gpk.encrypt_operands)
+        ct = counted("encrypt", lambda: P.encrypt_all_party_shares_batched(
             shares, gpk, R.fold_in(key, 777)))
-        enc_counts = {name: c - before[name] for name, c in launches().items()}
         sks = {i: P.SecretKey(params, host_coeffs[i])
-               for i in (*full_parties, *threshold_parties)}
+               for i in (*full_parties, *threshold_parties, *wrap_parties)}
         got = {i: timed(times, f"threshold_decrypt_party_{i}_ms",
                         lambda: P.decrypt_valid_shares(ct, valid, threshold, sks[i], i))
                for i in threshold_parties}
+        aborted = None
+        if threshold_parties:
+            i = threshold_parties[0]
+            try:
+                P.decrypt_valid_shares(ct, valid[:threshold - 1], threshold, sks[i], i)
+                aborted = False
+            except InsufficientValidCiphertexts:
+                aborted = True
         full = {i: timed(times, f"decrypt_party_{i}_ms",
                          lambda: P.decrypt_party_shares(ct, sks[i], i))
                 for i in full_parties}
+        wrap_got = {}
+        if wrap_parties:
+            wrap_ct = counted("wrap_encrypt", lambda: P.encrypt(wrap_sc, gpk,
+                                                                R.fold_in(key, 778)))
+            wrap_got = {i: P.decrypt_party_value(wrap_ct, sks[i], i) for i in wrap_parties}
         counts = launches()
     finally:
-        del settings.noise_stream
+        del settings.noise_stream, settings.swapped_form, settings.pipeline_fold
     shares_exact = all(got[i] == [(dl, int(shares[dl, i])) for dl in valid]
                        for i in threshold_parties) \
         and all(full[i] == [int(v) for v in shares[:, i]] for i in full_parties)
-    generated = sum(1 for b in (params.error_bound_1, params.error_bound_2)
-                    if signed_digit_count(b))
+    q = params.q_total()
+    wrap_ok = all(wrap_got[i] == expected_wrapped(int(wrap_sc[i]), q) for i in wrap_parties)
     ring = params.ring
-    out = {"phase": phase, "card": card, **info, "stream": stream, "n": n, "k": params.k,
-           "l": params.l, "limbs": ring.num_limbs, "q_bits": params.q_total().bit_length(),
-           "nd": ring.num_digits, "variance": params.secret_variance,
+    out = {"phase": phase, "card": card, **info, "stream": stream, "route": route, "n": n,
+           "k": params.k, "l": params.l, "limbs": ring.num_limbs,
+           "q_bits": params.q_total().bit_length(), "nd": ring.num_digits,
+           "variance": params.secret_variance,
            "error_bounds": [params.error_bound_1, params.error_bound_2],
            "keys": "fresh" if keys is None else "reused", "dealers": n,
            "threshold_parties": list(threshold_parties),
            "valid_dealers": len(valid) if threshold_parties else None,
            "threshold": threshold if threshold_parties else None,
-           "full_parties": list(full_parties), **times,
+           "aborted_below_threshold": aborted, "full_parties": list(full_parties), **times,
            "enc_per_s": n / (times["encrypt_ms"] / 1e3), "shares_exact": shares_exact,
-           "launches": counts, "encrypt_launches": enc_counts,
+           "wrap_scalars": {str(i): int(wrap_sc[i]) for i in wrap_parties},
+           "wrap_decoded": {str(i): wrap_got[i] for i in wrap_parties},
+           "wrap_ok": wrap_ok if wrap_parties else None,
+           "launches": counts, "encrypt_launches": stage_launches["encrypt"],
+           "stage_launches": stage_launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     check(shares_exact, f"a decrypted share differs from the encrypted one ({phase})")
-    check(enc_counts[fm.NOISE_KERNEL] >= generated,
-          f"the v3k generator ran {enc_counts[fm.NOISE_KERNEL]} times in the encryption "
-          f"of {phase}, which has {generated} products with signed-digit noise")
-    check(enc_counts[fm.KERNEL] >= 2, f"the fused matmul ran {enc_counts[fm.KERNEL]} "
-                                      f"times in the encryption of {phase}")
-    check(enc_counts[fm.PRESCALE_KERNEL] >= 1, f"the r-stage kernel never ran in {phase}")
+    check(aborted is not False, f"{threshold - 1} valid dealers did not abort at threshold "
+                                f"{threshold} ({phase})")
+    check(wrap_ok, f"the >= 2^63 scalars did not decode with `as i64` semantics ({phase})")
+    # the route's kernels ran in each stage, and the other routes' kernels did not
+    product = {"banded": fm.KERNEL, "swapped": fm.SWAPPED_KERNEL,
+               "pipelined": fm.PIPELINED_KERNEL}
+    generated = sum(1 for b in (params.error_bound_1, params.error_bound_2)
+                    if signed_digit_count(b))
+    for stage in ("encrypt", "wrap_encrypt"):
+        if stage not in stage_launches:
+            continue
+        ran = stage_launches[stage]
+        check(ran[product[route]] >= 2, f"{product[route]} ran {ran[product[route]]} times "
+                                        f"in the {stage} stage of {phase}")
+        for other in set(product.values()) - {product[route]}:
+            check(ran[other] == 0, f"{other} ran {ran[other]} times in the {stage} stage of "
+                                   f"{phase}, whose route is {route}")
+        if route == "swapped":
+            check(ran[fm.PRESCALE_KERNEL] == 0, f"the r-stage kernel ran in {phase}'s "
+                                                 "swapped encryption")
+        else:
+            check(ran[fm.PRESCALE_KERNEL] >= 1, f"the r-stage kernel never ran in the {stage} "
+                                                 f"stage of {phase}")
+        if route == "pipelined":
+            check(ran[fm.NOISE_KERNEL] == 0, f"the v3k generator ran {ran[fm.NOISE_KERNEL]} "
+                                             f"times in {phase}'s pipelined {stage} stage")
+        elif stage == "encrypt" and stream == "v3k":
+            check(ran[fm.NOISE_KERNEL] >= generated,
+                  f"the v3k generator ran {ran[fm.NOISE_KERNEL]} times in the encryption of "
+                  f"{phase}, which has {generated} products with signed-digit noise")
+        elif stage == "encrypt":
+            check(ran[fm.NOISE_KERNEL] == 0, f"the v3k generator ran in the encryption of "
+                                             f"{phase} under stream {stream}")
+    if "keygen" in stage_launches:
+        keygen = fm.PIPELINED_KERNEL if route == "pipelined" else fm.KERNEL
+        check(stage_launches["keygen"][keygen] >= 1, f"{keygen} never ran in the keygen of "
+                                                     f"{phase}")
     return out, {"params": params, "gpk": gpk, "shares": shares,
-                 "sk": sks[full_parties[0]]}
+                 "sk": sks[full_parties[0]], "coeffs": host_coeffs}
+
+
+def kernel_entry(name: str, source: str, replaces: str, function: str, by_path: dict,
+                 worst: int, timing: dict, config4: dict | None, card: str, **extra) -> dict:
+    """One kernel's entry of the kernels line: its launches on each path,
+    its worst difference from its twin, and its times at ``timing``'s
+    shape (and config 4's)."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "replaces_function": function, "launches": sum(by_path.values()),
+             "launches_by_path": by_path, "bit_exact": worst == 0, "max_abs_err": worst,
+             **{key: timing[key] for key in keys}, "shape": timing["shape"], **extra}
+    if config4 is not None:
+        entry["config4"] = {key: config4[key] for key in ("shape", *keys, *extra)}
+    entry["card"] = card
+    return entry
 
 
 def main() -> int:
@@ -931,7 +1197,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     t0 = time.perf_counter()
-    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL])
+    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL])
     build_s = time.perf_counter() - t0
     print(card, flush=True)
     emit({"phase": "device", "card": card, "torch": torch.__version__,
@@ -940,102 +1206,95 @@ def main() -> int:
     worst = phase_kernel_vs_plain(ring, dev)
     timing = phase_timing(ring, N_RECEIVERS, K_DIM, dev, card, "timing")
     phase_golden(dev)
-    main_path, ctx = phase_main_path(dev, card)
+    toy_parties = (0, 1, N_RECEIVERS // 2 - 1, N_RECEIVERS - 1)
+    paths = {}
+    paths["main_path"], ctx = phase_dealer_path(
+        "main_path", presets.pvss_8192(N_RECEIVERS), dev, card, 0, "kernel",
+        full_parties=toy_parties, wrap_parties=(0, 1, N_RECEIVERS // 2, N_RECEIVERS - 1),
+        config="toy chain")
     phase_breakdown(dev, card, ctx)
     del ctx
     torch.cuda.empty_cache()
     prescale_worst = phase_prescale_vs_plain(dev)
     deep_worst = phase_deep_kernel_vs_plain(dev)
     deep_timing = phase_deep_timing(dev, card)
-    deep_path, ctx = phase_deep_path(dev, card)
+    deep = presets.threshold_256bit(DEEP_N)
+    deep_info = {"config": "BASELINE config 4", "preset": "threshold_256bit"}
+    paths["deep_path"], ctx = phase_dealer_path(
+        "deep_path", deep, dev, card, 4, "kernel", full_parties=(0, DEEP_N - 1),
+        threshold_parties=(0, 1, DEEP_N // 2 - 1, DEEP_N - 1), **deep_info)
     phase_breakdown(dev, card, ctx, "deep_breakdown")
     deep_keys = (ctx["gpk"], ctx["coeffs"])
     del ctx
     torch.cuda.empty_cache()
     v3k_worst = phase_v3k_vs_plain(dev)
     v3k_timing = phase_v3k_timing(dev, card)
-    v3k_path, ctx = phase_dealer_path(
+    swapped_worst = phase_swapped_vs_plain(dev)
+    pipelined_worst = phase_pipelined_vs_plain(dev)
+    opt_timing = phase_opt_in_timing(dev, card)
+    paths["v3k_path"], ctx = phase_dealer_path(
         "v3k_path", presets.pvss_8192(N_RECEIVERS), dev, card, 5, "v3k",
-        full_parties=(0, 1, N_RECEIVERS // 2 - 1, N_RECEIVERS - 1), config="toy chain")
+        full_parties=toy_parties, config="toy chain")
     phase_breakdown(dev, card, ctx, "v3k_breakdown", stream="v3k")
     del ctx
     torch.cuda.empty_cache()
-    v3k_deep_path, _ = phase_dealer_path(
-        "v3k_deep_path", deep_keys[0].params, dev, card, 6, "v3k", full_parties=(0,),
-        threshold_parties=(DEEP_N // 2 - 1, DEEP_N - 1), keys=deep_keys,
-        config="BASELINE config 4", preset="threshold_256bit")
-    del deep_keys, _
+    paths["v3k_deep_path"], _ = phase_dealer_path(
+        "v3k_deep_path", deep, dev, card, 6, "v3k", full_parties=(0,),
+        threshold_parties=(DEEP_N // 2 - 1, DEEP_N - 1), keys=deep_keys, **deep_info)
+    del _
+    paths["swapped_path"], ctx = phase_dealer_path(
+        "swapped_path", deep, dev, card, 8, "v3k", full_parties=(0,),
+        threshold_parties=(DEEP_N - 1,), keys=deep_keys, route="swapped", **deep_info)
+    phase_breakdown(dev, card, ctx, "swapped_breakdown", stream="v3k", route="swapped")
+    del deep_keys, ctx
     torch.cuda.empty_cache()
-    reference_path, ctx = phase_dealer_path(
+    paths["reference_path"], ctx = phase_dealer_path(
         "reference_path", presets.secure_128_reference(REF_N), dev, card, 7, "v3k",
         full_parties=(0, REF_N // 2 - 1, REF_N - 1),
         config="the reference's 128-bit example (examples/pvw_valid_dec.py:40-48)",
         preset="secure_128_reference")
     phase_breakdown(dev, card, ctx, "reference_breakdown", stream="v3k")
     del ctx
-    paths = {"main_path": main_path, "deep_path": deep_path, "v3k_path": v3k_path,
-             "v3k_deep_path": v3k_deep_path, "reference_path": reference_path}
+    torch.cuda.empty_cache()
+    paths["pipelined_path"], ctx = phase_dealer_path(
+        "pipelined_path", presets.pvss_8192(N_RECEIVERS), dev, card, 9, "v3k",
+        full_parties=(0, N_RECEIVERS - 1), route="pipelined", config="toy chain")
+    phase_breakdown(dev, card, ctx, "pipelined_breakdown", stream="v3k", route="pipelined")
+    del ctx
     by_path = {name: {path: out["launches"][name] for path, out in paths.items()}
-               for name in (fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL)}
+               for name in launches()}
     dm, dp = deep_timing["matmul"], deep_timing["prescale"]
-    vt, vt4 = v3k_timing["toy c2"], v3k_timing["config-4 c2"]
-    emit({"kernels": [{
-        "name": fm.KERNEL,
-        "route": "cuda",
-        "source": "pvw_tpu_torch/csrc/fused_scaled_noise_matmul.cu",
-        "replaces": "pvw_tpu/ops/pallas_modmat.py:672",
-        "replaces_function": "_fused_scaled_noise_matmul",
-        "launches": sum(by_path[fm.KERNEL].values()),
-        "launches_by_path": by_path[fm.KERNEL],
-        "bit_exact": True,
-        "max_abs_err": max(worst, timing["max_abs_err"], deep_worst, dm["max_abs_err"],
-                           v3k_worst),
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-        "shape": timing["shape"],
-        "config4": {key: dm[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")},
-        "card": card,
-    }, {
-        "name": fm.PRESCALE_KERNEL,
-        "route": "cuda",
-        "source": "pvw_tpu_torch/csrc/ntt_prescale_band.cu",
-        "replaces": "pvw_tpu/ops/pallas_modmat.py:1687",
-        "replaces_function": "ntt_prescale_band",
-        "launches": sum(by_path[fm.PRESCALE_KERNEL].values()),
-        "launches_by_path": by_path[fm.PRESCALE_KERNEL],
-        "bit_exact": True,
-        "max_abs_err": prescale_worst,
-        "ms": dp["ms"],
-        "plain_ms": dp["plain_ms"],
-        "bound_ms": dp["bound_ms"],
-        "bound_by": dp["bound_by"],
-        "library_ms": None,
-        "shape": dp["shape"],
-        "card": card,
-    }, {
-        "name": fm.NOISE_KERNEL,
-        "route": "cuda",
-        "source": "pvw_tpu_torch/csrc/v3k_noise_planes.cu",
-        "replaces": "pvw_tpu/ops/pallas_modmat.py:232",
-        "replaces_function": "_fused_scaled_noise_matmul (in-kernel v3k generation)",
-        "launches": sum(by_path[fm.NOISE_KERNEL].values()),
-        "launches_by_path": by_path[fm.NOISE_KERNEL],
-        "bit_exact": True,
-        "max_abs_err": max(v3k_worst, *(t["max_abs_err"] for t in v3k_timing.values())),
-        "ms": vt["ms"],
-        "plain_ms": vt["plain_ms"],
-        "bound_ms": vt["bound_ms"],
-        "bound_by": vt["bound_by"],
-        "library_ms": None,
-        "shape": vt["shape"],
-        "config4": {key: vt4[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")},
-        "card": card,
-    }]})
+    sw, pi = opt_timing["swapped"], opt_timing["pipelined"]
+    src = "pvw_tpu_torch/csrc/"
+    emit({"kernels": [
+        kernel_entry(fm.KERNEL, src + "fused_scaled_noise_matmul.cu",
+                     "pvw_tpu/ops/pallas_modmat.py:672", "_fused_scaled_noise_matmul",
+                     by_path[fm.KERNEL],
+                     max(worst, timing["max_abs_err"], deep_worst, dm["max_abs_err"],
+                         v3k_worst, pi["toy c2"]["max_abs_err"],
+                         pi["config-4 c2"]["max_abs_err"]), timing, dm, card),
+        kernel_entry(fm.PRESCALE_KERNEL, src + "ntt_prescale_band.cu",
+                     "pvw_tpu/ops/pallas_modmat.py:1687", "ntt_prescale_band",
+                     by_path[fm.PRESCALE_KERNEL], prescale_worst, dp, None, card),
+        kernel_entry(fm.NOISE_KERNEL, src + "v3k_noise_planes.cu",
+                     "pvw_tpu/ops/pallas_modmat.py:232",
+                     "_fused_scaled_noise_matmul (in-kernel v3k generation)",
+                     by_path[fm.NOISE_KERNEL],
+                     max(v3k_worst, *(t["max_abs_err"] for t in v3k_timing.values())),
+                     v3k_timing["toy c2"], v3k_timing["config-4 c2"], card),
+        kernel_entry(fm.SWAPPED_KERNEL, src + "fused_scaled_noise_matmul.cu",
+                     "pvw_tpu/ops/pallas_modmat.py:696",
+                     "_fused_scaled_noise_matmul (swapped=True, via matmul_fold_swapped)",
+                     by_path[fm.SWAPPED_KERNEL],
+                     max(swapped_worst, *(t["max_abs_err"] for t in sw.values())),
+                     sw["toy c2"], sw["config-4 c2"], card),
+        kernel_entry(fm.PIPELINED_KERNEL, src + "fused_pipelined_matmul.cu",
+                     "pvw_tpu/ops/pallas_modmat.py:1029", "_fused_pipelined_matmul",
+                     by_path[fm.PIPELINED_KERNEL],
+                     max(pipelined_worst, *(t["max_abs_err"] for t in pi.values())),
+                     pi["toy c2"], pi["config-4 c2"], card,
+                     banded_plus_generator_ms=pi["toy c2"]["banded_plus_generator_ms"]),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

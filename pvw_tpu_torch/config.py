@@ -32,6 +32,18 @@ fused_prescale       PVW_TPU_FUSED_        The JAX package's r-stage engine
                                            on a card and on the CPU its twin,
                                            which is the plain pipeline
                                            ("auto").
+swapped_form         PVW_TPU_SWAPPED       Encrypt in the swapped operand
+                                           form: the Shoup scales on the
+                                           cached key planes, the plain
+                                           digits of r as the rhs, kernel 1's
+                                           swapped variant
+                                           (``_swapped_form_ok``) (False).
+pipeline_fold        PVW_TPU_PIPELINE      Run the fused products with noise
+                                           or an encode through the pipelined
+                                           kernel on a card (the fold of
+                                           channel c under the contraction of
+                                           channel c + 1, v3k noise drawn in
+                                           it) (False).
 ===================  ====================  ==================================
 
 Precedence per knob: programmatic assignment > environment variable >
@@ -89,6 +101,8 @@ class Settings:
     noise_value_mac: bool = _Knob("PVW_TPU_NOISE_VALS", True, _parse_bool)
     decode_mode: str = _Knob("PVW_TPU_DECODE", "auto")
     fused_prescale: str = _Knob("PVW_TPU_FUSED_PRESCALE", "auto")
+    swapped_form: bool = _Knob("PVW_TPU_SWAPPED", False, _parse_bool)
+    pipeline_fold: bool = _Knob("PVW_TPU_PIPELINE", False, _parse_bool)
 
     def __init__(self) -> None:
         self._overrides: dict = {}

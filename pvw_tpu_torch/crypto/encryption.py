@@ -6,7 +6,10 @@ d independent encryptions so both products are one fused scaled-digit
 matmul each (:func:`~pvw_tpu_torch.ops.fused_modmat.matmul_fold_scaled`),
 with the noise NTT and the gadget encode inside the kernel. On a card the
 r-stage (signed NTT + scaled-digit band) is one kernel too
-(:func:`~pvw_tpu_torch.ops.fused_modmat.ntt_prescale_band`).
+(:func:`~pvw_tpu_torch.ops.fused_modmat.ntt_prescale_band`). Two opt-in
+forms of the products, as in the JAX package: ``settings.swapped_form``
+(:func:`_swapped_form_ok`: the scales on the cached key planes, kernel 1's
+swapped variant) and ``settings.pipeline_fold`` (the pipelined kernel).
 
 Randomness is counter-based: the same key gives the same ciphertexts as
 the JAX package on the CPU. Stream routing follows the JAX package:
@@ -25,9 +28,10 @@ import numpy as np
 
 from ..errors import InvalidParameters
 from ..keys.public_key import GlobalPublicKey
-from ..ops import ntt as ntt_ops, u64 as u64op
+from ..ops import modmat, ntt as ntt_ops, u64 as u64op
 from ..ops.fused_modmat import (encode_tab, gen_noise_planes, kernel_noise_available,
-                                matmul_fold_scaled, ntt_prescale_band)
+                                matmul_fold_scaled, matmul_fold_swapped,
+                                ntt_prescale_band, pipeline_takes)
 from ..ops.tfry import key_words as tfry_key_words
 from ..params.parameters import PvwParameters
 from ..poly import Poly, Representation
@@ -79,11 +83,14 @@ def _run(name: str, fn):
     return fn()
 
 
-def _r_band(params: PvwParameters, k_r, d: int, stream: str | None, col_off: int,
-            device, stage=_run):
+def _r_operand(params: PvwParameters, k_r, d: int, stream: str | None, col_off: int,
+               device, swapped: bool = False, stage=_run):
     """The r-stage: CBD coefficients [k, d, l] (the cbd-k stream under v3k,
     else row-keyed) -> scaled-digit band int8 [L, l, nd, k*nd, d] through
-    :func:`ntt_prescale_band` (the kernel on a card, its twin on the CPU)."""
+    :func:`ntt_prescale_band` (the kernel on a card, its twin on the CPU);
+    for the ``swapped`` form the plain digits int8 [L, l, k*nd, d] of the
+    signed NTT (``ntt_forward_signed_ch`` + ``rhs_digit_cols``, plain
+    torch, as the JAX package leaves them to XLA)."""
     k, l, var = params.k, params.l, params.secret_variance
     if stream == "v3k":
         from ..ops import tfry
@@ -92,6 +99,9 @@ def _r_band(params: PvwParameters, k_r, d: int, stream: str | None, col_off: int
             *tfry.key_words(k_r), 0, k, d, l, var, col_off, device))
     else:
         r = stage("r_sample", lambda: sample_vec_cbd_rows(k_r, 0, k, (d, l), var, device))
+    if swapped:
+        return stage("r_ntt_digits", lambda: modmat.rhs_digit_cols(
+            ntt_ops.ntt_forward_signed_ch(r, params.ring, cbd_bound(var)), params.ring))
     return stage("r_ntt_prescale_kernel",
                  lambda: ntt_prescale_band(r, params.ring, cbd_bound(var)))
 
@@ -111,20 +121,30 @@ def _product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, bound: int,
     [L, l, rows, d], with the JAX package's noise routing
     (``encryption.py:190-316``): a bound with signed digits under v3k takes
     ``gen_noise`` (the v3k kernel on a card, launched ahead of the fused
-    matmul, which reads its planes), under v4 and v3 it draws v3 planes;
-    larger bounds run the fused matmul without noise rows and add residue
-    noise (row-keyed, stream v2) or ``host_e`` after it. ``stage(name, fn)``
-    runs each step: "noise_gen" or "noise", "kernel", then "noise_residues"
-    and "addmod" where the noise comes after."""
+    matmul, which reads its planes, or drawn inside the pipelined kernel
+    where it runs, :func:`~pvw_tpu_torch.ops.fused_modmat.pipeline_takes`),
+    under v4 and v3 it draws v3 planes; larger bounds run the fused matmul
+    without noise rows and add residue noise (row-keyed, stream v2) or
+    ``host_e`` after it. A 5-D ``lhs_dig`` (scaled planes) takes the
+    swapped form, :func:`matmul_fold_swapped`, with ``r_op`` the plain
+    digits of r. ``stage(name, fn)`` runs each step: "noise_gen" or
+    "noise", "kernel", then "noise_residues" and "addmod" where the noise
+    comes after."""
     ring, l = params.ring, params.l
     d, dev = r_op.shape[-1], r_op.device
 
-    def kernel(planes, noise_bound):
+    def kernel(planes, noise_bound, gen_noise=None):
+        if lhs_dig.ndim == 5:
+            return stage("kernel", lambda: matmul_fold_swapped(
+                lhs_dig, r_op, ring, noise=planes, encode=encode, encode32=encode32,
+                noise_bound=noise_bound))
         return stage("kernel", lambda: matmul_fold_scaled(
             None, r_op, ring, noise=planes, encode=encode, lhs_dig=lhs_dig,
-            encode32=encode32, noise_bound=noise_bound))
+            encode32=encode32, gen_noise=gen_noise, noise_bound=noise_bound))
 
     g = None if host_e is not None else _gen_noise(kk, bound, stream, col_off, dev)
+    if g is not None and lhs_dig.ndim == 4 and pipeline_takes(dev):
+        return kernel(None, None, gen_noise=g)
     if g is not None:
         return kernel(stage("noise_gen", lambda: gen_noise_planes(g, rows, d, l, dev)),
                       g[2])
@@ -144,18 +164,20 @@ def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
                     encode32: bool = False, host_e1=None, host_e2=None,
                     stream: str | None = "v4", col_off: int = 0, stage=_run):
     """d-batched PVW encryption. a_dig int8 [L, l, k, k*nd] and b_dig int8
-    [L, l, n, k*nd] are the cached lhs planes; sc int64 [d, n] are the u64
+    [L, l, n, k*nd] are the cached lhs planes, or the swapped form's scaled
+    planes [L, l, nd, k|n, k*nd]; sc int64 [d, n] are the u64
     scalars (bit patterns); ``encode32``: all scalars < 2^32;
     ``host_e1``/``host_e2``: NTT-domain channel-major noise [L, l, rows, d]
     sampled on the host (:func:`_host_noise_pairs`) for bounds >= the
     smallest modulus, or None; ``stream``: "v4", "v3k" or None (v3), from
     ``settings.kernel_noise_stream()``; ``stage(name, fn)``: runs each step
-    (:func:`_r_band`, then :func:`_product` for c1 and c2, their names
+    (:func:`_r_operand`, then :func:`_product` for c1 and c2, their names
     suffixed ``_c1``/``_c2``), a hook for timing them. Returns
     channel-major c1 [L, l, k, d] and c2 [L, l, n, d]."""
     k_r, k_e1, k_e2 = split(key, 3)
     dev = sc.device
-    r_op = _r_band(params, k_r, sc.shape[0], stream, col_off, dev, stage)
+    r_op = _r_operand(params, k_r, sc.shape[0], stream, col_off, dev, a_dig.ndim == 5,
+                      stage)
     c1 = _product(params, r_op, a_dig, k_e1, params.k, params.error_bound_1, stream,
                   host_e1, col_off=col_off,
                   stage=lambda name, fn: stage(f"{name}_c1", fn))
@@ -193,6 +215,21 @@ def _host_noise_pairs(params: PvwParameters, key, d: int, device):
     return host_e1, host_e2
 
 
+def _swapped_form_ok(params: PvwParameters, d: int) -> bool:
+    """Encrypt in the swapped operand form: ``settings.swapped_form`` on,
+    d >= 128 dealers, and both error bounds with signed digits (so no
+    residue or host noise), as in the JAX package (``encryption.py:391-412``).
+    The same rule on a card and on the CPU, which takes the twin. The JAX
+    package's further conditions describe Mosaic alone and are dropped: its
+    VMEM tile model (``_pick_tiles_swapped``) and its compile cap (nd >= 8
+    with n > 256), without which no deep chain could take the form."""
+    from ..config import settings
+
+    return (bool(settings.swapped_form) and d >= 128
+            and bool(ntt_ops.signed_digit_count(params.error_bound_1))
+            and bool(ntt_ops.signed_digit_count(params.error_bound_2)))
+
+
 def encrypt_batch(all_scalars, global_pk: GlobalPublicKey, key) -> PvwCiphertext:
     """Encrypt d scalar vectors ([d, n] u64) in one call: c1 [k, d],
     c2 [n, d], on the key matrix's device."""
@@ -220,7 +257,10 @@ def encrypt_batch(all_scalars, global_pk: GlobalPublicKey, key) -> PvwCiphertext
     # bounds >= min(q_i): exact host sampling (the reference's BigInt path
     # accepts any bound, encryption.rs:161-173)
     host_e1, host_e2 = _host_noise_pairs(params, key, arr.shape[0], sc.device)
-    a_dig, b_dig = global_pk.encrypt_operands()
+    if host_e1 is None and host_e2 is None and _swapped_form_ok(params, arr.shape[0]):
+        a_dig, b_dig = global_pk.encrypt_operands_swapped()
+    else:
+        a_dig, b_dig = global_pk.encrypt_operands()
     c1, c2 = _encrypt_kernel(params, a_dig, b_dig, sc, key, encode32, host_e1, host_e2,
                              settings.kernel_noise_stream())
     return PvwCiphertext(Poly.from_channel_major(c1, Representation.Ntt, params.ring),

@@ -199,17 +199,31 @@ class GlobalPublicKey:
             if i >= self.num_keys:
                 self.num_keys = i + 1
 
+    def _cached_operands(self, make):
+        """(make(A), make(B)) of the current matrices, in one cache slot:
+        remade when either matrix or ``make`` changes, so the banded and the
+        swapped operand sets are never resident together."""
+        key = (make, self.crs.matrix.res, self.matrix.res)
+        if self._enc_ops is None or any(a is not b for a, b in zip(self._enc_ops[0], key)):
+            self._enc_ops = None                      # drop the old set before making the new
+            self._enc_ops = (key, (make(key[1], self.params.ring),
+                                   make(key[2], self.params.ring)))
+        return self._enc_ops[1]
+
     def encrypt_operands(self):
         """Cached channel-major digit planes of (A, B), int8
         [L, l, k, k*nd] / [L, l, n, k*nd]: the encryption-invariant lhs
         operands of the fused kernel, remade when either matrix changes."""
-        src = (self.crs.matrix.res, self.matrix.res)
-        if self._enc_ops is None or self._enc_ops[0][0] is not src[0] \
-                or self._enc_ops[0][1] is not src[1]:
-            planes = (modmat.lhs_digit_planes(src[0], self.params.ring),
-                      modmat.lhs_digit_planes(src[1], self.params.ring))
-            self._enc_ops = (src, planes)
-        return self._enc_ops[1]
+        return self._cached_operands(modmat.lhs_digit_planes)
+
+    def encrypt_operands_swapped(self):
+        """Cached scaled channel-major digit planes of (A, B), int8
+        [L, l, nd, k, k*nd] / [L, l, nd, n, k*nd]
+        (:func:`~pvw_tpu_torch.ops.modmat.lhs_scaled_planes`): the lhs
+        operands of the swapped form, nd times the bytes of
+        :meth:`encrypt_operands`; the same invalidation rule, and the same
+        cache slot, so asking for one form drops the other."""
+        return self._cached_operands(modmat.lhs_scaled_planes)
 
     def get_polynomial(self, i: int, j: int) -> Optional[Poly]:
         if 0 <= i < self.params.n and 0 <= j < self.params.k:

@@ -26,6 +26,18 @@ v3k_noise_digit_planes`.
 ``pvw_tpu.ops.pallas_modmat.ntt_prescale_band``: small signed coefficients
 -> signed NTT -> scaled-digit band in one pass, the r-stage of encryption
 (``csrc/ntt_prescale_band.cu``; plain twin :func:`ntt_prescale_band_plain`).
+
+Two opt-in forms of the same product, as in the JAX package:
+
+- :func:`matmul_fold_swapped` (``settings.swapped_form``): the Shoup scales
+  on the cached lhs planes, the plain digits of r as the rhs; kernel 1's
+  swapped variant (``csrc/fused_scaled_noise_matmul.cu``, counted in
+  ``fused_scaled_noise_matmul_swapped.launches``; plain twin
+  :func:`matmul_fold_swapped_plain`).
+- :func:`fused_pipelined_matmul` (``settings.pipeline_fold``): the
+  pipelined kernel ``csrc/fused_pipelined_matmul.cu``, which
+  :func:`matmul_fold_scaled` takes for CUDA operands, with the v3k noise
+  drawn inside it; its plain twin is :func:`matmul_fold_scaled_plain`.
 """
 
 from __future__ import annotations
@@ -47,6 +59,8 @@ if TYPE_CHECKING:
     from ..params.ring import RingPlan
 
 KERNEL = "fused_scaled_noise_matmul"
+SWAPPED_KERNEL = "fused_scaled_noise_matmul_swapped"     # in KERNEL's source
+PIPELINED_KERNEL = "fused_pipelined_matmul"
 NOISE_KERNEL = "v3k_noise_planes"
 TABLE_WIDTH = 8
 PRESCALE_KERNEL = "ntt_prescale_band"
@@ -142,8 +156,30 @@ def _encode_residues(sc, etab, L: int, S: int, ring: "RingPlan"):
 def matmul_fold_scaled_plain(lhs, rhs_band, ring: "RingPlan", noise=None,
                              encode=None, lhs_dig=None):
     """Plain PyTorch version of :func:`matmul_fold_scaled`: the scaled
-    digit columns, plus the noise NTT columns, folded, plus the encode."""
-    cols = scaled_cols(lhs, rhs_band, ring, lhs_dig=lhs_dig)
+    digit columns, plus the noise NTT columns, folded, plus the encode.
+    It is also the twin of the pipelined kernel
+    (:func:`fused_pipelined_matmul`), which computes the same function;
+    for its in-kernel v3k noise the planes are
+    :func:`~pvw_tpu_torch.ops.tfry.v3k_noise_digit_planes`."""
+    return _fold_plain(scaled_cols(lhs, rhs_band, ring, lhs_dig=lhs_dig), ring, noise,
+                       encode)
+
+
+def matmul_fold_swapped_plain(lhs_planes, rhs_dig, ring: "RingPlan", noise=None,
+                              encode=None):
+    """Plain PyTorch version of :func:`matmul_fold_swapped`: column c is
+    the digit product of the scaled lhs plane c with the plain rhs digits;
+    then the noise NTT columns, the fold and the encode, as in
+    :func:`matmul_fold_scaled_plain`."""
+    nd = lhs_planes.shape[2]
+    cols = torch.stack([exact_int_matmul(lhs_planes[:, :, c], rhs_dig) for c in range(nd)],
+                       dim=-1)                                    # [L, S, m, n, nd]
+    return _fold_plain(cols, ring, noise, encode)
+
+
+def _fold_plain(cols, ring: "RingPlan", noise, encode):
+    """int32 columns [L, S, m, n, nd] (+ the noise NTT columns) -> folded
+    residues [L, S, m, n] (+ the encode)."""
     if noise is not None:
         cols = cols + _noise_cols(noise, ring)
     out = _fold_leading(cols, ring)
@@ -155,18 +191,62 @@ def matmul_fold_scaled_plain(lhs, rhs_band, ring: "RingPlan", noise=None,
 
 
 # --------------------------------------------------------------------------
-# the CUDA kernel
+# the CUDA kernels: kernel 1 (banded and swapped) and the pipelined kernel
 # --------------------------------------------------------------------------
 
-def _kernel_fn():
-    fn = load(KERNEL).pvw_fused_scaled_noise_matmul
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# the C signatures of kernel 1's two entry points and the pipelined kernel's
+KERNEL1_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+PIPELINED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_uint32] * 4 + [ctypes.c_int] \
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+def _kernel_fn(symbol: str = "pvw_fused_scaled_noise_matmul"):
+    fn = getattr(load(KERNEL), symbol)
+    fn.argtypes = KERNEL1_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _check_args(dev, args: dict) -> None:
+    """Raise unless every (tensor, dtype, shape) of ``args`` is contiguous
+    on ``dev`` with that dtype and shape; None entries are skipped."""
+    for name, (t, dtype, shape) in args.items():
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _epilogue_args(ch: int, m: int, n: int, nd: int, tables, ntab, noise, sc, etab) -> dict:
+    return {"tables": (tables, torch.int64, (ch, TABLE_WIDTH)),
+            "ntab": (ntab, torch.int32, (ch, ntab.shape[1], nd)),
+            "noise": (noise, torch.int8, None if noise is None else (noise.shape[0], m, n)),
+            "sc": (sc, torch.int64, (m, n)),
+            "etab": (etab, torch.int64, None if sc is None else (ch, 3))}
+
+
+def _launch_kernel1(symbol: str, lhs, rhs, shapes: dict, ch: int, m: int, n: int,
+                    kd: int, nd: int, tables, ntab, noise, sc, etab, jr: int, vals: bool,
+                    encode32: bool):
+    dev = lhs.device
+    _check_args(dev, {**shapes, **_epilogue_args(ch, m, n, nd, tables, ntab, noise, sc,
+                                                  etab)})
+    nrows = ntab.shape[1] if noise is not None else 0
+    out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _kernel_fn(symbol)(
+        _ptr(lhs), _ptr(rhs), _ptr(tables), _ptr(ntab), _ptr(noise),
+        _ptr(sc), _ptr(etab), _ptr(out), ch, m, n, kd, nd, nrows, int(jr),
+        int(vals), int(encode32), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{symbol}: launch failed with CUDA error {err}")
+    return out
 
 
 def fused_scaled_noise_matmul(lhs_dig, band, tables, ntab, noise, sc, etab,
@@ -178,35 +258,76 @@ def fused_scaled_noise_matmul(lhs_dig, band, tables, ntab, noise, sc, etab,
     launches in ``fused_scaled_noise_matmul.launches``."""
     ch, m, kd = lhs_dig.shape
     nd, n = band.shape[1], band.shape[3]
-    args = {"lhs_dig": (lhs_dig, torch.int8, (ch, m, kd)),
-            "band": (band, torch.int8, (ch, nd, kd, n)),
-            "tables": (tables, torch.int64, (ch, TABLE_WIDTH)),
-            "ntab": (ntab, torch.int32, (ch, ntab.shape[1], nd))}
-    if noise is not None:
-        args["noise"] = (noise, torch.int8, (noise.shape[0], m, n))
-    if sc is not None:
-        args["sc"] = (sc, torch.int64, (m, n))
-        args["etab"] = (etab, torch.int64, (ch, 3))
-    dev = lhs_dig.device
-    for name, (t, dtype, shape) in args.items():
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    nrows = ntab.shape[1] if noise is not None else 0
-    out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel_fn()(
-        _ptr(lhs_dig), _ptr(band), _ptr(tables), _ptr(ntab), _ptr(noise),
-        _ptr(sc), _ptr(etab), _ptr(out), ch, m, n, kd, nd, nrows, int(jr),
-        int(vals), int(encode32), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{KERNEL}: launch failed with CUDA error {err}")
+    out = _launch_kernel1("pvw_fused_scaled_noise_matmul", lhs_dig, band, {
+        "lhs_dig": (lhs_dig, torch.int8, (ch, m, kd)),
+        "band": (band, torch.int8, (ch, nd, kd, n))}, ch, m, n, kd, nd, tables, ntab,
+        noise, sc, etab, jr, vals, encode32)
     fused_scaled_noise_matmul.launches += 1
     return out
 
 
 fused_scaled_noise_matmul.launches = 0
+
+
+def fused_scaled_noise_matmul_swapped(lhs_planes, rhs_t, tables, ntab, noise, sc, etab,
+                                      jr: int, vals: bool, encode32: bool):
+    """Launch kernel 1's swapped form on the current stream. lhs_planes int8
+    [CH, nd, m, kd] (scaled planes); rhs_t int8 [CH, n, kd] (the plain rhs
+    digits, k-packed); the rest as :func:`fused_scaled_noise_matmul` ->
+    int64 [CH, m, n]. Counts its launches in
+    ``fused_scaled_noise_matmul_swapped.launches``."""
+    ch, nd, m, kd = lhs_planes.shape
+    n = rhs_t.shape[1]
+    out = _launch_kernel1("pvw_fused_scaled_noise_matmul_swapped", lhs_planes, rhs_t, {
+        "lhs_planes": (lhs_planes, torch.int8, (ch, nd, m, kd)),
+        "rhs_t": (rhs_t, torch.int8, (ch, n, kd))}, ch, m, n, kd, nd, tables, ntab,
+        noise, sc, etab, jr, vals, encode32)
+    fused_scaled_noise_matmul_swapped.launches += 1
+    return out
+
+
+fused_scaled_noise_matmul_swapped.launches = 0
+
+
+def _pipelined_fn():
+    fn = load(PIPELINED_KERNEL).pvw_fused_pipelined_matmul
+    fn.argtypes = PIPELINED_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_pipelined_matmul(lhs_dig, band, tables, ntab, noise, gen, sc, etab, l: int,
+                           jr: int, vals: bool, encode32: bool):
+    """Launch the pipelined kernel on the current stream: the function of
+    :func:`fused_scaled_noise_matmul`, one block walking every channel of
+    its output tile. The noise is ``noise`` int8 [l*jr, m, n], or ``gen`` =
+    (k0, k1, row_off, col_off, bound), the v3k values drawn inside the
+    kernel, or neither (ntab then unused). Counts its launches in
+    ``fused_pipelined_matmul.launches``."""
+    ch, m, kd = lhs_dig.shape
+    nd, n = band.shape[1], band.shape[3]
+    dev = lhs_dig.device
+    _check_args(dev, {"lhs_dig": (lhs_dig, torch.int8, (ch, m, kd)),
+                      "band": (band, torch.int8, (ch, nd, kd, n)),
+                      **_epilogue_args(ch, m, n, nd, tables, ntab, noise, sc, etab)})
+    if gen is not None and noise is not None:
+        raise ValueError("gen and noise are mutually exclusive")
+    k0, k1, row_off, col_off, bound = (int(w) for w in gen) if gen is not None else (0,) * 5
+    nrows = ntab.shape[1] if noise is not None or gen is not None else 0
+    out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _pipelined_fn()(
+        _ptr(lhs_dig), _ptr(band), _ptr(tables), _ptr(ntab), _ptr(noise),
+        k0 & u.M32, k1 & u.M32, row_off & u.M32, col_off & u.M32, bound, _ptr(sc),
+        _ptr(etab), _ptr(out), ch, m, n, kd, nd, l, int(jr), nrows, int(vals),
+        int(encode32), int(gen is not None), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{PIPELINED_KERNEL}: launch failed with CUDA error {err}")
+    fused_pipelined_matmul.launches += 1
+    return out
+
+
+fused_pipelined_matmul.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -262,10 +383,10 @@ def kernel_noise_available(bound: int, tfry: bool = False, device="cuda") -> boo
     return torch.device(device).type in ("cpu", "cuda")
 
 
-def gen_noise_planes(gen_noise, m: int, n: int, l: int, device):
-    """The planes [l*jr, m, n] that ``gen_noise`` = (seeds, jr, bound,
-    "tfry") stands for, from :func:`v3k_noise_planes`: seeds (key0, key1,
-    row_offset, col_offset) as int32 words, the JAX layout."""
+def _gen_words(gen_noise):
+    """((key0, key1, row_offset, col_offset), jr, bound) of ``gen_noise`` =
+    (seeds, jr, bound, "tfry"), the seeds as int32 words (the JAX layout).
+    Stream v4 (no "tfry") and masked seeds (6 words) raise."""
     if len(gen_noise) < 4 or gen_noise[3] != "tfry":
         raise NotImplementedError(
             "gen_noise without 'tfry' is stream v4, the TPU hardware PRNG "
@@ -280,13 +401,69 @@ def gen_noise_planes(gen_noise, m: int, n: int, l: int, device):
             "row_offset, col_offset)")
     if jr != signed_digit_count(bound):
         raise ValueError(f"gen_noise jr {jr} does not match bound {bound}")
-    k0, k1, row_off, col_off = words
+    return tuple(words), jr, bound
+
+
+def gen_noise_planes(gen_noise, m: int, n: int, l: int, device):
+    """The planes [l*jr, m, n] that ``gen_noise`` = (seeds, jr, bound,
+    "tfry") stands for, from :func:`v3k_noise_planes`: seeds (key0, key1,
+    row_offset, col_offset) as int32 words, the JAX layout."""
+    (k0, k1, row_off, col_off), _, bound = _gen_words(gen_noise)
     return v3k_noise_planes(k0, k1, row_off, m, n, l, bound, col_off, device)
 
 
+def pipeline_takes(device, bare: bool = False) -> bool:
+    """True when :func:`matmul_fold_scaled` launches the pipelined kernel:
+    ``settings.pipeline_fold`` on, a CUDA device, and a product with noise
+    or an encode (the JAX package sends the bare product to its banded
+    kernel, ``pallas_modmat.py:1387-1390``). Then ``gen_noise`` is drawn
+    inside that kernel, with no generator launch ahead of it."""
+    from ..config import settings
+
+    return bool(settings.pipeline_fold) and not bare and torch.device(device).type == "cuda"
+
+
 # --------------------------------------------------------------------------
-# the public wrapper
+# the public wrappers
 # --------------------------------------------------------------------------
+
+def _noise_jr(planes: int, ring: "RingPlan", S: int) -> int:
+    """Digit planes per coefficient of ``planes`` noise digit planes (0
+    without noise)."""
+    if not planes:
+        return 0
+    if S != ring.degree:
+        raise ValueError("noise fusion requires the channel minor axis "
+                         "to be the NTT point axis (S == ring.degree)")
+    jr = planes // ring.degree
+    if planes != S * jr or jr not in (1, 2):
+        raise ValueError("noise digit planes must have l*jr rows, jr in (1, 2)")
+    return jr
+
+
+def _same_device(name: str, dev, *tensors) -> None:
+    if any(t is not None and t.device != dev for t in tensors):
+        raise ValueError(f"{name}: operands on different devices")
+
+
+def _kernel_tables(ring: "RingPlan", L: int, S: int, k: int, jr: int, noise_bound,
+                   encode, dev):
+    """(vals, tables, ntab, sc, etab) of a launch: the value-row decision
+    (:func:`_noise_vals_mode`, jr 0 without noise), the fold tables per
+    channel, the noise table (a zero row without noise) and the encode."""
+    nd = ring.num_digits
+    vals = bool(jr) and _noise_vals_mode(ring, k, jr, noise_bound)
+    if jr:
+        ntab = ring.table("ntt_scaled_tab", dev, 1 if vals else jr)
+        ntab = ntab.to(torch.int32).reshape(L * S, ntab.shape[2], nd).contiguous()
+    else:
+        ntab = torch.zeros((L * S, 1, nd), dtype=torch.int32, device=dev)
+    tables = u.u64_tensor(_pack_tables(ring, nd), dev).repeat_interleave(S, dim=0)
+    sc = etab = None
+    if encode is not None:
+        sc, etab = encode[0].contiguous(), encode[1].contiguous()
+    return vals, tables, ntab, sc, etab
+
 
 def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
                        encode=None, lhs_dig=None, encode32: bool = False,
@@ -306,19 +483,19 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
     ``encode``: (sc int64 [m, n] u64 patterns, etab int64 [L*S, 3] from
     :func:`encode_tab`); adds encode(sc)·g with the ``as i64`` wrap.
     ``encode32``: every scalar is < 2^32 (the caller checked).
-    ``gen_noise``: (seeds, jr, bound, "tfry") draws the stream-v3k planes
-    [l*jr, m, n] (:func:`v3k_noise_planes`; seeds (key0, key1, row_offset,
-    col_offset) as int32 words) and adds them as ``noise`` with
-    ``noise_bound`` = bound. Stream v4 (a 3-tuple) and masked seeds (6
-    words) raise ``NotImplementedError``.
+    ``gen_noise``: (seeds, jr, bound, "tfry") adds the stream-v3k noise
+    [l*jr, m, n] (seeds (key0, key1, row_offset, col_offset) as int32
+    words) with ``noise_bound`` = bound: drawn by :func:`v3k_noise_planes`
+    ahead of kernel 1, or inside the pipelined kernel. Stream v4 (a
+    3-tuple) and masked seeds (6 words) raise ``NotImplementedError``.
+
+    CUDA operands launch kernel 1 (``csrc/fused_scaled_noise_matmul.cu``),
+    or the pipelined kernel (``csrc/fused_pipelined_matmul.cu``) where
+    :func:`pipeline_takes`; CPU operands take the plain twin; any other
+    device raises.
     """
-    if gen_noise is not None:
-        if noise is not None:
-            raise ValueError("gen_noise and noise are mutually exclusive")
-        src = lhs_dig if lhs_dig is not None else lhs
-        noise = gen_noise_planes(gen_noise, src.shape[2], rhs_band.shape[4],
-                                 ring.degree, rhs_band.device)
-        noise_bound = int(gen_noise[2])
+    if gen_noise is not None and noise is not None:
+        raise ValueError("gen_noise and noise are mutually exclusive")
     nd = ring.num_digits
     if lhs_dig is None:
         L, S, m, k = lhs.shape
@@ -333,41 +510,89 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
         raise ValueError(f"rhs_band shape {tuple(rhs_band.shape)} does not match "
                          f"[L={L}, S={S}, nd={nd}, kd={k * nd}, n]")
     n = rhs_band.shape[4]
-    jr = 0
-    if noise is not None:
-        if S != ring.degree:
-            raise ValueError("noise fusion requires the channel minor axis "
-                             "to be the NTT point axis (S == ring.degree)")
-        jr = noise.shape[0] // ring.degree
-        if noise.shape[0] != S * jr or jr not in (1, 2):
-            raise ValueError("noise digit planes must have l*jr rows, jr in (1, 2)")
-    tensors = [t for t in (lhs, lhs_dig, rhs_band, noise,
-                           None if encode is None else encode[0],
-                           None if encode is None else encode[1]) if t is not None]
-    if any(t.device != dev for t in tensors):
-        raise ValueError("matmul_fold_scaled: operands on different devices")
+    pipelined = pipeline_takes(dev, bare=noise is None and gen_noise is None and encode is None)
+    gen = None
+    if gen_noise is not None and pipelined:
+        words, gjr, noise_bound = _gen_words(gen_noise)
+        gen = (*words, noise_bound)
+    elif gen_noise is not None:
+        noise = gen_noise_planes(gen_noise, m, n, ring.degree, dev)
+        noise_bound = int(gen_noise[2])
+    jr = _noise_jr(ring.degree * gjr if gen else 0 if noise is None else noise.shape[0],
+                   ring, S)
+    _same_device("matmul_fold_scaled", dev, lhs, lhs_dig, rhs_band, noise,
+                 *(encode if encode is not None else ()))
     if dev.type == "cpu":
         return matmul_fold_scaled_plain(lhs, rhs_band, ring, noise=noise,
                                         encode=encode, lhs_dig=lhs_dig)
     if dev.type != "cuda":
         raise ValueError(f"matmul_fold_scaled: unsupported device {dev}")
     ld = lhs_dig if lhs_dig is not None else digits(lhs, nd).reshape(L, S, m, k * nd)
-    vals = noise is not None and _noise_vals_mode(ring, k, jr, noise_bound)
-    if noise is not None:
-        ntab = ring.table("ntt_scaled_tab", dev, 1 if vals else jr)
-        ntab = ntab.to(torch.int32).reshape(L * S, ntab.shape[2], nd)
+    vals, tables, ntab, sc, etab = _kernel_tables(ring, L, S, k, jr, noise_bound, encode,
+                                                  dev)
+    ld = ld.reshape(L * S, m, k * nd).contiguous()
+    band = rhs_band.reshape(L * S, nd, k * nd, n).contiguous()
+    noise = None if noise is None else noise.contiguous()
+    if pipelined:
+        out = fused_pipelined_matmul(ld, band, tables, ntab, noise, gen, sc, etab,
+                                     ring.degree, jr, vals, encode32)
     else:
-        ntab = torch.zeros((L * S, 1, nd), dtype=torch.int32, device=dev)
-    tables = u.u64_tensor(_pack_tables(ring, nd), dev).repeat_interleave(S, dim=0)
-    sc = etab = None
-    if encode is not None:
-        sc, etab = encode[0].contiguous(), encode[1].contiguous()
-    out = fused_scaled_noise_matmul(
-        ld.reshape(L * S, m, k * nd).contiguous(),
-        rhs_band.reshape(L * S, nd, k * nd, n).contiguous(),
-        tables, ntab.contiguous(),
-        None if noise is None else noise.contiguous(),
-        sc, etab, jr, vals, encode32)
+        out = fused_scaled_noise_matmul(ld, band, tables, ntab, noise, sc, etab, jr, vals,
+                                        encode32)
+    return out.reshape(L, S, m, n)
+
+
+def matmul_fold_swapped(lhs_planes, rhs_dig, ring: "RingPlan", noise=None, encode=None,
+                        encode32: bool = False, gen_noise=None, noise_bound=None):
+    """Fused modular matmul with the Shoup scales on the cached lhs.
+
+    lhs_planes: int8 [L, S, nd(c), m, k*nd(i)] from
+    :func:`~pvw_tpu_torch.ops.modmat.lhs_scaled_planes`; rhs_dig: int8
+    [L, S, k*nd(i), n] from :func:`~pvw_tpu_torch.ops.modmat.rhs_digit_cols`
+    (the plain digits of r) -> int64 residues [L, S, m, n]. Column c is
+    sum_{k,i} digit_c(A*2^(8i) mod q) * digit_i(r): the columns, fold and
+    residues of :func:`matmul_fold_scaled`. ``noise``, ``encode``,
+    ``encode32``, ``gen_noise`` (the generator's planes) and
+    ``noise_bound``: as there.
+
+    CUDA operands launch kernel 1's swapped form, with the rhs laid out
+    k-packed ([L*S, n, k*nd]) for it here; CPU operands take the plain twin
+    :func:`matmul_fold_swapped_plain`; any other device raises. The JAX
+    package's Mosaic tile model and compile caps (``_pick_tiles_swapped``,
+    ``swapped_available``) have no counterpart: the kernel takes any shape.
+    """
+    if gen_noise is not None and noise is not None:
+        raise ValueError("gen_noise and noise are mutually exclusive")
+    nd = ring.num_digits
+    L, S, C, m, kd = lhs_planes.shape
+    k = kd // nd
+    if C != nd or kd != k * nd:
+        raise ValueError(f"lhs_planes shape {tuple(lhs_planes.shape)} does not match "
+                         f"[L, S, nd={nd}, m, k*nd]")
+    if k > u.MAX_CONTRACTION:
+        raise ValueError(f"contraction {k} exceeds int32 headroom {u.MAX_CONTRACTION}")
+    if tuple(rhs_dig.shape[:3]) != (L, S, kd):
+        raise ValueError(f"rhs_dig shape {tuple(rhs_dig.shape)} does not match "
+                         f"[L={L}, S={S}, kd={kd}, n]")
+    n = rhs_dig.shape[3]
+    dev = lhs_planes.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"matmul_fold_swapped: unsupported device {dev}")
+    if gen_noise is not None:
+        noise = gen_noise_planes(gen_noise, m, n, ring.degree, dev)
+        noise_bound = int(gen_noise[2])
+    jr = _noise_jr(0 if noise is None else noise.shape[0], ring, S)
+    _same_device("matmul_fold_swapped", dev, rhs_dig, noise,
+                 *(encode if encode is not None else ()))
+    if dev.type == "cpu":
+        return matmul_fold_swapped_plain(lhs_planes, rhs_dig, ring, noise=noise,
+                                         encode=encode)
+    vals, tables, ntab, sc, etab = _kernel_tables(ring, L, S, k, jr, noise_bound, encode,
+                                                  dev)
+    out = fused_scaled_noise_matmul_swapped(
+        lhs_planes.reshape(L * S, nd, m, kd).contiguous(),
+        rhs_dig.reshape(L * S, kd, n).transpose(1, 2).contiguous(), tables, ntab,
+        None if noise is None else noise.contiguous(), sc, etab, jr, vals, encode32)
     return out.reshape(L, S, m, n)
 
 

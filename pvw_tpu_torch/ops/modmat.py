@@ -98,6 +98,43 @@ def lhs_digit_planes(x, ring: "RingPlan"):
     return digits(x.permute(2, 3, 0, 1), ring.num_digits).reshape(L, l, m, k * ring.num_digits)
 
 
+def _scaled_digits(x, ring: "RingPlan", shp):
+    """Yields, for i < nd, the digit list of x * 2^(8i) mod q (residues x;
+    ``shp`` broadcasts the per-limb constants against x)."""
+    dev = x.device
+    q = ring.table("q", dev).reshape(shp)
+    for i in range(ring.num_digits):
+        t = x if i == 0 else u.shoup_mul64_arr(
+            x, ring.table("pow_w", dev)[:, i].reshape(shp),
+            ring.table("pow_s64", dev)[:, i].reshape(shp), q)
+        yield u.to_signed_digit_list(t, ring.num_digits)
+
+
+def lhs_scaled_planes(x, ring: "RingPlan"):
+    """Canonical residues [m, k, L, l] -> scaled channel-major digit planes
+    int8 [L, l, nd(c), m, k*nd(i)], entry (c, mm, kk*nd + i) =
+    digit_c(x[mm, kk] * 2^(8i) mod q): the cached lhs of the swapped fused
+    matmul (the Shoup scales on the encryption-invariant side, nd times the
+    plain planes' bytes)."""
+    m, k, L, l = x.shape
+    nd = ring.num_digits
+    out = torch.empty((L, l, nd, m, k, nd), dtype=torch.int8, device=x.device)
+    for i, digs in enumerate(_scaled_digits(x.permute(2, 3, 0, 1), ring, (L, 1, 1, 1))):
+        for c, d in enumerate(digs):
+            out[:, :, c, :, :, i] = d
+    return out.reshape(L, l, nd, m, k * nd)
+
+
+def rhs_digit_cols(rhs_ch, ring: "RingPlan"):
+    """Channel-major residues [L, l, k, n] -> plain digit rows int8
+    [L, l, k*nd(i), n] (k-major, digit-minor, the column order of
+    :func:`lhs_scaled_planes`): the per-encryption rhs of the swapped
+    form, nd digit extractions and no Shoup scales."""
+    L, l, k, n = rhs_ch.shape
+    return torch.stack(u.to_signed_digit_list(rhs_ch, ring.num_digits),
+                       dim=3).reshape(L, l, k * ring.num_digits, n)
+
+
 def prescale_digits_band(rhs, ring: "RingPlan"):
     """Scaled-digit band of the small operand: residues [L, S, k, n] ->
     int8 [L, S, nd(j), k*nd(i), n], entry (j, kk*nd + i, nn) = digit j of
@@ -105,15 +142,9 @@ def prescale_digits_band(rhs, ring: "RingPlan"):
     it gives only nd columns: sum_k a*b = sum_j 2^(8j) sum_{k,i} a_i t_ij."""
     L, S, k, n = rhs.shape
     nd = ring.num_digits
-    dev = rhs.device
-    shp = (L,) + (1,) * (rhs.ndim - 1)
-    q = ring.table("q", dev).reshape(shp)
-    out = torch.empty((L, S, nd, k, nd, n), dtype=torch.int8, device=dev)
-    for i in range(nd):
-        t = rhs if i == 0 else u.shoup_mul64_arr(
-            rhs, ring.table("pow_w", dev)[:, i].reshape(shp),
-            ring.table("pow_s64", dev)[:, i].reshape(shp), q)
-        for j, d in enumerate(u.to_signed_digit_list(t, nd)):
+    out = torch.empty((L, S, nd, k, nd, n), dtype=torch.int8, device=rhs.device)
+    for i, digs in enumerate(_scaled_digits(rhs, ring, (L,) + (1,) * (rhs.ndim - 1))):
+        for j, d in enumerate(digs):
             out[:, :, j, :, i, :] = d
     return out.reshape(L, S, nd, k * nd, n)
 

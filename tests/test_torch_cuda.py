@@ -316,3 +316,202 @@ def test_exact_int_matmul_on_the_card(cuda_device):
     got = modmat.exact_int_matmul(torch.from_numpy(a).to(cuda_device),
                                   torch.from_numpy(b).to(cuda_device))
     np.testing.assert_array_equal(got.cpu().numpy(), a.astype(np.int64) @ b.astype(np.int64))
+
+
+# --------------------------------------------------------------------------
+# the swapped form and the pipelined kernel
+# --------------------------------------------------------------------------
+
+# a chain for each digit count nd = 1..8 (two limbs, l = 8)
+CHAIN_BY_ND = {1: (97, 113), **{nd: generate_ntt_primes(bits, 2, 8) for nd, bits in
+                                 ((2, 14), (3, 22), (4, 30), (5, 38), (6, 46), (7, 54),
+                                  (8, 61))}}
+
+
+def _move(t, dev):
+    if t is None:
+        return None
+    return tuple(x.to(dev) for x in t) if isinstance(t, tuple) else t.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,jr,encode,vals,m,k,n", [
+    (1, 1, "enc64", True, 33, 9, 130), (2, 2, None, False, 70, 8, 129),
+    (3, 0, "enc32", False, 31, 16, 128), (4, 1, "enc64", False, 64, 5, 257),
+    (5, 2, "enc32", True, 70, 33, 130), (6, 0, None, False, 17, 7, 3),
+    (7, 2, "enc64", True, 40, 12, 140), (8, 1, "enc32", True, 65, 9, 131),
+    (8, 2, "enc64", False, 32, 16, 128)])
+def test_swapped_kernel_equals_plain_twin(cuda_device, nd, jr, encode, vals, m, k, n):
+    """Kernel 1's swapped form at every digit count, m and n on and off its
+    32 x 128 tile, k*nd on and off its 16-byte loads: bare, noise (value
+    and digit rows), both encodes."""
+    from pvw_tpu_torch.config import settings
+
+    ring, lhs_dig, band, noise, bound, enc = operands(CHAIN_BY_ND[nd], jr, encode, 30 + nd,
+                                                      m=m, k=k, n=n)
+    rng = np.random.default_rng(nd)
+    L, S = ring.num_limbs, 8
+    a = rand_u64(rng, (m, k, L, S)) % ring.q.reshape(1, 1, L, 1)
+    r = rand_u64(rng, (L, S, k, n)) % ring.q.reshape(L, 1, 1, 1)
+    planes = modmat.lhs_scaled_planes(u64.u64_tensor(a), ring)
+    rd = modmat.rhs_digit_cols(u64.u64_tensor(r), ring)
+    want = fm.matmul_fold_swapped(planes, rd, ring, noise=noise, encode=enc)
+    np.testing.assert_array_equal(     # the twin is the banded product's function
+        u64.u64_numpy(want),
+        u64.u64_numpy(fm.matmul_fold_scaled(
+            None, modmat.prescale_digits_band(u64.u64_tensor(r), ring), ring, noise=noise,
+            encode=enc, lhs_dig=modmat.lhs_digit_planes(u64.u64_tensor(a), ring))))
+    before = fm.fused_scaled_noise_matmul_swapped.launches
+    settings.noise_value_mac = vals
+    try:
+        got = fm.matmul_fold_swapped(_move(planes, cuda_device), _move(rd, cuda_device), ring,
+                                     noise=_move(noise, cuda_device),
+                                     encode=_move(enc, cuda_device),
+                                     encode32=encode == "enc32", noise_bound=bound)
+    finally:
+        del settings.noise_value_mac
+    torch.cuda.synchronize()
+    assert fm.fused_scaled_noise_matmul_swapped.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,noise_kind,encode,vals,m,k,n,offs", [
+    (1, "planes1", "enc64", True, 33, 9, 130, None),
+    (2, "gen2", None, False, 70, 8, 65, (0, 0)),
+    (3, None, "enc32", False, 31, 16, 32, None),
+    (4, "planes2", "enc64", False, 64, 5, 257, None),
+    (5, "gen1", "enc32", True, 130, 32, 96, ((1 << 32) - 2, 1 << 31)),
+    (6, "planes2", None, True, 17, 7, 3, None),
+    (7, "gen2", "enc64", True, 40, 12, 140, (5, (1 << 32) - 7)),
+    (8, "gen1", "enc64", False, 65, 9, 131, (1 << 31, 3)),
+    (8, "planes1", "enc32", True, 64, 16, 64, None)])
+def test_pipelined_kernel_equals_plain_twin(cuda_device, nd, noise_kind, encode, vals, m, k,
+                                            n, offs):
+    """The pipelined kernel at every digit count, m and n on and off its 64
+    x 32 tile: input planes (jr = 1, 2), in-kernel v3k (jr = 1, 2, with row
+    and column offsets whose counters wrap mod 2^32), value and digit rows,
+    the encode alone, both encodes; against the twin with the generator's
+    planes."""
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import tfry
+
+    jr = int(noise_kind[-1]) if noise_kind else 0
+    ring, lhs_dig, band, noise, bound, enc = operands(CHAIN_BY_ND[nd], jr, encode, 40 + nd,
+                                                      m=m, k=k, n=n)
+    gen = None
+    if noise_kind and noise_kind.startswith("gen"):
+        gen = ((0xDEADBEEF, 0x12345678, *offs), jr, bound, "tfry")
+        noise = tfry.v3k_noise_digit_planes(0xDEADBEEF, 0x12345678, offs[0], m, n, 8, bound,
+                                            offs[1])
+    want = fm.matmul_fold_scaled_plain(None, band, ring, noise=noise, encode=enc,
+                                       lhs_dig=lhs_dig)
+    before = (fm.fused_pipelined_matmul.launches, fm.fused_scaled_noise_matmul.launches,
+              fm.v3k_noise_planes.launches)
+    settings.pipeline_fold = True
+    settings.noise_value_mac = vals
+    try:
+        got = fm.matmul_fold_scaled(
+            None, _move(band, cuda_device), ring,
+            noise=None if gen else _move(noise, cuda_device), encode=_move(enc, cuda_device),
+            lhs_dig=_move(lhs_dig, cuda_device), encode32=encode == "enc32",
+            noise_bound=bound, gen_noise=gen)
+    finally:
+        del settings.pipeline_fold, settings.noise_value_mac
+    torch.cuda.synchronize()
+    assert (fm.fused_pipelined_matmul.launches, fm.fused_scaled_noise_matmul.launches,
+            fm.v3k_noise_planes.launches) == (before[0] + 1, before[1], before[2])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jr", [1, 2])
+def test_pipelined_kernel_deep_chain_equals_plain_twin(cuda_device, jr):
+    """Config 4's chain (CH = 272, nd = 8, l = 16) with in-kernel v3k."""
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import tfry
+
+    ring, lhs_dig, band, _, bound, enc = operands(CHAIN_61X17, jr, "enc64", 50, m=70, k=9,
+                                                  n=69, l=16)
+    planes = tfry.v3k_noise_digit_planes(1, 2, 3, 70, 69, 16, bound, 4)
+    want = fm.matmul_fold_scaled_plain(None, band, ring, noise=planes, encode=enc,
+                                       lhs_dig=lhs_dig)
+    settings.pipeline_fold = True
+    try:
+        got = fm.matmul_fold_scaled(None, band.to(cuda_device), ring,
+                                    encode=_move(enc, cuda_device),
+                                    lhs_dig=lhs_dig.to(cuda_device),
+                                    gen_noise=((1, 2, 3, 4), jr, bound, "tfry"))
+    finally:
+        del settings.pipeline_fold
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_swapped_and_pipelined_failures_raise(cuda_device, monkeypatch):
+    """No fallback: the pipelined kernel refuses more noise planes than it
+    keeps on chip (l * jr > 32), and a failed swapped launch raises."""
+    from pvw_tpu_torch.config import settings
+
+    ring, lhs_dig, band, _, _, _ = operands(TOY, 0, None, 51, m=8, k=4, n=8, l=32)
+    before = fm.fused_pipelined_matmul.launches
+    settings.pipeline_fold = True
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fm.matmul_fold_scaled(None, band.to(cuda_device), ring,
+                                  lhs_dig=lhs_dig.to(cuda_device),
+                                  gen_noise=((1, 2, 0, 0), 2, 2000, "tfry"))
+    finally:
+        del settings.pipeline_fold
+    assert fm.fused_pipelined_matmul.launches == before
+    monkeypatch.setattr(fm, "_kernel_fn", lambda symbol: (lambda *args: 700))
+    planes = torch.zeros((2, 32, 5, 4, 20), dtype=torch.int8, device=cuda_device)
+    rd = torch.zeros((2, 32, 20, 8), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fm.matmul_fold_swapped(planes, rd, ring)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["swapped", "pipelined"])
+@pytest.mark.parametrize("stream", ["kernel", "v3k"])
+def test_opt_in_routes_on_the_card_equal_cpu(cuda_device, route, stream):
+    """Encryption of 130 dealers with each opt-in route on the card gives
+    the CPU's ciphertexts, through its kernel: the swapped form launches its
+    kernel for both products and not the r-stage kernel; the pipelined
+    kernel runs both products with no generator launch and no kernel 1."""
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+
+    params = P.PvwParameters(5, 16, 8, TOY, 0.5, 50, 2000)
+    sc = np.random.default_rng(8).integers(0, 1 << 40, (130, 5), dtype=np.uint64)
+    sc[0, :2] = [1 << 63, (1 << 64) - 1]
+    counted = (fm.fused_scaled_noise_matmul, fm.fused_scaled_noise_matmul_swapped,
+               fm.fused_pipelined_matmul, fm.v3k_noise_planes, fm.ntt_prescale_band)
+    out = {}
+    settings.noise_stream = stream
+    try:
+        for dev in ("cpu", cuda_device):
+            key = R.key(12)
+            crs = P.PvwCrs.new(params, R.fold_in(key, 1), device=dev)
+            parties = [P.Party.new(i, params, R.fold_in(key, 10 + i), device=dev)
+                       for i in range(5)]
+            gpk = P.GlobalPublicKey(crs)
+            gpk.generate_all_party_keys(parties, R.fold_in(key, 2))
+            setattr(settings, "swapped_form" if route == "swapped" else "pipeline_fold", True)
+            try:
+                before = [f.launches for f in counted]
+                ct = P.encrypt_batch(sc, gpk, R.fold_in(key, 3))
+                runs = [f.launches - b for f, b in zip(counted, before)]
+            finally:
+                del settings.swapped_form, settings.pipeline_fold
+            if dev != "cpu":
+                gen = 2 if stream == "v3k" else 0
+                want = [0, 2, 0, gen, 0] if route == "swapped" else [0, 0, 2, 0, 1]
+                assert runs == want
+            out[str(dev)] = (ct.c1.residues_np(), ct.c2.residues_np())
+    finally:
+        del settings.noise_stream
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        np.testing.assert_array_equal(a, b)
