@@ -15,7 +15,7 @@ encryption): it fails if a kernel of its route did not launch, or if a
 kernel of another route did.
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   the four kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
+   the five kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
    started together, into ``build/kernels``);
 2. kernel_vs_plain: kernel 1, the fused scaled-noise matmul, against its
    plain PyTorch twin at the keygen, c1 and c2 shapes of the main path at
@@ -63,23 +63,45 @@ kernel of another route did.
     output against the twin, then timed beside the bound, the twin,
     ``torch._int_mm`` and, for kernel 3, the generator + kernel 1 pair it
     replaces;
-15. v3k_path: the toy chain under ``noise_stream="v3k"``, then
+15. masked_vs_plain: kernel 1's masked form (6-word seeds: the generator's
+    masked planes, the encode on the global rows [lo, hi) only) and its
+    ``post=`` addmod against the twin at reduced shapes (nd = 5 and 8, jr =
+    1 and 2, ranges empty, full, ragged and off the tile, with and without
+    post=; post= alone and with the encode); banded_vs_plain: kernel 2, ``matmul_channels_fused``,
+    at C = 9 and 15 with m and n off its tile;
+16. banded_path: the entry ``matmul_fold_auto`` at kernel 2's two full
+    shapes ([16 ch, 4096 x 256] x [256 x 1024], nd = 5; [272 ch, 1024 x 512]
+    x [512 x 1024], nd = 8), counted, against the twin; banded_timing: the
+    launch, the entry, the twin and ``torch._int_mm`` beside the bound;
+    masked_timing: the masked and post= launches at the config-4 c2 shape;
+17. v3k_path: the toy chain under ``noise_stream="v3k"``, then
     v3k_breakdown;
-16. v3k_deep_path: config 4 under v3k on the deep path's keys: threshold
+18. v3k_deep_path: config 4 under v3k on the deep path's keys: threshold
     decryption for two parties, full for one;
-17. swapped_path: config 4 under v3k on the same keys with
+19. swapped_path: config 4 under v3k on the same keys with
     ``settings.swapped_form``: the scaled key planes built (timed, and the
     peak device memory), threshold decryption for party 1023, full for
     party 0; then swapped_breakdown;
-18. reference_path: the reference's own 128-bit parameters,
+20. the multi-device backends on the same keys, cuda:0 repeated (a device
+    may repeat in a mesh), each against the single-device ciphertext of the
+    same key and scalars (``torch.equal``) with sampled shares exact and
+    launch gates (a mesh's c1 on its recv row 0 only, c2 on every shard;
+    the masked form for every v3k kdim > 1 or forced product and nowhere
+    else, kernel 4 once a shard, no kernel 3 or swapped form, the bake
+    route's products bare): under v3k sharded_path ((2, 2) mesh),
+    forced_masked_path ((1, 1), ``_force_masked``), data_parallel_path (4
+    dealer shards), limb_parallel_path (17 limbs in 4 groups), grid_path
+    (2 limb groups x a (1, 2) mesh); under the default stream
+    sharded_bake_path ((2, 2));
+21. reference_path: the reference's own 128-bit parameters,
     ``presets.secure_128_reference(1024)`` (k = 1024, l = 8, 4 x 55-bit
     limbs, variance 10, bounds (1, 1172385)) under v3k: all dealers
     decrypted for parties 0, 511 and 1023, then reference_breakdown;
-19. pipelined_path: the toy chain at n = 4096 under v3k with
+22. pipelined_path: the toy chain at n = 4096 under v3k with
     ``settings.pipeline_fold`` (keygen and both products through kernel 3,
     no generator launch), full decryption for parties 0 and 4095; then
     pipelined_breakdown;
-20. the kernels line (five kernels), then the last line
+23. the kernels line (seven entries), then the last line
     ``{"ok": true, "device": ...}``.
 """
 
@@ -124,6 +146,9 @@ DEEP_COMPARE_BATCH = 256
 DEEP_THRESHOLD = 683                                  # ceil(2n/3)
 # the reference's 128-bit example: presets.secure_128_reference(1024)
 REF_N, REF_K = 1024, 1024
+# kernel 2 at the JAX docstring's shape, [16 ch, 4096 x 256] x [256 x 1024]
+# (pallas_modmat.py:1481-1483), and at config 4's [272 ch, 1024 x 512] x [512 x 1024]
+BANDED_TOY = (4096, 256, 1024)
 V3K_KEY = (0xDEADBEEF, 0x12345678)
 
 
@@ -162,14 +187,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def timed(times: dict, name: str, fn):
-    """``fn()``, its milliseconds on the host clock (the card synchronized
+    """``fn()``, its milliseconds on the host clock (every card synchronized
     before and after) stored in ``times[name]``."""
     import torch
 
-    torch.cuda.synchronize()
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     times[name] = (time.perf_counter() - t0) * 1e3
     return out
 
@@ -185,24 +214,33 @@ def max_abs_err(got, want) -> int:
                for g, w in zip(got.reshape(rows, -1), want.reshape(rows, -1)))
 
 
-def _counted():
-    """Each kernel's wrapper, which counts its launches."""
+# kernel 1's launches with neither noise, encode nor post (the bake route's)
+BARE = "fused_scaled_noise_matmul (bare)"
+
+
+def _counters() -> dict:
+    """(wrapper, attribute) of each kernel's launch count; kernel 1's
+    masked and bare launches are also among its own."""
     from pvw_tpu_torch.ops import fused_modmat as fm
 
-    return {fm.KERNEL: fm.fused_scaled_noise_matmul,
-            fm.PRESCALE_KERNEL: fm.ntt_prescale_band,
-            fm.NOISE_KERNEL: fm.v3k_noise_planes,
-            fm.SWAPPED_KERNEL: fm.fused_scaled_noise_matmul_swapped,
-            fm.PIPELINED_KERNEL: fm.fused_pipelined_matmul}
+    k1 = fm.fused_scaled_noise_matmul
+    return {fm.KERNEL: (k1, "launches"),
+            fm.PRESCALE_KERNEL: (fm.ntt_prescale_band, "launches"),
+            fm.NOISE_KERNEL: (fm.v3k_noise_planes, "launches"),
+            fm.SWAPPED_KERNEL: (fm.fused_scaled_noise_matmul_swapped, "launches"),
+            fm.PIPELINED_KERNEL: (fm.fused_pipelined_matmul, "launches"),
+            fm.MASKED_KERNEL: (k1, "masked_launches"),
+            fm.BANDED_KERNEL: (fm.banded_matmul, "launches"),
+            BARE: (k1, "bare_launches")}
 
 
 def reset_launches() -> None:
-    for fn in _counted().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in _counted().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def operands(ring, m, k, n, jr, encode, gen, dev):
@@ -517,10 +555,11 @@ def phase_prescale_vs_plain(dev) -> int:
     return worst
 
 
-def plain_by_limb(ring, twin, lhs, rhs, noise=None, encode=None):
-    """A fused matmul's plain twin ``twin(lhs, rhs, ring, noise, encode)``,
-    one limb at a time (its float64 operands at config 4 would not fit
-    whole; every limb of the chains here has the chain's digit count)."""
+def plain_by_limb(ring, twin, lhs, rhs, noise=None, encode=None, **per_limb):
+    """A fused matmul's plain twin ``twin(lhs, rhs, ring, noise, encode,
+    **per_limb)``, one limb at a time (its float64 operands at config 4
+    would not fit whole; every limb of the chains here has the chain's
+    digit count); ``per_limb`` tensors are cut by limb too."""
     import torch
 
     from pvw_tpu_torch.params.ring import get_ring
@@ -530,16 +569,20 @@ def plain_by_limb(ring, twin, lhs, rhs, noise=None, encode=None):
         sub = get_ring((q,), S)
         check(sub.num_digits == ring.num_digits, "a limb's digit width differs")
         enc = None if encode is None else (encode[0], encode[1][i * S:(i + 1) * S])
-        outs.append(twin(lhs[i:i + 1], rhs[i:i + 1], sub, noise, enc))
+        kws = {name: None if t is None else t[i:i + 1] for name, t in per_limb.items()}
+        outs.append(twin(lhs[i:i + 1], rhs[i:i + 1], sub, noise, enc, **kws))
     return torch.cat(outs)
 
 
-def fold_plain_by_limb(ring, band, lhs_dig, noise=None, encode=None):
-    """:func:`plain_by_limb` of kernel 1's twin (and the pipelined kernel's)."""
+def fold_plain_by_limb(ring, band, lhs_dig, noise=None, encode=None, post=None, mask=None):
+    """:func:`plain_by_limb` of kernel 1's twin (and the pipelined kernel's;
+    ``post`` and the masked form's ``mask`` = (row_off, lo, hi) too)."""
     from pvw_tpu_torch.ops import fused_modmat as fm
 
-    return plain_by_limb(ring, lambda lhs, rhs, sub, nz, enc: fm.matmul_fold_scaled_plain(
-        None, rhs, sub, noise=nz, encode=enc, lhs_dig=lhs), lhs_dig, band, noise, encode)
+    return plain_by_limb(ring, lambda lhs, rhs, sub, nz, enc, post=None: (
+        fm.matmul_fold_scaled_plain(None, rhs, sub, noise=nz, encode=enc, lhs_dig=lhs,
+                                    post=post, mask=mask)),
+        lhs_dig, band, noise, encode, post=post)
 
 
 def swapped_plain_by_limb(ring, planes, rhs_dig, noise=None, encode=None):
@@ -787,18 +830,19 @@ def swapped_operands(ring, m, k, n, jr, encode, gen, dev, digits_only: bool = Fa
     return planes, rd, noise if jr else None, bound if jr else None, enc
 
 
-def compared(phase: str, what: dict, wrapper, got_fn, want):
-    """Run ``got_fn`` (one launch of the kernel behind ``wrapper``, counted),
-    hold it against ``want`` and emit the line; returns max |got - want|."""
+def compared(phase: str, what: dict, kernel: str, got_fn, want):
+    """Run ``got_fn`` (one launch of ``kernel``, counted), hold it against
+    ``want`` and emit the line; returns max |got - want|."""
     import torch
 
-    before = wrapper.launches
+    before = launches()[kernel]
     got = got_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    emit({"phase": phase, **what, "launches": wrapper.launches - before,
-          "bit_exact": err == 0, "max_abs_err": err})
-    check(wrapper.launches == before + 1, f"{what['shape']}: the kernel did not launch once")
+    ran = launches()[kernel] - before
+    emit({"phase": phase, **what, "launches": ran, "bit_exact": err == 0,
+          "max_abs_err": err})
+    check(ran == 1, f"{what['shape']}: the kernel did not launch once")
     check(err == 0, f"{phase}: the kernel differs from its plain twin at {what['shape']}")
     return err
 
@@ -845,7 +889,7 @@ def phase_swapped_vs_plain(dev) -> int:
             {"kernel": fm.SWAPPED_KERNEL, "shape": f"{name} m={m} k={k} n={n}",
              "channels": ring.num_limbs * ring.degree, "nd": ring.num_digits, "jr": jr,
              "noise_rows": "values" if vals else "digits", "encode": encode or "none"},
-            fm.fused_scaled_noise_matmul_swapped, got,
+            fm.SWAPPED_KERNEL, got,
             swapped_plain_by_limb(ring, planes, rd, noise, enc)))
         del planes, rd, noise, enc
     torch.cuda.empty_cache()
@@ -903,7 +947,7 @@ def phase_pipelined_vs_plain(dev) -> int:
              "channels": ring.num_limbs * ring.degree, "nd": ring.num_digits,
              "noise": kind or "none", "jr": jr if kind else 0, "offsets": offs,
              "noise_rows": "values" if vals else "digits", "encode": encode or "none"},
-            fm.fused_pipelined_matmul, got, fold_plain_by_limb(ring, band, lhs_dig, noise, enc)))
+            fm.PIPELINED_KERNEL, got, fold_plain_by_limb(ring, band, lhs_dig, noise, enc)))
         del lhs_dig, band, noise, enc
     torch.cuda.empty_cache()
     return worst
@@ -1141,7 +1185,8 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
         ran = stage_launches[stage]
         check(ran[product[route]] >= 2, f"{product[route]} ran {ran[product[route]]} times "
                                         f"in the {stage} stage of {phase}")
-        for other in set(product.values()) - {product[route]}:
+        for other in (set(product.values()) - {product[route]}) | {fm.MASKED_KERNEL,
+                                                                    fm.BANDED_KERNEL}:
             check(ran[other] == 0, f"{other} ran {ran[other]} times in the {stage} stage of "
                                    f"{phase}, whose route is {route}")
         if route == "swapped":
@@ -1166,6 +1211,392 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
                                                      f"{phase}")
     return out, {"params": params, "gpk": gpk, "shares": shares,
                  "sk": sks[full_parties[0]], "coeffs": host_coeffs}
+
+
+# --------------------------------------------------------------------------
+# kernel 1's masked form and post=, kernel 2, and the multi-device backends
+# --------------------------------------------------------------------------
+
+def phase_masked_vs_plain(dev) -> dict:
+    """Kernel 1's masked form (the generator's masked planes, then the
+    encode on the global rows [lo, hi) only) and its ``post=`` addmod
+    against the twin at reduced shapes: nd = 5 and 8, jr = 1 and 2, value
+    and digit rows, ranges empty, full, ragged and off the 128-row tile,
+    column offsets in seed word 5, and with ``post=``; ``post=`` alone and
+    with the noise and the encode. Every output byte; worst differences by
+    form."""
+    import torch
+
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    toy = get_ring(MODULI, ELL)
+    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = {"masked": 0, "post": 0}
+    # name, ring, m, k, n, jr, encode, value rows, row offset, [lo, hi), column
+    # offset, with post=
+    for name, ring, m, k, n, jr, encode, vals, row_off, rng_, col_off, with_post in (
+            ("toy, ragged first part", toy, 250, 64, 300, 1, "enc32", True, 0, (0, 97), 0,
+             False),
+            ("toy, its complement", toy, 250, 64, 300, 2, "enc64", False, 0, (97, 250), 7,
+             False),
+            ("toy, empty", toy, 130, 32, 96, 1, "enc64", True, 500, (0, 0), 0, False),
+            ("config-4, full", deep, 100, 40, 130, 2, "enc64", True, 5, (0, 1 << 30), 3,
+             False),
+            ("config-4, off the tile", deep, 300, 64, 257, 1, "enc32", False, 128, (200, 331),
+             0, False),
+            ("config-4, ragged", deep, 65, 32, 33, 2, "enc32", False, 1000, (1010, 1033),
+             1 << 31, False),
+            ("toy, ragged, with post", toy, 250, 64, 300, 2, "enc64", True, 3, (40, 190), 5,
+             True),
+            ("config-4, off the tile, with post", deep, 300, 64, 257, 1, "enc32", False, 128,
+             (200, 331), 0, True)):
+        lhs_dig, band, _, bound, enc = operands(ring, m, k, n, jr, encode, gen, dev)
+        g = ((*V3K_KEY, row_off, *rng_, col_off), jr, bound, "tfry")
+        planes = fm.v3k_noise_planes_plain(*V3K_KEY, row_off, m, n, ring.degree, bound,
+                                           col_off, dev, mask=rng_)
+        post = None
+        if with_post:
+            q = ring.table("q", dev).reshape(-1, 1, 1, 1)
+            post = torch.randint(0, 1 << 62, (ring.num_limbs, ring.degree, m, n),
+                                 generator=gen, device=dev) % q
+
+        def got():
+            settings.noise_value_mac = vals
+            try:
+                return fm.matmul_fold_scaled(None, band, ring, encode=enc, lhs_dig=lhs_dig,
+                                             encode32=encode == "enc32", gen_noise=g,
+                                             post=post)
+            finally:
+                del settings.noise_value_mac
+
+        worst["masked"] = max(worst["masked"], compared(
+            "masked_vs_plain",
+            {"kernel": fm.MASKED_KERNEL, "shape": f"{name} m={m} k={k} n={n}",
+             "channels": ring.num_limbs * ring.degree, "nd": ring.num_digits, "jr": jr,
+             "rows": [row_off, *rng_], "col_off": col_off,
+             "noise_rows": "values" if vals else "digits", "encode": encode,
+             "post": with_post},
+            fm.MASKED_KERNEL, got,
+            fold_plain_by_limb(ring, band, lhs_dig, planes, enc, post=post,
+                               mask=(row_off, *rng_))))
+        del lhs_dig, band, enc, planes, post
+    # post=: name, ring, m, k, n, jr (0: no noise), encode
+    for name, ring, m, k, n, jr, encode in (
+            ("toy, post alone", toy, 250, 64, 300, 0, None),
+            ("config-4, post with noise and the encode", deep, 100, 40, 130, 2, "enc64")):
+        lhs_dig, band, noise, bound, enc = operands(ring, m, k, n, jr, encode, gen, dev)
+        noise, bound = (noise, bound) if jr else (None, None)
+        q = ring.table("q", dev).reshape(-1, 1, 1, 1)
+        post = torch.randint(0, 1 << 62, (ring.num_limbs, ring.degree, m, n), generator=gen,
+                             device=dev) % q
+        worst["post"] = max(worst["post"], compared(
+            "masked_vs_plain",
+            {"kernel": f"{fm.KERNEL} (post=)", "shape": f"{name} m={m} k={k} n={n}",
+             "channels": ring.num_limbs * ring.degree, "nd": ring.num_digits, "jr": jr,
+             "encode": encode or "none"},
+            fm.KERNEL,
+            lambda: fm.matmul_fold_scaled(None, band, ring, noise=noise, encode=enc,
+                                          lhs_dig=lhs_dig, noise_bound=bound, post=post),
+            fold_plain_by_limb(ring, band, lhs_dig, noise, enc, post=post)))
+        del lhs_dig, band, noise, enc, post
+    torch.cuda.empty_cache()
+    return worst
+
+
+def channels_plain_by_limb(ring, a, b):
+    """Kernel 2's plain twin, ``modmat.matmul_channels``, one limb at a time."""
+    from pvw_tpu_torch.ops import modmat
+
+    return plain_by_limb(ring, lambda lhs, rhs, sub, nz, enc: modmat.matmul_channels(
+        lhs, rhs, sub), a, b)
+
+
+def phase_banded_vs_plain(dev) -> int:
+    """Kernel 2 through ``matmul_channels_fused`` against its twin at
+    reduced shapes: C = 9 (toy chain) and 15 (config 4's chain), m and n off
+    its 64 x 32 tile, k a multiple of 16 and odd. Every output."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    toy = get_ring(MODULI, ELL)
+    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = 0
+    for name, ring, m, k, n in (("toy", toy, 250, 64, 300), ("toy", toy, 97, 33, 129),
+                                ("toy, c2 rows", toy, N_RECEIVERS, K_DIM, 200),
+                                ("config-4", deep, 100, 40, 130),
+                                ("config-4", deep, 65, 17, 33),
+                                ("config-4, c2 rows", deep, DEEP_N, DEEP_K, 96)):
+        a, b = residue_pair(ring, m, k, n, gen, dev)
+        worst = max(worst, compared(
+            "banded_vs_plain",
+            {"kernel": fm.BANDED_KERNEL, "shape": f"{name} m={m} k={k} n={n}",
+             "channels": ring.num_limbs * ring.degree, "nd": ring.num_digits,
+             "columns": 2 * ring.num_digits - 1},
+            fm.BANDED_KERNEL, lambda: fm.matmul_channels_fused(a, b, ring),
+            channels_plain_by_limb(ring, a, b)))
+        del a, b
+    torch.cuda.empty_cache()
+    return worst
+
+
+def residue_pair(ring, m, k, n, gen, dev):
+    """Random canonical residues lhs [L, l, m, k] and rhs [L, l, k, n] on the card."""
+    import torch
+
+    q = ring.table("q", dev).reshape(-1, 1, 1, 1)
+    shape = (ring.num_limbs, ring.degree)
+    return (torch.randint(0, 1 << 62, (*shape, m, k), generator=gen, device=dev) % q,
+            torch.randint(0, 1 << 62, (*shape, k, n), generator=gen, device=dev) % q)
+
+
+def phase_banded(dev, card: str) -> tuple[dict, dict]:
+    """Kernel 2 at the two full shapes, [16 ch, 4096 x 256] x [256 x 1024]
+    (toy chain, nd = 5, the JAX docstring's) and [272 ch, 1024 x 512] x
+    [512 x 1024] (config 4's chain, nd = 8). ``banded_path``: the entry
+    ``matmul_fold_auto`` at both, the launch counts set to 0 before and read
+    after, every output against the twin (one limb at a time). Then
+    ``banded_timing``: the kernel launch alone, the entry (with its digit
+    layout), the twin and ``torch._int_mm`` of the nd^2 digit products (a
+    yardstick the port never calls), CUDA events, median of 3 (the twin
+    once at config 4), beside the bound of the nd^2 useful products."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm, modmat, u64
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    shapes = (("toy", get_ring(MODULI, ELL), *BANDED_TOY),
+              ("config-4", get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL),
+               DEEP_N, DEEP_K, DEEP_N))
+    path, timing = {"phase": "banded_path", "card": card, "shapes": {}}, {}
+    reset_launches()
+    for label, ring, m, k, n in shapes:
+        a, b = residue_pair(ring, m, k, n, gen, dev)
+        before = launches()
+        out = timed(path["shapes"].setdefault(label, {}), "entry_ms",
+                    lambda: fm.matmul_fold_auto(a, b, ring))
+        ran = {name: c - before[name] for name, c in launches().items()}
+        err = max_abs_err(out, channels_plain_by_limb(ring, a, b))
+        path["shapes"][label].update({"m": m, "k": k, "n": n, "launches": ran,
+                                      "max_abs_err": err})
+        check(err == 0, f"kernel 2 differs from its twin at the full {label} shape")
+        check(ran[fm.BANDED_KERNEL] == 1 and sum(ran.values()) == 1,
+              f"matmul_fold_auto launched {ran} at the {label} shape")
+        del a, b, out
+        torch.cuda.empty_cache()
+    path["launches"] = launches()
+    emit(path)
+    for label, ring, m, k, n in shapes:
+        L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+        a, b = residue_pair(ring, m, k, n, gen, dev)
+        ap = modmat.digits(a, nd).reshape(L * S, m, k, nd).permute(0, 3, 1, 2).contiguous()
+        bp = modmat.digits(b, nd).reshape(L * S, k, n, nd).permute(0, 3, 2, 1).contiguous()
+        tables = u64.u64_tensor(fm._pack_tables(ring, 2 * nd - 1, fm.BANDED_TABLE_WIDTH),
+                                dev).repeat_interleave(S, dim=0)
+        a_int = ap.reshape(L * S, nd * m, k)
+        b_int = bp.reshape(L * S, nd * n, k)              # column-major rhs, as cuBLASLt takes
+
+        def library():
+            for c in range(L * S):
+                torch._int_mm(a_int[c], b_int[c].t())
+
+        twin_ms = cuda_ms(lambda: channels_plain_by_limb(ring, a, b), reps=1 if L > 2 else 3,
+                          warmup=0)
+        nbytes = 8 * L * S * (m * k + k * n + m * n)       # residues in, residues out
+        timing[label] = {
+            "phase": "banded_timing", "kernel": fm.BANDED_KERNEL,
+            "shape": f"[{L * S} ch, {m} x {k}] x [{k} x {n}] nd={nd} C={2 * nd - 1}",
+            "card": card, "max_abs_err": path["shapes"][label]["max_abs_err"],
+            "ms": cuda_ms(lambda: fm.banded_matmul(ap, bp, tables), reps=3),
+            "entry_ms": cuda_ms(lambda: fm.matmul_channels_fused(a, b, ring), reps=3),
+            "plain_ms": twin_ms, "plain": "one limb at a time",
+            "library_ms": cuda_ms(library, reps=3),
+            "library": "torch._int_mm of the nd^2 digit products, one channel at a time",
+            **contraction_bound(ring, m, k, n, nbytes),
+            "bound_counts": "the nd^2 useful digit products; the JAX band's C*nd would be "
+                            f"{2 * nd - 1}/{nd} of them"}
+        emit(timing[label])
+        del a, b, ap, bp, a_int, b_int
+        torch.cuda.empty_cache()
+    return path, timing
+
+
+def phase_masked_timing(dev, card: str) -> dict:
+    """Kernel 1's masked form and its ``post=`` addmod at the full config-4
+    c2 shape (CH = 272, m = n = 1024, kd = 4096), bound 50, through
+    ``matmul_fold_scaled``: the masked form with 6-word v3k seeds on the
+    rows [256, 768) (a (2, 2) mesh shard's block; the generator's masked
+    planes, 0.1-0.2 ms, then the masked launch) and the 32-bit encode, and
+    post= on the bare product. Every output against the twin (one limb at a
+    time), then both timed (CUDA events, median of 3) beside the twin,
+    ``torch._int_mm`` of the contraction and the bound."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    ring = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+    m = n = DEEP_N
+    k = DEEP_K
+    gen = torch.Generator(device=dev).manual_seed(14)
+    lhs_dig, band, _, bound, enc = operands(ring, m, k, n, 1, "enc32", gen, dev)
+    lo, hi = m // 4, 3 * m // 4
+    g = ((*V3K_KEY, 0, lo, hi, 0), 1, bound, "tfry")
+    q = ring.table("q", dev).reshape(-1, 1, 1, 1)
+    post = torch.randint(0, 1 << 62, (L, S, m, n), generator=gen, device=dev) % q
+    form = {
+        "masked": (fm.MASKED_KERNEL, lambda: fm.matmul_fold_scaled(
+            None, band, ring, encode=enc, lhs_dig=lhs_dig, encode32=True, gen_noise=g),
+            lambda: fold_plain_by_limb(ring, band, lhs_dig, fm.v3k_noise_planes_plain(
+                *V3K_KEY, 0, m, n, S, bound, 0, dev, mask=(lo, hi)), enc, mask=(0, lo, hi)),
+            L * S * m * n * 8 + m * n * (8 + S)),
+        "post": (f"{fm.KERNEL} (post=)", lambda: fm.matmul_fold_scaled(
+            None, band, ring, lhs_dig=lhs_dig, post=post),
+            lambda: fold_plain_by_limb(ring, band, lhs_dig, post=post), 2 * L * S * m * n * 8)}
+    out = {}
+    for name, (kernel, launch, twin, io_bytes) in form.items():
+        err = max_abs_err(launch(), twin())
+        check(err == 0, f"kernel 1's {name} form differs from its twin at config-4 c2")
+        torch.cuda.empty_cache()
+        out[name] = {"phase": "masked_timing", "kernel": kernel,
+                     "shape": f"c2 m={m} n={n} channels={L * S} kd={k * nd} nd={nd}"
+                              + (f", rows [{lo}, {hi})" if name == "masked" else ""),
+                     "card": card, "compared": "every output", "max_abs_err": err,
+                     "ms": cuda_ms(launch, reps=3), "plain_ms": cuda_ms(twin, reps=3),
+                     "plain": "one limb at a time",
+                     "library_ms": cuda_ms(int_mm_banded(ring, lhs_dig, band), reps=3),
+                     **contraction_bound(ring, m, k, n,
+                                         lhs_dig.numel() + band.numel() + io_bytes)}
+        emit(out[name])
+        torch.cuda.empty_cache()
+    del lhs_dig, band, enc, post
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
+                   devices=None) -> dict:
+    """The multi-device backends at config 4 (``threshold_256bit(1024)``,
+    1024 dealers) on the config-4 keys under ``stream``, each a path: the
+    launch counts set to 0 before its encryption and read after, gated, its
+    c1 and c2 ``torch.equal`` to the single-device ciphertext of the same
+    key and scalars (encrypted first, outside the counts), sampled parties'
+    shares exact, host-clocked encryption and decryption, enc/s and peak
+    device memory. Under v3k: ``sharded_path`` (a (2, 2) mesh over cuda:0
+    repeated four times), ``forced_masked_path`` ((1, 1), ``_force_masked``),
+    ``data_parallel_path`` (4 dealer shards), ``limb_parallel_path`` (17
+    limbs in 4 groups) and ``grid_path`` (2 limb groups x a (1, 2) mesh);
+    under the default stream ``sharded_bake_path`` ((2, 2), the bake
+    route). ``devices``: the four shard devices (default ``dev`` four
+    times; the keys and the single-device encryption stay on ``dev``); peak
+    memory is ``dev``'s."""
+    import torch
+
+    import pvw_tpu_torch as P
+    import pvw_tpu_torch.parallel as TP
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    gpk, host_coeffs = keys
+    n = params.n
+    rng = np.random.default_rng(seed)
+    shares = rng.integers(0, 1 << 32, size=(n, n), dtype=np.uint64)
+    key = R.fold_in(R.key(seed), 777)
+    sks = {i: P.SecretKey(params, host_coeffs[i]) for i in (0, 1, n // 2, n - 1)}
+    v3k = stream == "v3k"
+    # name: (encrypt, decrypt(ct, party), parties decrypted, shards, products, masked
+    # launches); a mesh computes c1 on its recv row 0 only, c2 on every shard
+    devices = list(devices) if devices is not None else [dev] * 4
+    mesh = lambda count, kdim: TP.make_mesh(devices[:count], kdim=kdim)
+    backends = {
+        "sharded_path" if v3k else "sharded_bake_path": (
+            lambda: TP.encrypt_batch_sharded(shares, gpk, key, mesh(4, 2)),
+            lambda ct, i: TP.decrypt_party_shares_sharded(ct, sks[i], i, mesh(4, 2)),
+            (0, n - 1), 4, 6, 6 if v3k else 0)}
+    if v3k:
+        backends.update({
+            "forced_masked_path": (
+                lambda: TP.encrypt_batch_sharded(shares, gpk, key, mesh(1, 1),
+                                                 _force_masked=True),
+                lambda ct, i: TP.decrypt_party_shares_sharded(ct, sks[i], i, mesh(1, 1)),
+                (n // 2,), 1, 2, 2),
+            "data_parallel_path": (
+                lambda: TP.encrypt_batch_data_parallel(shares, gpk, key, devices),
+                lambda ct, i: P.decrypt_party_shares(ct.gather(), sks[i], i), (1,), 4, 8, 0),
+            "limb_parallel_path": (
+                lambda: TP.encrypt_batch_limb_parallel(shares, gpk, key, devices),
+                lambda ct, i: TP.decrypt_party_shares_limb_parallel(ct, sks[i], i), (0,), 4, 8,
+                0),
+            "grid_path": (
+                lambda: TP.encrypt_batch_grid(shares, gpk, key, devices, limb_groups=2,
+                                              kdim=2),
+                lambda ct, i: TP.decrypt_party_shares_grid(ct, sks[i], i), (n - 1,), 4, 8, 8)})
+    settings.noise_stream = stream
+    out = {}
+    try:
+        gpk.encrypt_operands()
+        times = {}
+        ref = timed(times, "single_device_encrypt_ms",
+                    lambda: P.encrypt_all_party_shares_batched(shares, gpk, key))
+        ref1, ref2 = ref.c1.channel(), ref.c2.channel()
+        del ref
+        for name, (encrypt, decrypt, parties, nshards, products, masked) in backends.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = {"single_device_encrypt_ms": times["single_device_encrypt_ms"]}
+            reset_launches()
+            ct = timed(t, "encrypt_ms", encrypt)
+            ran = launches()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            whole = ct if isinstance(ct, P.PvwCiphertext) else ct.gather()
+            equal = (torch.equal(whole.c1.channel(), ref1)
+                     and torch.equal(whole.c2.channel(), ref2))
+            del whole
+            got = {i: timed(t, f"decrypt_party_{i}_ms", lambda: decrypt(ct, i)) for i in parties}
+            exact = all(got[i] == [int(v) for v in shares[:, i]] for i in parties)
+            out[name] = {"phase": name, "card": card, "devices": [str(d) for d in devices],
+                         "config": "BASELINE config 4",
+                         "preset": "threshold_256bit", "stream": stream, "dealers": n,
+                         "shards": nshards, **t,
+                         "enc_per_s": n / (t["encrypt_ms"] / 1e3),
+                         "single_device_enc_per_s": n / (t["single_device_encrypt_ms"] / 1e3),
+                         "equal_to_single_device": equal, "parties": list(parties),
+                         "shares_exact": exact, "launches": ran, "peak_mem_gb": peak}
+            emit(out[name])
+            del ct
+            torch.cuda.empty_cache()
+            check(equal, f"{name}: the ciphertext differs from the single-device one")
+            check(exact, f"{name}: a decrypted share differs from the encrypted one")
+            check(ran[fm.MASKED_KERNEL] == masked,
+                  f"{name}: the masked form launched {ran[fm.MASKED_KERNEL]} times, not {masked}")
+            check(ran[fm.PRESCALE_KERNEL] == nshards,
+                  f"{name}: kernel 4 launched {ran[fm.PRESCALE_KERNEL]} times for {nshards} shards")
+            for other in (fm.PIPELINED_KERNEL, fm.SWAPPED_KERNEL, fm.BANDED_KERNEL):
+                check(ran[other] == 0, f"{name}: {other} launched {ran[other]} times")
+            check(ran[fm.KERNEL] == products,
+                  f"{name}: {ran[fm.KERNEL]} product launches for {products} products")
+            check(ran[fm.NOISE_KERNEL] == (products if v3k else 0),
+                  f"{name}: the v3k generator launched {ran[fm.NOISE_KERNEL]} times")
+            if not v3k:
+                check(ran[BARE] == products, f"{name}: the bake route launched kernel 1 bare "
+                                             f"{ran[BARE]} times of {products}")
+    finally:
+        del settings.noise_stream
+    del ref1, ref2
+    torch.cuda.empty_cache()
+    return out
 
 
 def kernel_entry(name: str, source: str, replaces: str, function: str, by_path: dict,
@@ -1197,7 +1628,8 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     t0 = time.perf_counter()
-    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL])
+    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL,
+                      fm.BANDED_KERNEL])
     build_s = time.perf_counter() - t0
     print(card, flush=True)
     emit({"phase": "device", "card": card, "torch": torch.__version__,
@@ -1232,6 +1664,10 @@ def main() -> int:
     swapped_worst = phase_swapped_vs_plain(dev)
     pipelined_worst = phase_pipelined_vs_plain(dev)
     opt_timing = phase_opt_in_timing(dev, card)
+    masked_worst = phase_masked_vs_plain(dev)
+    banded_worst = phase_banded_vs_plain(dev)
+    paths["banded_path"], banded_timing = phase_banded(dev, card)
+    masked_timing = phase_masked_timing(dev, card)
     paths["v3k_path"], ctx = phase_dealer_path(
         "v3k_path", presets.pvss_8192(N_RECEIVERS), dev, card, 5, "v3k",
         full_parties=toy_parties, config="toy chain")
@@ -1246,7 +1682,11 @@ def main() -> int:
         "swapped_path", deep, dev, card, 8, "v3k", full_parties=(0,),
         threshold_parties=(DEEP_N - 1,), keys=deep_keys, route="swapped", **deep_info)
     phase_breakdown(dev, card, ctx, "swapped_breakdown", stream="v3k", route="swapped")
-    del deep_keys, ctx
+    del ctx
+    torch.cuda.empty_cache()
+    paths.update(phase_backends(dev, card, deep, deep_keys, "v3k", 10))
+    paths.update(phase_backends(dev, card, deep, deep_keys, "kernel", 11))
+    del deep_keys
     torch.cuda.empty_cache()
     paths["reference_path"], ctx = phase_dealer_path(
         "reference_path", presets.secure_128_reference(REF_N), dev, card, 7, "v3k",
@@ -1294,6 +1734,20 @@ def main() -> int:
                      max(pipelined_worst, *(t["max_abs_err"] for t in pi.values())),
                      pi["toy c2"], pi["config-4 c2"], card,
                      banded_plus_generator_ms=pi["toy c2"]["banded_plus_generator_ms"]),
+        kernel_entry(fm.MASKED_KERNEL, src + "fused_scaled_noise_matmul.cu",
+                     "pvw_tpu/ops/pallas_modmat.py:193",
+                     "_fused_scaled_noise_matmul (masked=True, 6-word seeds; its planes from "
+                     "v3k_noise_planes.cu's mask)", by_path[fm.MASKED_KERNEL],
+                     max(masked_worst["masked"], masked_timing["masked"]["max_abs_err"]),
+                     masked_timing["masked"], None, card,
+                     post=masked_timing["post"] | {"max_abs_err": max(
+                         masked_worst["post"], masked_timing["post"]["max_abs_err"])}),
+        kernel_entry(fm.BANDED_KERNEL, src + "banded_matmul.cu",
+                     "pvw_tpu/ops/pallas_modmat.py:426", "_fused_banded_matmul",
+                     by_path[fm.BANDED_KERNEL],
+                     max(banded_worst, *(t["max_abs_err"] for t in banded_timing.values())),
+                     banded_timing["toy"], banded_timing["config-4"], card,
+                     entry_ms=banded_timing["toy"]["entry_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

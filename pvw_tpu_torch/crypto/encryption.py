@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..errors import InvalidParameters
 from ..keys.public_key import GlobalPublicKey
@@ -198,12 +199,14 @@ def _host_noise_ch(kk, rows: int, d: int, bound: int, params: PvwParameters, dev
     return ntt_ops.ntt_forward(e, params.ring).permute(2, 3, 0, 1)
 
 
-def _host_noise_pairs(params: PvwParameters, key, d: int, device):
+def _host_noise_pairs(params: PvwParameters, key, d: int, device, min_q: int | None = None):
     """(host_e1, host_e2) for :func:`_encrypt_kernel`: non-None only for the
     bounds the device samplers cannot embed (>= min(q_i)). Splits ``key``
     as the kernel does, so the host draw takes the stream slot the device
-    draw would have."""
-    min_q = min(params.ring.moduli)
+    draw would have. ``min_q``: the routing threshold; limb shards pass the
+    full ring's smallest modulus, so each makes the full ring's choice."""
+    if min_q is None:
+        min_q = min(params.ring.moduli)
     if max(params.error_bound_1, params.error_bound_2) < min_q:
         return None, None
     _, k_e1, k_e2 = split(key, 3)
@@ -213,6 +216,21 @@ def _host_noise_pairs(params: PvwParameters, key, d: int, device):
     if params.error_bound_2 >= min_q:
         host_e2 = _host_noise_ch(k_e2, params.n, d, params.error_bound_2, params, device)
     return host_e1, host_e2
+
+
+def _encode_channel_major(params: PvwParameters, sc):
+    """Gadget encode of u64 scalars sc int64 [d, n] (bit patterns) ->
+    residues [L, l, n, d], with the ``as i64`` wrap of scalars >= 2^63
+    (``encryption.rs:195``): what the kernel's epilogue adds, as a tensor
+    (the sharded path's bake route adds it to a row block)."""
+    ring = params.ring
+    dev = sc.device
+    L = ring.num_limbs
+    q = ring.table("q", dev).reshape(L, 1, 1, 1)
+    tab = lambda t: u64op.u64_tensor(t, dev)[:, :, None, None]
+    x = sc.t()[None, None]
+    e = u64op.shoup_mul64_arr(x, tab(params.gadget_ntt), tab(params.gadget_ntt_shoup), q)
+    return torch.where(x < 0, u64op.submod(e, tab(params.gadget_wrap), q), e)
 
 
 def _swapped_form_ok(params: PvwParameters, d: int) -> bool:

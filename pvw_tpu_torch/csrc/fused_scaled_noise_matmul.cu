@@ -8,7 +8,7 @@
 //
 //   out[ch, m, n] = ( sum_{c<nd} 2^(8c) * ( P_c[m, n]
 //                                           + sum_r noise_r[m, n] * ntab[ch, r, c] )
-//                     + encode(sc[m, n]) * g[ch] ) mod q
+//                     + post[ch, m, n] + encode(sc[m, n]) * g[ch] ) mod q
 //
 // with the nd int32 columns P_c of digit_mma.cuh:
 // - banded: lhs int8 [CH, m, kd] and band int8 [CH, nd, kd, n] are balanced
@@ -19,8 +19,14 @@
 //   laid out k-packed by the wrapper, int8 [CH, n, kd]; P_c = lhs[c] . rhs.
 //   Same columns, same fold, the same residues.
 // The noise rows add the NTT of the error straight into those columns (ntab =
-// digits of the scaled twiddles). Every output is the canonical residue, so
-// any exact arithmetic gives the same bytes as the TPU kernel.
+// digits of the scaled twiddles). ``post`` (the TPU kernel's ``has_post``) is
+// a residue tensor added after the fold. The ``masked`` form (the TPU kernel's
+// ``masked``, the kdim-split mesh shards' row contract) adds the encode only
+// on the global rows row_off + row in [lo, hi); its noise is drawn ahead of
+// the launch with the rows outside the range zeroed (csrc/v3k_noise_planes.cu),
+// so the kernel needs the range for the encode alone. Every output is the
+// canonical residue, so any exact arithmetic gives the same bytes as the TPU
+// kernel.
 //
 // What bounds it on an H100: the digit products. At the config-4 c2 shape
 // (CH = 272, m = n = 1024, kd = 4096, nd = 8) they are 9.35e12 int8 MACs,
@@ -60,6 +66,16 @@ using namespace digit_mma;
 
 constexpr int MAX_ROWS = 64;   // noise MAC rows: l * jr <= 32 * 2
 
+// The masked form's global row range: row r of the output is global row
+// row_off + r (int32, as the TPU kernel's iota); ``on`` 0 keeps every row.
+struct Mask {
+  int on, row_off, lo, hi;
+  __device__ __forceinline__ bool keeps(int row) const {
+    const int g = (int)((unsigned)row_off + (unsigned)row);
+    return !on || (g >= lo && g < hi);
+  }
+};
+
 template <bool SW>
 struct Tile {
   static constexpr int BM = SW ? 32 : 128;   // output rows per block
@@ -76,9 +92,10 @@ fused_scaled_noise_matmul_kernel(const int8_t* __restrict__ lhs,
                                  const int8_t* __restrict__ noise,
                                  const int64_t* __restrict__ sc,
                                  const int64_t* __restrict__ etab,
+                                 const int64_t* __restrict__ post,
                                  int64_t* __restrict__ out,
                                  int m, int n, int kd, int nrows, int jr,
-                                 int vals, int encode32) {
+                                 int vals, int encode32, Mask mask) {
   constexpr int BM = Tile<SW>::BM, BN = Tile<SW>::BN, THREADS = Tile<SW>::THREADS;
   using Banded = BandedSmem<ND, BM, BN>;
   using Swapped = SwappedSmem<ND, BM, BN>;
@@ -159,7 +176,9 @@ fused_scaled_noise_matmul_kernel(const int8_t* __restrict__ lhs,
 #pragma unroll
       for (int c = 0; c < ND; ++c) p[c] = acc[c][j][e];
       uint64_t res = fold(p);
-      if (sc != nullptr) res = addmod(res, encode((uint64_t)sc[idx], encode32, fold.q), fold.q);
+      if (post != nullptr) res = addmod(res, (uint64_t)post[(size_t)ch * plane + idx], fold.q);
+      if (sc != nullptr && mask.keeps(row))
+        res = addmod(res, encode((uint64_t)sc[idx], encode32, fold.q), fold.q);
       out[(size_t)ch * plane + idx] = (int64_t)res;
     }
 }
@@ -168,7 +187,7 @@ template <bool SW>
 int launch(int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals,
            int encode32, const void* lhs, const void* rhs, const void* tables,
            const void* ntab, const void* noise, const void* sc, const void* etab,
-           void* out, void* stream) {
+           const void* post, Mask mask, void* out, void* stream) {
   constexpr int BM = Tile<SW>::BM, BN = Tile<SW>::BN, THREADS = Tile<SW>::THREADS;
   if (ch <= 0 || ch > 65535 || m <= 0 || n <= 0 || kd <= 0 || nd < 1 || nd > 8 ||
       nrows < 0 || nrows > MAX_ROWS || (nrows > 0 && jr != 1 && jr != 2) ||
@@ -181,7 +200,8 @@ int launch(int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals,
     kernel<<<grid, THREADS, 0, s>>>(
         (const int8_t*)lhs, (const int8_t*)rhs, (const int64_t*)tables,
         (const int32_t*)ntab, (const int8_t*)noise, (const int64_t*)sc,
-        (const int64_t*)etab, (int64_t*)out, m, n, kd, nrows, jr, vals, encode32);
+        (const int64_t*)etab, (const int64_t*)post, (int64_t*)out, m, n, kd, nrows, jr,
+        vals, encode32, mask);
   };
   switch (nd) {
     case 1: go(fused_scaled_noise_matmul_kernel<1, SW>); break;
@@ -200,25 +220,29 @@ int launch(int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals,
 
 // Both launch on ``stream`` and return cudaGetLastError() (0 on success).
 // ``noise`` may be null (nrows = 0); ``sc`` and ``etab`` are null without the
-// encode. All arrays are contiguous.
+// encode; ``post`` (int64 [ch, m, n], canonical residues) is null without
+// it. ``masked`` 1 adds the encode only on the global rows row_off + r in
+// [lo, hi). All arrays are contiguous.
 
 // lhs int8 [ch, m, kd], band int8 [ch, nd, kd, n].
 extern "C" int pvw_fused_scaled_noise_matmul(
     const void* lhs, const void* band, const void* tables, const void* ntab,
-    const void* noise, const void* sc, const void* etab, void* out, int ch,
-    int m, int n, int kd, int nd, int nrows, int jr, int vals, int encode32,
-    void* stream) {
+    const void* noise, const void* sc, const void* etab, const void* post, void* out,
+    int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals, int encode32,
+    int masked, int row_off, int lo, int hi, void* stream) {
   return launch<false>(ch, m, n, kd, nd, nrows, jr, vals, encode32, lhs, band, tables,
-                       ntab, noise, sc, etab, out, stream);
+                       ntab, noise, sc, etab, post, Mask{masked, row_off, lo, hi}, out,
+                       stream);
 }
 
 // The swapped form: lhs int8 [ch, nd, m, kd] scaled planes, rhs int8
 // [ch, n, kd] plain digits, k-packed.
 extern "C" int pvw_fused_scaled_noise_matmul_swapped(
     const void* lhs, const void* rhs, const void* tables, const void* ntab,
-    const void* noise, const void* sc, const void* etab, void* out, int ch,
-    int m, int n, int kd, int nd, int nrows, int jr, int vals, int encode32,
-    void* stream) {
+    const void* noise, const void* sc, const void* etab, const void* post, void* out,
+    int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals, int encode32,
+    int masked, int row_off, int lo, int hi, void* stream) {
   return launch<true>(ch, m, n, kd, nd, nrows, jr, vals, encode32, lhs, rhs, tables,
-                      ntab, noise, sc, etab, out, stream);
+                      ntab, noise, sc, etab, post, Mask{masked, row_off, lo, hi}, out,
+                      stream);
 }

@@ -11,6 +11,10 @@
 //
 // (jr = 1: the value itself; jr = 2: the balanced digits d0 + 256*d1), the
 // plane layout that csrc/fused_scaled_noise_matmul.cu reads as its noise input.
+// ``masked`` writes zero planes on the global rows outside [lo, hi) and draws
+// nothing there: the TPU kernel's ``masked`` form draws the same stream and
+// zeroes those values (_make_fold_body's _store), so the rows inside are
+// byte-equal to the unmasked planes.
 // The Threefry rounds, the 96-bit reduction and the digit split are in
 // threefry.cuh.
 //
@@ -43,8 +47,8 @@ constexpr int MAX_GRID_Y = 65535;
 template <int JR>
 __global__ void __launch_bounds__(THREADS)
 v3k_noise_planes_kernel(uint32_t k0, uint32_t k1, uint32_t row_off, uint32_t col_off,
-                        int rows, int cols, int half_l, int bound,
-                        int8_t* __restrict__ out) {
+                        int rows, int cols, int half_l, int bound, int masked, int lo,
+                        int hi, int8_t* __restrict__ out) {
   const int col = blockIdx.x * THREADS + threadIdx.x;
   if (col >= cols) return;
   const uint32_t jjp = blockIdx.z;
@@ -54,12 +58,15 @@ v3k_noise_planes_kernel(uint32_t k0, uint32_t k1, uint32_t row_off, uint32_t col
   const size_t plane = (size_t)rows * cols;
   for (int row = blockIdx.y; row < rows; row += gridDim.y) {
     const uint32_t g = row_off + (uint32_t)row;
-    uint32_t a0, a1, b0, b1, e0, e1;
-    threefry2x32(k0, k1, g, base | 0u, a0, a1);
-    threefry2x32(k0, k1, g, base | 1u, b0, b1);
-    threefry2x32(k0, k1, g, base | 2u, e0, e1);
-    const int32_t v[2] = {(int32_t)reduce96(a0, b0, e0, rng) - bound,
-                          (int32_t)reduce96(a1, b1, e1, rng) - bound};
+    int32_t v[2] = {0, 0};
+    if (!masked || ((int32_t)g >= lo && (int32_t)g < hi)) {   // int32 rows, as the TPU's
+      uint32_t a0, a1, b0, b1, e0, e1;
+      threefry2x32(k0, k1, g, base | 0u, a0, a1);
+      threefry2x32(k0, k1, g, base | 1u, b0, b1);
+      threefry2x32(k0, k1, g, base | 2u, e0, e1);
+      v[0] = (int32_t)reduce96(a0, b0, e0, rng) - bound;
+      v[1] = (int32_t)reduce96(a1, b1, e1, rng) - bound;
+    }
     int8_t* o = out + (size_t)row * cols + col;
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
@@ -80,10 +87,11 @@ v3k_noise_planes_kernel(uint32_t k0, uint32_t k1, uint32_t row_off, uint32_t col
 
 // Launches on ``stream`` and returns the first CUDA error (0 on success).
 // out int8 [l*jr, rows, cols], contiguous; l even; jr 1 (bound <= 127) or 2
-// (bound <= 32639).
+// (bound <= 32639); ``masked`` 1 zeroes the global rows outside [lo, hi).
 extern "C" int pvw_v3k_noise_planes(uint32_t k0, uint32_t k1, uint32_t row_off,
                                     uint32_t col_off, int rows, int cols, int l, int jr,
-                                    int bound, void* out, void* stream) {
+                                    int bound, int masked, int lo, int hi, void* out,
+                                    void* stream) {
   if (rows <= 0 || cols <= 0 || l <= 0 || l % 2 || l / 2 > 65535 || bound < 0 ||
       (jr == 1 && bound > 127) || (jr == 2 && bound > 32639) || (jr != 1 && jr != 2))
     return (int)cudaErrorInvalidValue;
@@ -93,9 +101,9 @@ extern "C" int pvw_v3k_noise_planes(uint32_t k0, uint32_t k1, uint32_t row_off,
   int8_t* o = (int8_t*)out;
   if (jr == 1)
     v3k_noise_planes_kernel<1><<<grid, THREADS, 0, s>>>(k0, k1, row_off, col_off, rows,
-                                                         cols, l / 2, bound, o);
+                                                         cols, l / 2, bound, masked, lo, hi, o);
   else
     v3k_noise_planes_kernel<2><<<grid, THREADS, 0, s>>>(k0, k1, row_off, col_off, rows,
-                                                         cols, l / 2, bound, o);
+                                                         cols, l / 2, bound, masked, lo, hi, o);
   return (int)cudaGetLastError();
 }

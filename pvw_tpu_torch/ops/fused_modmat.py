@@ -27,6 +27,21 @@ v3k_noise_digit_planes`.
 -> signed NTT -> scaled-digit band in one pass, the r-stage of encryption
 (``csrc/ntt_prescale_band.cu``; plain twin :func:`ntt_prescale_band_plain`).
 
+Kernel 1's ``masked`` form (6-word v3k seeds: noise and encode only on a
+global row range, the kdim-split mesh shards' contract) and its ``post=``
+addmod are :func:`matmul_fold_scaled` options; the masked launches are
+also counted in ``fused_scaled_noise_matmul.masked_launches``.
+
+Every launch runs with its operands' device current (CUDA refuses a launch
+on another device's stream), so one process drives shards on several
+cards.
+
+:func:`matmul_channels_fused` (also :func:`matmul_fold_auto`) is the
+counterpart of ``pvw_tpu.ops.pallas_modmat.matmul_channels_pallas``: the
+modular matmul of two residue matrices per channel by the digit
+convolution, kernel 2 (``csrc/banded_matmul.cu``) on a card; its plain twin
+is :func:`~pvw_tpu_torch.ops.modmat.matmul_channels`.
+
 Two opt-in forms of the same product, as in the JAX package:
 
 - :func:`matmul_fold_swapped` (``settings.swapped_form``): the Shoup scales
@@ -50,8 +65,8 @@ import torch
 
 from . import u64 as u
 from ._build import load
-from .modmat import (_fold_leading, digits, exact_int_matmul, prescale_digits_band,
-                     scaled_cols)
+from .modmat import (_fold_leading, digits, exact_int_matmul, matmul_channels,
+                     prescale_digits_band, scaled_cols)
 from .ntt import ntt_forward_signed_ch, signed_digit_count
 from .tfry import reduce96, v3k_noise_digit_planes
 
@@ -60,6 +75,9 @@ if TYPE_CHECKING:
 
 KERNEL = "fused_scaled_noise_matmul"
 SWAPPED_KERNEL = "fused_scaled_noise_matmul_swapped"     # in KERNEL's source
+MASKED_KERNEL = "fused_scaled_noise_matmul_masked"       # KERNEL's masked launches
+BANDED_KERNEL = "banded_matmul"
+BANDED_TABLE_WIDTH = 10
 PIPELINED_KERNEL = "fused_pipelined_matmul"
 NOISE_KERNEL = "v3k_noise_planes"
 TABLE_WIDTH = 8
@@ -93,14 +111,15 @@ def v4_digit_split(sv):
 # tables
 # --------------------------------------------------------------------------
 
-def _pack_tables(ring: "RingPlan", ncols: int) -> np.ndarray:
-    """Per-limb fold constants, uint64 [L, 8]: q, the bias K of ``ncols``
-    columns, then (2^(32g) mod q, its 64-bit Shoup companion) for g = 0, 1."""
-    t = np.zeros((ring.num_limbs, TABLE_WIDTH), np.uint64)
+def _pack_tables(ring: "RingPlan", ncols: int, width: int = TABLE_WIDTH) -> np.ndarray:
+    """Per-limb fold constants, uint64 [L, width]: q, the bias K of
+    ``ncols`` columns, then (2^(32g) mod q, its 64-bit Shoup companion) for
+    the groups g < (width - 2) / 2 (two for kernel 1, four for kernel 2)."""
+    t = np.zeros((ring.num_limbs, width), np.uint64)
     t[:, 0] = ring.q
     t[:, 1] = ring.bias_for_columns(ncols)
-    t[:, 2], t[:, 3] = ring.grp_w[:, 0], ring.grp_s[:, 0]
-    t[:, 4], t[:, 5] = ring.grp_w[:, 1], ring.grp_s[:, 1]
+    for g in range((width - 2) // 2):
+        t[:, 2 + 2 * g], t[:, 3 + 2 * g] = ring.grp_w[:, g], ring.grp_s[:, g]
     return t
 
 
@@ -144,6 +163,14 @@ def _noise_cols(noise, ring: "RingPlan"):
     return p.reshape(L, S, nd, m, n).permute(0, 1, 3, 4, 2)
 
 
+def _row_keep(row_off: int, rows: int, mask, device):
+    """bool [rows]: global row row_off + r (int32, as the TPU kernel's iota)
+    lies in the masked form's range ``mask`` = (lo, hi)."""
+    g = (int(row_off) + torch.arange(rows, dtype=torch.int64, device=device)) & u.M32
+    g = torch.where(g >= 1 << 31, g - (1 << 32), g)
+    return (g >= _i32(mask[0])) & (g < _i32(mask[1]))
+
+
 def _encode_residues(sc, etab, L: int, S: int, ring: "RingPlan"):
     """Gadget encode of u64 scalars sc [m, n] -> residues [L, S, m, n],
     with the ``as i64`` wrap for scalars >= 2^63."""
@@ -154,15 +181,17 @@ def _encode_residues(sc, etab, L: int, S: int, ring: "RingPlan"):
 
 
 def matmul_fold_scaled_plain(lhs, rhs_band, ring: "RingPlan", noise=None,
-                             encode=None, lhs_dig=None):
+                             encode=None, lhs_dig=None, post=None, mask=None):
     """Plain PyTorch version of :func:`matmul_fold_scaled`: the scaled
-    digit columns, plus the noise NTT columns, folded, plus the encode.
-    It is also the twin of the pipelined kernel
-    (:func:`fused_pipelined_matmul`), which computes the same function;
-    for its in-kernel v3k noise the planes are
+    digit columns, plus the noise NTT columns, folded, plus ``post`` and
+    the encode; with ``mask`` = (row_off, lo, hi) the encode only on the
+    global rows in [lo, hi) (the masked form's noise planes come zeroed
+    outside them, :func:`v3k_noise_planes`). It is also the twin of the
+    pipelined kernel (:func:`fused_pipelined_matmul`), which computes the
+    same function; for its in-kernel v3k noise the planes are
     :func:`~pvw_tpu_torch.ops.tfry.v3k_noise_digit_planes`."""
     return _fold_plain(scaled_cols(lhs, rhs_band, ring, lhs_dig=lhs_dig), ring, noise,
-                       encode)
+                       encode, post, mask)
 
 
 def matmul_fold_swapped_plain(lhs_planes, rhs_dig, ring: "RingPlan", noise=None,
@@ -177,16 +206,22 @@ def matmul_fold_swapped_plain(lhs_planes, rhs_dig, ring: "RingPlan", noise=None,
     return _fold_plain(cols, ring, noise, encode)
 
 
-def _fold_plain(cols, ring: "RingPlan", noise, encode):
+def _fold_plain(cols, ring: "RingPlan", noise, encode, post=None, mask=None):
     """int32 columns [L, S, m, n, nd] (+ the noise NTT columns) -> folded
-    residues [L, S, m, n] (+ the encode)."""
+    residues [L, S, m, n] (+ ``post``, + the encode, on the rows ``mask``
+    keeps)."""
     if noise is not None:
         cols = cols + _noise_cols(noise, ring)
     out = _fold_leading(cols, ring)
+    L, S, m = out.shape[:3]
+    q = ring.table("q", out.device).reshape(L, 1, 1, 1)
+    if post is not None:
+        out = u.addmod(out, post, q)
     if encode is not None:
-        L, S = out.shape[:2]
-        q = ring.table("q", out.device).reshape(L, 1, 1, 1)
-        out = u.addmod(out, _encode_residues(encode[0], encode[1], L, S, ring), q)
+        enc = _encode_residues(encode[0], encode[1], L, S, ring)
+        if mask is not None:
+            enc = enc * _row_keep(mask[0], m, mask[1:], out.device)[:, None]
+        out = u.addmod(out, enc, q)
     return out
 
 
@@ -195,7 +230,7 @@ def _fold_plain(cols, ring: "RingPlan", noise, encode):
 # --------------------------------------------------------------------------
 
 # the C signatures of kernel 1's two entry points and the pipelined kernel's
-KERNEL1_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+KERNEL1_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 PIPELINED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_uint32] * 4 + [ctypes.c_int] \
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
@@ -211,6 +246,21 @@ def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
+def _launch(name: str, fn, dev, *args) -> None:
+    """Call a kernel's C entry ``fn(*args, stream)`` with ``dev`` current and
+    its current stream; raise on a CUDA error."""
+    with torch.cuda.device(dev):
+        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+
+
+def _i32(w: int) -> int:
+    """The int32 that a 32-bit word's bits spell."""
+    w = int(w) & u.M32
+    return w - (1 << 32) if w >= 1 << 31 else w
+
+
 def _check_args(dev, args: dict) -> None:
     """Raise unless every (tensor, dtype, shape) of ``args`` is contiguous
     on ``dev`` with that dtype and shape; None entries are skipped."""
@@ -223,50 +273,66 @@ def _check_args(dev, args: dict) -> None:
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _epilogue_args(ch: int, m: int, n: int, nd: int, tables, ntab, noise, sc, etab) -> dict:
+def _epilogue_args(ch: int, m: int, n: int, nd: int, tables, ntab, noise, sc, etab,
+                   post=None) -> dict:
     return {"tables": (tables, torch.int64, (ch, TABLE_WIDTH)),
             "ntab": (ntab, torch.int32, (ch, ntab.shape[1], nd)),
             "noise": (noise, torch.int8, None if noise is None else (noise.shape[0], m, n)),
             "sc": (sc, torch.int64, (m, n)),
-            "etab": (etab, torch.int64, None if sc is None else (ch, 3))}
+            "etab": (etab, torch.int64, None if sc is None else (ch, 3)),
+            "post": (post, torch.int64, (ch, m, n))}
 
 
 def _launch_kernel1(symbol: str, lhs, rhs, shapes: dict, ch: int, m: int, n: int,
                     kd: int, nd: int, tables, ntab, noise, sc, etab, jr: int, vals: bool,
-                    encode32: bool):
+                    encode32: bool, post=None, mask=None):
     dev = lhs.device
     _check_args(dev, {**shapes, **_epilogue_args(ch, m, n, nd, tables, ntab, noise, sc,
-                                                  etab)})
+                                                  etab, post)})
     nrows = ntab.shape[1] if noise is not None else 0
+    row_off, lo, hi = (0, 0, 0) if mask is None else (_i32(w) for w in mask)
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel_fn(symbol)(
-        _ptr(lhs), _ptr(rhs), _ptr(tables), _ptr(ntab), _ptr(noise),
-        _ptr(sc), _ptr(etab), _ptr(out), ch, m, n, kd, nd, nrows, int(jr),
-        int(vals), int(encode32), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{symbol}: launch failed with CUDA error {err}")
+    _launch(symbol, _kernel_fn(symbol), dev,
+            _ptr(lhs), _ptr(rhs), _ptr(tables), _ptr(ntab), _ptr(noise),
+            _ptr(sc), _ptr(etab), _ptr(post), _ptr(out), ch, m, n, kd, nd, nrows, int(jr),
+            int(vals), int(encode32), int(mask is not None), row_off, lo, hi)
     return out
 
 
+def _banded_shapes(lhs_dig, band) -> tuple[dict, tuple]:
+    ch, m, kd = lhs_dig.shape
+    nd, n = band.shape[1], band.shape[3]
+    return ({"lhs_dig": (lhs_dig, torch.int8, (ch, m, kd)),
+             "band": (band, torch.int8, (ch, nd, kd, n))}, (ch, m, n, kd, nd))
+
+
 def fused_scaled_noise_matmul(lhs_dig, band, tables, ntab, noise, sc, etab,
-                              jr: int, vals: bool, encode32: bool):
+                              jr: int, vals: bool, encode32: bool, post=None, mask=None):
     """Launch the kernel on the current stream. lhs_dig int8 [CH, m, kd];
     band int8 [CH, nd, kd, n]; tables int64 [CH, 8]; ntab int32
     [CH, rows, nd]; noise int8 [l*jr, m, n] or None; sc int64 [m, n] and
-    etab int64 [CH, 3], or both None -> int64 [CH, m, n]. Counts its
-    launches in ``fused_scaled_noise_matmul.launches``."""
-    ch, m, kd = lhs_dig.shape
-    nd, n = band.shape[1], band.shape[3]
-    out = _launch_kernel1("pvw_fused_scaled_noise_matmul", lhs_dig, band, {
-        "lhs_dig": (lhs_dig, torch.int8, (ch, m, kd)),
-        "band": (band, torch.int8, (ch, nd, kd, n))}, ch, m, n, kd, nd, tables, ntab,
-        noise, sc, etab, jr, vals, encode32)
+    etab int64 [CH, 3], or both None; post int64 [CH, m, n] canonical
+    residues or None; ``mask`` = (row_off, lo, hi) or None -> int64
+    [CH, m, n]. The masked form adds the encode only on the global rows
+    row_off + r in [lo, hi) (its noise planes come zeroed outside them);
+    ``post`` lands on every row. Counts its launches in
+    ``fused_scaled_noise_matmul.launches``, the masked ones also in
+    ``.masked_launches`` and those with neither noise, encode nor post in
+    ``.bare_launches``."""
+    shapes, dims = _banded_shapes(lhs_dig, band)
+    out = _launch_kernel1("pvw_fused_scaled_noise_matmul", lhs_dig, band, shapes, *dims,
+                          tables, ntab, noise, sc, etab, jr, vals, encode32, post, mask)
     fused_scaled_noise_matmul.launches += 1
+    if mask is not None:
+        fused_scaled_noise_matmul.masked_launches += 1
+    if noise is None and sc is None and post is None:
+        fused_scaled_noise_matmul.bare_launches += 1
     return out
 
 
 fused_scaled_noise_matmul.launches = 0
+fused_scaled_noise_matmul.masked_launches = 0
+fused_scaled_noise_matmul.bare_launches = 0
 
 
 def fused_scaled_noise_matmul_swapped(lhs_planes, rhs_t, tables, ntab, noise, sc, etab,
@@ -315,14 +381,11 @@ def fused_pipelined_matmul(lhs_dig, band, tables, ntab, noise, gen, sc, etab, l:
     k0, k1, row_off, col_off, bound = (int(w) for w in gen) if gen is not None else (0,) * 5
     nrows = ntab.shape[1] if noise is not None or gen is not None else 0
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _pipelined_fn()(
-        _ptr(lhs_dig), _ptr(band), _ptr(tables), _ptr(ntab), _ptr(noise),
-        k0 & u.M32, k1 & u.M32, row_off & u.M32, col_off & u.M32, bound, _ptr(sc),
-        _ptr(etab), _ptr(out), ch, m, n, kd, nd, l, int(jr), nrows, int(vals),
-        int(encode32), int(gen is not None), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{PIPELINED_KERNEL}: launch failed with CUDA error {err}")
+    _launch(PIPELINED_KERNEL, _pipelined_fn(), dev,
+            _ptr(lhs_dig), _ptr(band), _ptr(tables), _ptr(ntab), _ptr(noise),
+            k0 & u.M32, k1 & u.M32, row_off & u.M32, col_off & u.M32, bound, _ptr(sc),
+            _ptr(etab), _ptr(out), ch, m, n, kd, nd, l, int(jr), nrows, int(vals),
+            int(encode32), int(gen is not None))
     fused_pipelined_matmul.launches += 1
     return out
 
@@ -336,34 +399,45 @@ fused_pipelined_matmul.launches = 0
 
 def _noise_fn():
     fn = load(NOISE_KERNEL).pvw_v3k_noise_planes
-    fn.argtypes = [ctypes.c_uint32] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_uint32] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
+def v3k_noise_planes_plain(k0, k1, row_off: int, rows: int, cols: int, l: int,
+                           bound: int, col_off: int = 0, device="cpu", mask=None):
+    """Plain PyTorch version of :func:`v3k_noise_planes`: the v3k planes,
+    zeroed on the global rows outside ``mask`` = (lo, hi)."""
+    planes = v3k_noise_digit_planes(k0, k1, row_off, rows, cols, l, bound, col_off, device)
+    if mask is not None:
+        planes *= _row_keep(row_off, rows, mask, planes.device)[:, None]
+    return planes
+
+
 def v3k_noise_planes(k0, k1, row_off: int, rows: int, cols: int, l: int, bound: int,
-                     col_off: int = 0, device="cuda"):
+                     col_off: int = 0, device="cuda", mask=None):
     """Stream-v3k noise as int8 signed digit planes [l*jr, rows, cols] for
     global rows from ``row_off`` and columns from ``col_off``, equal to
-    :func:`~pvw_tpu_torch.ops.tfry.v3k_noise_digit_planes`. A CUDA device
-    launches ``csrc/v3k_noise_planes.cu`` on the current stream (counted in
-    ``v3k_noise_planes.launches``); the CPU takes the plain twin; anything
-    else raises. The bound must have signed digits (<= 32639)."""
+    :func:`~pvw_tpu_torch.ops.tfry.v3k_noise_digit_planes`; with ``mask`` =
+    (lo, hi) the global rows outside [lo, hi) are zero (the masked form). A
+    CUDA device launches ``csrc/v3k_noise_planes.cu`` on the current stream
+    (counted in ``v3k_noise_planes.launches``); the CPU takes the plain twin
+    :func:`v3k_noise_planes_plain`; anything else raises. The bound must
+    have signed digits (<= 32639)."""
     jr = signed_digit_count(bound)
     if not jr:
         raise ValueError(f"noise bound {bound} has no signed digits (> 32639)")
     dev = torch.device(device)
     if dev.type == "cpu":
-        return v3k_noise_digit_planes(k0, k1, row_off, rows, cols, l, bound, col_off, dev)
+        return v3k_noise_planes_plain(k0, k1, row_off, rows, cols, l, bound, col_off, dev,
+                                      mask)
     if dev.type != "cuda":
         raise ValueError(f"v3k_noise_planes: unsupported device {dev}")
+    lo, hi = (0, 0) if mask is None else (_i32(w) for w in mask)
     out = torch.empty((l * jr, rows, cols), dtype=torch.int8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _noise_fn()(int(k0) & u.M32, int(k1) & u.M32, int(row_off) & u.M32,
-                      int(col_off) & u.M32, rows, cols, l, jr, int(bound), _ptr(out),
-                      ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{NOISE_KERNEL}: launch failed with CUDA error {err}")
+    _launch(NOISE_KERNEL, _noise_fn(), dev, int(k0) & u.M32, int(k1) & u.M32,
+            int(row_off) & u.M32, int(col_off) & u.M32, rows, cols, l, jr, int(bound),
+            int(mask is not None), lo, hi, _ptr(out))
     v3k_noise_planes.launches += 1
     return out
 
@@ -384,9 +458,12 @@ def kernel_noise_available(bound: int, tfry: bool = False, device="cuda") -> boo
 
 
 def _gen_words(gen_noise):
-    """((key0, key1, row_offset, col_offset), jr, bound) of ``gen_noise`` =
-    (seeds, jr, bound, "tfry"), the seeds as int32 words (the JAX layout).
-    Stream v4 (no "tfry") and masked seeds (6 words) raise."""
+    """((key0, key1, row_offset, col_offset), jr, bound, mask) of
+    ``gen_noise`` = (seeds, jr, bound, "tfry"), the seeds as int32 words
+    (the JAX layout): 4 words (key0, key1, row_offset, col_offset), mask
+    None; or the masked form's 6, (key0, key1, row_offset, lo, hi,
+    col_offset), mask (lo, hi): the column offset is then word 5. Stream v4
+    (no "tfry") raises."""
     if len(gen_noise) < 4 or gen_noise[3] != "tfry":
         raise NotImplementedError(
             "gen_noise without 'tfry' is stream v4, the TPU hardware PRNG "
@@ -394,33 +471,41 @@ def _gen_words(gen_noise):
             "noise digit planes")
     seeds, jr, bound = gen_noise[0], int(gen_noise[1]), int(gen_noise[2])
     words = [int(w) & u.M32 for w in (seeds.tolist() if torch.is_tensor(seeds) else seeds)]
-    if len(words) != 4:
-        raise NotImplementedError(
-            f"gen_noise seeds of {len(words)} words: the masked row range "
-            "(6 words) waits for the sharded path; pass (key0, key1, "
-            "row_offset, col_offset)")
+    if len(words) == 4:
+        mask = None
+    elif len(words) == 6:
+        mask = (words[3], words[4])
+        words = [*words[:3], words[5]]
+    else:
+        raise ValueError(f"gen_noise seeds of {len(words)} words: pass (key0, key1, "
+                         "row_offset, col_offset) or, masked, (key0, key1, row_offset, "
+                         "lo, hi, col_offset)")
     if jr != signed_digit_count(bound):
         raise ValueError(f"gen_noise jr {jr} does not match bound {bound}")
-    return tuple(words), jr, bound
+    return tuple(words), jr, bound, mask
 
 
 def gen_noise_planes(gen_noise, m: int, n: int, l: int, device):
     """The planes [l*jr, m, n] that ``gen_noise`` = (seeds, jr, bound,
-    "tfry") stands for, from :func:`v3k_noise_planes`: seeds (key0, key1,
-    row_offset, col_offset) as int32 words, the JAX layout."""
-    (k0, k1, row_off, col_off), _, bound = _gen_words(gen_noise)
-    return v3k_noise_planes(k0, k1, row_off, m, n, l, bound, col_off, device)
+    "tfry") stands for, from :func:`v3k_noise_planes` (zeroed outside the
+    masked form's rows)."""
+    (k0, k1, row_off, col_off), _, bound, mask = _gen_words(gen_noise)
+    return v3k_noise_planes(k0, k1, row_off, m, n, l, bound, col_off, device, mask)
 
 
-def pipeline_takes(device, bare: bool = False) -> bool:
+def pipeline_takes(device, bare: bool = False, masked: bool = False,
+                   post: bool = False) -> bool:
     """True when :func:`matmul_fold_scaled` launches the pipelined kernel:
     ``settings.pipeline_fold`` on, a CUDA device, and a product with noise
     or an encode (the JAX package sends the bare product to its banded
-    kernel, ``pallas_modmat.py:1387-1390``). Then ``gen_noise`` is drawn
-    inside that kernel, with no generator launch ahead of it."""
+    kernel, ``pallas_modmat.py:1387-1390``), neither masked nor with
+    ``post`` (the JAX package sends those to kernel 1, ``:1420-1422``).
+    Then ``gen_noise`` is drawn inside that kernel, with no generator launch
+    ahead of it."""
     from ..config import settings
 
-    return bool(settings.pipeline_fold) and not bare and torch.device(device).type == "cuda"
+    return (bool(settings.pipeline_fold) and not (bare or masked or post)
+            and torch.device(device).type == "cuda")
 
 
 # --------------------------------------------------------------------------
@@ -467,7 +552,7 @@ def _kernel_tables(ring: "RingPlan", L: int, S: int, k: int, jr: int, noise_boun
 
 def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
                        encode=None, lhs_dig=None, encode32: bool = False,
-                       gen_noise=None, noise_bound=None):
+                       gen_noise=None, noise_bound=None, post=None):
     """Fused modular matmul against a scaled-digit band.
 
     lhs: residues [L, S, m, k], or ``lhs_dig`` int8 [L, S, m, k*nd] (its
@@ -486,8 +571,12 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
     ``gen_noise``: (seeds, jr, bound, "tfry") adds the stream-v3k noise
     [l*jr, m, n] (seeds (key0, key1, row_offset, col_offset) as int32
     words) with ``noise_bound`` = bound: drawn by :func:`v3k_noise_planes`
-    ahead of kernel 1, or inside the pipelined kernel. Stream v4 (a
-    3-tuple) and masked seeds (6 words) raise ``NotImplementedError``.
+    ahead of kernel 1, or inside the pipelined kernel. Six words (key0,
+    key1, row_offset, lo, hi, col_offset) select the masked form: the noise
+    and the encode land only on the global rows row_offset + r in [lo, hi)
+    (kernel 1's masked launch, never the pipelined kernel). Stream v4 (a
+    3-tuple) raises ``NotImplementedError``.
+    ``post``: canonical residues [L, S, m, n] added after the fold.
 
     CUDA operands launch kernel 1 (``csrc/fused_scaled_noise_matmul.cu``),
     or the pipelined kernel (``csrc/fused_pipelined_matmul.cu``) where
@@ -510,21 +599,25 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
         raise ValueError(f"rhs_band shape {tuple(rhs_band.shape)} does not match "
                          f"[L={L}, S={S}, nd={nd}, kd={k * nd}, n]")
     n = rhs_band.shape[4]
-    pipelined = pipeline_takes(dev, bare=noise is None and gen_noise is None and encode is None)
-    gen = None
+    gwords = gmask = gen = None
+    if gen_noise is not None:
+        gwords, gjr, gbound, gmask = _gen_words(gen_noise)
+    pipelined = pipeline_takes(
+        dev, bare=noise is None and gen_noise is None and encode is None,
+        masked=gmask is not None, post=post is not None)
+    mask = None if gmask is None else (gwords[2], *gmask)      # (row_off, lo, hi)
     if gen_noise is not None and pipelined:
-        words, gjr, noise_bound = _gen_words(gen_noise)
-        gen = (*words, noise_bound)
+        gen, noise_bound = (*gwords, gbound), gbound
     elif gen_noise is not None:
         noise = gen_noise_planes(gen_noise, m, n, ring.degree, dev)
-        noise_bound = int(gen_noise[2])
+        noise_bound = gbound
     jr = _noise_jr(ring.degree * gjr if gen else 0 if noise is None else noise.shape[0],
                    ring, S)
-    _same_device("matmul_fold_scaled", dev, lhs, lhs_dig, rhs_band, noise,
+    _same_device("matmul_fold_scaled", dev, lhs, lhs_dig, rhs_band, noise, post,
                  *(encode if encode is not None else ()))
     if dev.type == "cpu":
         return matmul_fold_scaled_plain(lhs, rhs_band, ring, noise=noise,
-                                        encode=encode, lhs_dig=lhs_dig)
+                                        encode=encode, lhs_dig=lhs_dig, post=post, mask=mask)
     if dev.type != "cuda":
         raise ValueError(f"matmul_fold_scaled: unsupported device {dev}")
     ld = lhs_dig if lhs_dig is not None else digits(lhs, nd).reshape(L, S, m, k * nd)
@@ -537,8 +630,9 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
         out = fused_pipelined_matmul(ld, band, tables, ntab, noise, gen, sc, etab,
                                      ring.degree, jr, vals, encode32)
     else:
-        out = fused_scaled_noise_matmul(ld, band, tables, ntab, noise, sc, etab, jr, vals,
-                                        encode32)
+        out = fused_scaled_noise_matmul(
+            ld, band, tables, ntab, noise, sc, etab, jr, vals, encode32,
+            None if post is None else post.reshape(L * S, m, n).contiguous(), mask)
     return out.reshape(L, S, m, n)
 
 
@@ -579,6 +673,8 @@ def matmul_fold_swapped(lhs_planes, rhs_dig, ring: "RingPlan", noise=None, encod
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"matmul_fold_swapped: unsupported device {dev}")
     if gen_noise is not None:
+        if _gen_words(gen_noise)[3] is not None:
+            raise ValueError("matmul_fold_swapped has no masked form (6-word seeds)")
         noise = gen_noise_planes(gen_noise, m, n, ring.degree, dev)
         noise_bound = int(gen_noise[2])
     jr = _noise_jr(0 if noise is None else noise.shape[0], ring, S)
@@ -594,6 +690,76 @@ def matmul_fold_swapped(lhs_planes, rhs_dig, ring: "RingPlan", noise=None, encod
         rhs_dig.reshape(L * S, kd, n).transpose(1, 2).contiguous(), tables, ntab,
         None if noise is None else noise.contiguous(), sc, etab, jr, vals, encode32)
     return out.reshape(L, S, m, n)
+
+
+# --------------------------------------------------------------------------
+# kernel 2: the product of two residue matrices by the digit convolution
+# --------------------------------------------------------------------------
+
+def _banded_fn():
+    fn = load(BANDED_KERNEL).pvw_banded_matmul
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def banded_matmul(lhs_planes, rhs_planes, tables):
+    """Launch kernel 2 on the current stream. lhs_planes int8 [CH, nd, m, k]
+    and rhs_planes int8 [CH, nd, n, k]: the balanced digits of the two
+    residue matrices, digit-major, k contiguous; tables int64 [CH, 10]
+    (:func:`_pack_tables` of 2nd-1 columns, four groups) -> int64
+    [CH, m, n]. Counts its launches in ``banded_matmul.launches``."""
+    ch, nd, m, k = lhs_planes.shape
+    n = rhs_planes.shape[2]
+    dev = lhs_planes.device
+    _check_args(dev, {"lhs_planes": (lhs_planes, torch.int8, (ch, nd, m, k)),
+                      "rhs_planes": (rhs_planes, torch.int8, (ch, nd, n, k)),
+                      "tables": (tables, torch.int64, (ch, BANDED_TABLE_WIDTH))})
+    out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
+    _launch(BANDED_KERNEL, _banded_fn(), dev, _ptr(lhs_planes), _ptr(rhs_planes),
+            _ptr(tables), _ptr(out), ch, m, n, k, nd)
+    banded_matmul.launches += 1
+    return out
+
+
+banded_matmul.launches = 0
+
+
+def matmul_channels_fused(lhs, rhs, ring: "RingPlan"):
+    """Modular matmul per (limb, slot) channel, the counterpart of the JAX
+    package's fused ``matmul_channels_pallas``: residues lhs [L, S, m, k]
+    and rhs [L, S, k, n] -> [L, S, m, n].
+
+    CUDA operands launch kernel 2 (``csrc/banded_matmul.cu``) on their
+    balanced digits, laid out digit-major and k-contiguous here; CPU
+    operands take the plain twin :func:`~pvw_tpu_torch.ops.modmat.
+    matmul_channels`; any other device raises. The JAX package's tile
+    arguments and its materialised band (``_build_band_cmajor``) have no
+    counterpart: the kernel contracts each digit pair once."""
+    L, S, m, k = lhs.shape
+    n = rhs.shape[-1]
+    if tuple(rhs.shape[:3]) != (L, S, k):
+        raise ValueError(f"rhs shape {tuple(rhs.shape)} does not match [L={L}, S={S}, "
+                         f"k={k}, n]")
+    if k > u.MAX_CONTRACTION:
+        raise ValueError(f"contraction {k} exceeds int32 headroom {u.MAX_CONTRACTION}")
+    dev = lhs.device
+    _same_device("matmul_channels_fused", dev, rhs)
+    if dev.type == "cpu":
+        return matmul_channels(lhs, rhs, ring)
+    if dev.type != "cuda":
+        raise ValueError(f"matmul_channels_fused: unsupported device {dev}")
+    nd = ring.num_digits
+    a = digits(lhs, nd).reshape(L * S, m, k, nd).permute(0, 3, 1, 2).contiguous()
+    b = digits(rhs, nd).reshape(L * S, k, n, nd).permute(0, 3, 2, 1).contiguous()
+    tables = u.u64_tensor(_pack_tables(ring, 2 * nd - 1, BANDED_TABLE_WIDTH),
+                          dev).repeat_interleave(S, dim=0)
+    return banded_matmul(a, b, tables).reshape(L, S, m, n)
+
+
+#: The JAX package's ``matmul_fold_auto`` (Pallas on a TPU, XLA elsewhere):
+#: kernel 2 on a card, the plain twin on the CPU.
+matmul_fold_auto = matmul_channels_fused
 
 
 # --------------------------------------------------------------------------
@@ -669,11 +835,8 @@ def ntt_prescale_band(coeffs, ring: "RingPlan", max_abs: int):
     ntab = _prescale_ntab(ring, jr, dev).contiguous()
     tabs = u.u64_tensor(_prescale_tabs(ring, C1), dev)
     out = torch.empty((L * l, nd, k * nd, d), dtype=torch.int8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _prescale_fn()(_ptr(x), _ptr(ntab), _ptr(tabs), _ptr(out), L, l, jr, k, d,
-                         nd, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{PRESCALE_KERNEL}: launch failed with CUDA error {err}")
+    _launch(PRESCALE_KERNEL, _prescale_fn(), dev, _ptr(x), _ptr(ntab), _ptr(tabs),
+            _ptr(out), L, l, jr, k, d, nd)
     ntt_prescale_band.launches += 1
     return out.reshape(L, l, nd, k * nd, d)
 

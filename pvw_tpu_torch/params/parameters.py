@@ -169,6 +169,28 @@ class PvwParameters:
             "with the correctness condition"
         )
 
+    def restrict_limbs(self, limb_indices) -> "PvwParameters":
+        """A view over a subset of the RNS limbs whose gadget, Δ and
+        correctness condition still come from the full q (the JAX package's
+        ``restrict_limbs``). Every per-limb quantity of the scheme depends on
+        its own limb alone and the randomness is drawn in coefficient space,
+        so the limb shards of :mod:`pvw_tpu_torch.parallel` concatenate to
+        the full-ring result. ``to_dict`` raises on such a view."""
+        idx = tuple(int(i) for i in limb_indices)
+        if not idx or any(not 0 <= i < self.ring.num_limbs for i in idx):
+            raise InvalidParameters(f"invalid limb indices {idx}")
+        sub = PvwParameters.__new__(PvwParameters)
+        sub.n, sub.t, sub.k, sub.l = self.n, self.t, self.k, self.l
+        sub.secret_variance = self.secret_variance
+        sub.error_bound_1 = self.error_bound_1
+        sub.error_bound_2 = self.error_bound_2
+        sub.ring = get_ring(tuple(self.ring.moduli[i] for i in idx), self.l)
+        sub._q_total = self._q_total          # the full q: Δ, gadget, correctness
+        sub._delta = self._delta
+        sub._delta_pow = self._delta_pow
+        sub._build_gadget_tables()            # the full-Δ gadget, sub-limb residues
+        return sub
+
     # -- the 7-field dict form (``parameters.rs:606-664``) ---------------
 
     def to_dict(self) -> dict:

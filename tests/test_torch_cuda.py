@@ -515,3 +515,221 @@ def test_opt_in_routes_on_the_card_equal_cpu(cuda_device, route, stream):
         del settings.noise_stream
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l,jr,row_off,lo,hi,col_off,encode,m,k,n", [
+    (TOY, 8, 1, 0, 0, 70, 0, "enc32", 140, 33, 130),       # a ragged first part
+    (TOY, 8, 2, 0, 70, 140, 9, "enc64", 140, 33, 130),     # its complement, column offset
+    (TOY, 8, 1, 300, 0, 0, 0, "enc64", 64, 16, 64),        # empty
+    (CHAIN_61X17, 16, 2, 5, 0, 1 << 20, 3, "enc64", 70, 9, 40),   # full
+    (CHAIN_61X17, 16, 1, 128, 200, 231, 0, "enc32", 130, 8, 33),  # off the 128-row tile
+    (TOY, 8, 1, (1 << 32) - 40, (1 << 32) - 20, 10, 0, "enc64", 64, 16, 64),  # int32 wrap
+])
+def test_masked_kernel_equals_plain_twin(cuda_device, moduli, l, jr, row_off, lo, hi,
+                                         col_off, encode, m, k, n):
+    """Kernel 1's masked form (the generator's masked planes, then the
+    encode on the global rows [lo, hi) only), launched through the 6-word
+    seeds: a kernel 1 launch counted as masked, never the pipelined
+    kernel's, even with ``pipeline_fold`` on."""
+    from pvw_tpu_torch.config import settings
+
+    ring, lhs_dig, band, _, bound, enc = operands(moduli, jr, encode, 28, m=m, k=k, n=n, l=l)
+    g = ((0xDEADBEEF, 0x12345678, row_off, lo, hi, col_off), jr, bound, "tfry")
+    want = fm.matmul_fold_scaled(None, band, ring, encode=enc, lhs_dig=lhs_dig, gen_noise=g)
+    move = lambda t: t.to(cuda_device)
+    counts = lambda: (fm.fused_scaled_noise_matmul.masked_launches,
+                      fm.fused_scaled_noise_matmul.launches, fm.fused_pipelined_matmul.launches,
+                      fm.v3k_noise_planes.launches)
+    before = counts()
+    settings.pipeline_fold = True
+    try:
+        got = fm.matmul_fold_scaled(None, move(band), ring, encode=tuple(map(move, enc)),
+                                    lhs_dig=move(lhs_dig), encode32=encode == "enc32",
+                                    gen_noise=g)
+    finally:
+        del settings.pipeline_fold
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 0, 1]
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l,jr,encode", [(TOY, 8, 0, None), (TOY, 8, 2, "enc64"),
+                                                (CHAIN_61X17, 16, 1, "enc32")])
+def test_post_equals_plain_twin(cuda_device, moduli, l, jr, encode):
+    """``post=`` alone and beside the noise rows and the encode."""
+    ring, lhs_dig, band, noise, bound, enc = operands(moduli, jr, encode, 29,
+                                                      m=70, k=9, n=130, l=l)
+    rng = np.random.default_rng(30)
+    post = u64.u64_tensor(rand_u64(rng, (ring.num_limbs, l, 70, 130))
+                          % ring.q.reshape(-1, 1, 1, 1))
+    want = fm.matmul_fold_scaled(None, band, ring, noise=noise, encode=enc, lhs_dig=lhs_dig,
+                                 noise_bound=bound, post=post)
+    move = lambda t: None if t is None else t.to(cuda_device)
+    got = fm.matmul_fold_scaled(None, move(band), ring, noise=move(noise),
+                                encode=None if enc is None else tuple(map(move, enc)),
+                                lhs_dig=move(lhs_dig), encode32=encode == "enc32",
+                                noise_bound=bound, post=move(post))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l,jr,lo,hi", [(TOY, 8, 1, 20, 90), (CHAIN_61X17, 16, 2, 0, 0)])
+def test_masked_post_equals_plain_twin(cuda_device, moduli, l, jr, lo, hi):
+    """The masked form with ``post=``: post on every row, the noise and the
+    encode on [lo, hi) only."""
+    ring, lhs_dig, band, _, bound, enc = operands(moduli, jr, "enc64", 33, m=70, k=9, n=130,
+                                                  l=l)
+    post = u64.u64_tensor(rand_u64(np.random.default_rng(34), (ring.num_limbs, l, 70, 130))
+                          % ring.q.reshape(-1, 1, 1, 1))
+    g = ((0xDEADBEEF, 0x12345678, 7, lo, hi, 5), jr, bound, "tfry")
+    want = fm.matmul_fold_scaled(None, band, ring, encode=enc, lhs_dig=lhs_dig, gen_noise=g,
+                                 post=post)
+    move = lambda t: t.to(cuda_device)
+    before = fm.fused_scaled_noise_matmul.masked_launches
+    got = fm.matmul_fold_scaled(None, move(band), ring, encode=tuple(map(move, enc)),
+                                lhs_dig=move(lhs_dig), gen_noise=g, post=move(post))
+    torch.cuda.synchronize()
+    assert fm.fused_scaled_noise_matmul.masked_launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l,m,k,n", [
+    (TOY, 8, 70, 33, 130), (TOY, 8, 128, 64, 64), (BIG, 8, 65, 17, 33),
+    (CHAIN_61X17, 16, 40, 48, 31), (generate_ntt_primes(31, 1, 8), 8, 64, 5, 64),
+])
+def test_banded_kernel_equals_plain_twin(cuda_device, moduli, l, m, k, n):
+    """Kernel 2 against ``modmat.matmul_channels``: C = 9 and 15 columns
+    (and 7, a 31-bit modulus), m and n off its 64 x 32 tile, k multiples of
+    16 (16-byte staging) and odd k."""
+    ring = RingPlan(moduli, l)
+    rng = np.random.default_rng(31)
+    qs = ring.q.reshape(-1, 1, 1, 1)
+    a = u64.u64_tensor(rand_u64(rng, (ring.num_limbs, l, m, k)) % qs)
+    b = u64.u64_tensor(rand_u64(rng, (ring.num_limbs, l, k, n)) % qs)
+    want = fm.matmul_channels_fused(a, b, ring)
+    assert torch.equal(want, modmat.matmul_channels(a, b, ring))
+    before = fm.banded_matmul.launches
+    got = fm.matmul_fold_auto(a.to(cuda_device), b.to(cuda_device), ring)
+    torch.cuda.synchronize()
+    assert fm.banded_matmul.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_banded_and_masked_failures_raise(cuda_device, monkeypatch):
+    """No fallback: refused launches of kernel 2 and of the masked form raise."""
+    ring = RingPlan(TOY, 8)
+    a = torch.zeros((2, 8, 4, 3), dtype=torch.int64, device=cuda_device)
+    b = torch.zeros((2, 8, 3, 5), dtype=torch.int64, device=cuda_device)
+    monkeypatch.setattr(fm, "_banded_fn", lambda: (lambda *args: 700))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fm.matmul_channels_fused(a, b, ring)
+    monkeypatch.setattr(fm, "_kernel_fn", lambda symbol: (lambda *args: 700))
+    _, lhs_dig, band, _, _, _ = operands(TOY, 1, None, 32, m=8, k=4, n=8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fm.matmul_fold_scaled(None, band.to(cuda_device), ring, lhs_dig=lhs_dig.to(cuda_device),
+                              gen_noise=((1, 2, 0, 0, 4, 0), 1, 50, "tfry"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["kernel", "v3k"])
+def test_parallel_backends_on_the_card_equal_cpu(cuda_device, stream):
+    """Every backend with ``cuda:0`` repeated against the same backend on the
+    CPU and the single-device encryption: the (2, 2) mesh, (1, 1) with
+    ``_force_masked``, the dealer split, the limb split and a grid; the masked
+    form launches on every v3k kdim > 1 or forced shard and nowhere else."""
+    import pvw_tpu_torch as P
+    import pvw_tpu_torch.parallel as TP
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+
+    moduli = generate_ntt_primes(55, 4, 8)
+    params = P.PvwParameters(8, 8, 8, moduli, 0.5, 50, 2000)
+    sc = np.arange(64, dtype=np.uint64).reshape(8, 8) * np.uint64(977)
+    sc[0, 1] = (1 << 64) - 1
+    key = R.key(6)
+    settings.noise_stream = stream
+    try:
+        out = {}
+        for dev in (torch.device("cpu"), cuda_device):
+            crs = P.PvwCrs.new(params, R.fold_in(key, 1), device=dev)
+            parties = [P.Party.new(i, params, R.fold_in(key, 10 + i), device=dev)
+                       for i in range(8)]
+            gpk = P.GlobalPublicKey(crs)
+            gpk.generate_all_party_keys(parties, R.fold_in(key, 2))
+            k5 = R.fold_in(key, 5)
+            before = fm.fused_scaled_noise_matmul.masked_launches
+            cts = {"single": P.encrypt_batch(sc, gpk, k5),
+                   "mesh": TP.encrypt_batch_sharded(sc, gpk, k5, TP.make_mesh([dev] * 4)),
+                   "forced": TP.encrypt_batch_sharded(sc, gpk, k5, TP.make_mesh([dev], kdim=1),
+                                                      _force_masked=True),
+                   "limb": TP.encrypt_batch_limb_parallel(sc, gpk, k5, [dev] * 4).gather(),
+                   "grid": TP.encrypt_batch_grid(sc, gpk, k5, [dev] * 4, kdim=2).gather()}
+            if stream == "v3k":
+                cts["dealer"] = TP.encrypt_batch_data_parallel(sc, gpk, k5, [dev] * 3).gather()
+            masked = fm.fused_scaled_noise_matmul.masked_launches - before
+            # c1 on recv row 0's shards, c2 on every shard: (2, 2) 2 + 4, forced
+            # 1 + 1, grid 2 x ((1, 2): 2 + 2)
+            if dev.type == "cuda":
+                assert masked == (6 + 2 + 8 if stream == "v3k" else 0)
+            out[dev.type] = {name: (ct.c1.residues_np(), ct.c2.residues_np())
+                             for name, ct in cts.items()}
+            shares = TP.decrypt_party_shares_sharded(cts["mesh"], parties[3].secret_key, 3,
+                                                     TP.make_mesh([dev] * 4))
+            assert shares == [0 if v == (1 << 64) - 1 else int(v) for v in sc[:, 3]]
+        for name, (c1, c2) in out["cuda"].items():
+            for got, cpu, single in zip((c1, c2), out["cpu"][name], out["cuda"]["single"]):
+                np.testing.assert_array_equal(got, cpu)
+                np.testing.assert_array_equal(got, single)
+    finally:
+        del settings.noise_stream
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["kernel", "v3k"])
+def test_parallel_backends_over_distinct_cards(stream):
+    """Every backend over every visible card, each shard on its own device
+    (the defaults: ``make_mesh()`` and ``devices=None``), against the
+    single-device encryption on ``cuda:0``; sharded decryption exact."""
+    import pvw_tpu_torch as P
+    import pvw_tpu_torch.parallel as TP
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two CUDA cards")
+    cards = torch.cuda.device_count()
+    moduli = generate_ntt_primes(55, 4, 8)
+    params = P.PvwParameters(8, 8, 8, moduli, 0.5, 50, 2000)
+    sc = np.arange(64, dtype=np.uint64).reshape(8, 8) * np.uint64(977)
+    key = R.key(7)
+    dev0 = torch.device("cuda", 0)
+    settings.noise_stream = stream
+    try:
+        crs = P.PvwCrs.new(params, R.fold_in(key, 1), device=dev0)
+        parties = [P.Party.new(i, params, R.fold_in(key, 10 + i), device=dev0)
+                   for i in range(8)]
+        gpk = P.GlobalPublicKey(crs)
+        gpk.generate_all_party_keys(parties, R.fold_in(key, 2))
+        k5 = R.fold_in(key, 5)
+        mesh = TP.make_mesh()
+        assert {d.index for row in mesh.devices for d in row} == set(range(cards))
+        cts = {"single": P.encrypt_batch(sc, gpk, k5),
+               "mesh": TP.encrypt_batch_sharded(sc, gpk, k5, mesh),
+               "limb": TP.encrypt_batch_limb_parallel(sc, gpk, k5).gather()}
+        if cards % 2 == 0:
+            cts["grid"] = TP.encrypt_batch_grid(sc, gpk, k5).gather()
+        if stream == "v3k":
+            cts["dealer"] = TP.encrypt_batch_data_parallel(sc, gpk, k5).gather()
+        want = (cts["single"].c1.residues_np(), cts["single"].c2.residues_np())
+        for name, ct in cts.items():
+            np.testing.assert_array_equal(ct.c1.residues_np(), want[0], err_msg=name)
+            np.testing.assert_array_equal(ct.c2.residues_np(), want[1], err_msg=name)
+        shares = TP.decrypt_party_shares_sharded(cts["mesh"], parties[3].secret_key, 3, mesh)
+        assert shares == [int(v) for v in sc[:, 3]]
+    finally:
+        del settings.noise_stream

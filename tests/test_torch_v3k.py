@@ -92,15 +92,149 @@ def test_gen_noise_equals_generated_planes():
     assert torch.equal(got, want)
 
 
-def test_v4_and_masked_gen_noise_raise():
+def encode_operands(ring, m, n, seed):
+    """u64 scalars [m, n] (some >= 2^63) and a gadget table [L, l], as the
+    port's (sc, etab) and the JAX package's (sc_hi, sc_lo, enc_tab)."""
+    rng = np.random.default_rng(seed)
+    L, l = ring.num_limbs, ring.degree
+    sc = rng.integers(0, 1 << 63, (m, n), dtype=np.uint64) * np.uint64(2)
+    sc[0, :2] = [1 << 63, (1 << 64) - 1]
+    g = rng.integers(0, 1 << 62, (L, l), dtype=np.uint64) % ring.q[:, None]
+    gs = np.array([[(int(g[i, s]) << 64) // q for s in range(l)]
+                   for i, q in enumerate(ring.moduli)], object)
+    gs = (gs & 0xFFFFFFFFFFFFFFFF).astype(np.uint64)
+    wrap = np.array([[pow(2, 64, q) * int(g[i, s]) % q for s in range(l)]
+                     for i, q in enumerate(ring.moduli)], np.uint64)
+    hi, lo = ju.split_u64_np(sc)
+    return ((tu.u64_tensor(sc), tu.u64_tensor(tfm.encode_tab(g, gs, wrap))),
+            (jnp.asarray(hi), jnp.asarray(lo),
+             jnp.asarray(jpm.encode_tab(g, gs, wrap, ring.moduli))))
+
+
+def jax_kernel1(jring, lhs_dig, band, jr, vals, noise=None, post=None, encode=None,
+                seeds=None, gen=None, masked=False):
+    """Interpret-mode ``_fused_scaled_noise_matmul`` on the port's operands
+    (8 x 4 tiles) -> uint64 [L, l, m, n]."""
+    L, l, m, kd = lhs_dig.shape
+    nd, n = band.shape[2], band.shape[4]
+    tables = jnp.repeat(jnp.asarray(jpm._pack_tables(jring, nd)), l, axis=0)
+    if jr:
+        ntab = jnp.asarray(jring.ntt_scaled_tab(1 if vals else jr), jnp.int32).reshape(
+            L * l, l * (1 if vals else jr), nd)
+    else:                       # post alone: a zero noise plane, as the JAX entry does
+        noise, ntab = jnp.zeros((1, m, n), jnp.int8), jnp.zeros((L * l, 1, nd), jnp.int32)
+    oh, ol = jpm._fused_scaled_noise_matmul(
+        jnp.asarray(lhs_dig.reshape(L * l, m, kd).numpy()),
+        jnp.asarray(band.reshape(L * l, nd, kd, n).numpy()), tables, ntab, noise, post,
+        encode, 8, 4, True, jring.fold_words_ok, False,
+        None if seeds is None else jnp.asarray(seeds), gen,
+        l if vals and jr else 0, jr if vals and noise is not None and jr else 0, False,
+        masked)
+    return ju.join_u64_np(np.asarray(oh), np.asarray(ol)).reshape(L, l, m, n)
+
+
+@pytest.mark.parametrize("bound,vals,row_off,lo,hi,col_off", [
+    (100, False, 0, 0, 5, 0), (100, True, 0, 5, 16, 3), (2000, False, 8, 10, 13, 7),
+    (2000, True, 3, 0, 0, 0), (100, False, 0, 0, 16, 11), (100, True, 5, 3, 9, 0),
+    (100, False, (1 << 32) - 4, (1 << 32) - 2, 5, 0)])
+def test_masked_gen_noise_equals_pallas_interpret(bound, vals, row_off, lo, hi, col_off):
+    """The masked form (6-word seeds: row offset, [lo, hi), column offset
+    in word 5) with the encode against the interpret-mode Pallas kernel's
+    ``masked=True`` with in-kernel v3k, over two row tiles: ragged, empty,
+    full, off-tile ranges, a range inside the second tile, and rows that
+    wrap past 2^32 (int32 -4.., the range [-2, 5))."""
+    tr, jring = TRing(TOY, 8), JRing(TOY, 8)
+    m, k, n = 16, 5, 4
+    lhs_dig, band = digit_operands(tr, m, k, n, 60 + lo + hi)
+    jr = tntt.signed_digit_count(bound)
+    seeds = np.array([*KEY, row_off, lo, hi, col_off], np.uint32).astype(np.int32)
+    enc, jenc = encode_operands(tr, m, n, 61)
+    got = tfm.matmul_fold_scaled(None, band, tr, lhs_dig=lhs_dig, encode=enc,
+                                 gen_noise=(torch.from_numpy(seeds), jr, bound, "tfry"))
+    want = jax_kernel1(jring, lhs_dig, band, jr, vals, encode=jenc, seeds=seeds,
+                       gen=(8, jr, bound, True), masked=True)
+    np.testing.assert_array_equal(tu.u64_numpy(got), want)
+
+
+@pytest.mark.parametrize("bound,lo,hi", [(100, 5, 16), (2000, 0, 0)])
+def test_masked_post_equals_pallas_interpret(bound, lo, hi):
+    """The masked form with ``post=``: post on every row, the noise and the
+    encode on [lo, hi) only, against the interpret-mode Pallas kernel's
+    ``masked=True`` with a ``post`` input."""
+    tr, jring = TRing(TOY, 8), JRing(TOY, 8)
+    m, k, n = 16, 5, 4
+    lhs_dig, band = digit_operands(tr, m, k, n, 67 + lo)
+    jr = tntt.signed_digit_count(bound)
+    seeds = np.array([*KEY, 2, lo, hi, 3], np.uint32).astype(np.int32)
+    enc, jenc = encode_operands(tr, m, n, 68)
+    rng = np.random.default_rng(69)
+    post = rng.integers(0, 1 << 62, (2, 8, m, n), dtype=np.uint64) % tr.q.reshape(2, 1, 1, 1)
+    got = tfm.matmul_fold_scaled(None, band, tr, lhs_dig=lhs_dig, encode=enc,
+                                 gen_noise=(torch.from_numpy(seeds), jr, bound, "tfry"),
+                                 post=tu.u64_tensor(post))
+    ph, pl = ju.split_u64_np(post.reshape(16, m, n))
+    want = jax_kernel1(jring, lhs_dig, band, jr, False, post=(jnp.asarray(ph), jnp.asarray(pl)),
+                       encode=jenc, seeds=seeds, gen=(8, jr, bound, True), masked=True)
+    np.testing.assert_array_equal(tu.u64_numpy(got), want)
+
+
+def test_masked_halves_sum_to_the_unmasked_product():
+    """Complementary masked ranges hold each row's noise and encode once:
+    masked [0, 7) + masked [7, 16) = unmasked + bare, mod q; the masked
+    planes are the unmasked ones with the rows outside zeroed."""
+    tr = TRing(generate_ntt_primes(61, 2, 16), 16)
+    m, k, n = 16, 3, 5
+    lhs_dig, band = digit_operands(tr, m, k, n, 62)
+    enc, _ = encode_operands(tr, m, n, 63)
+    q = tr.table("q", "cpu").reshape(-1, 1, 1, 1)
+
+    def run(*mask):
+        return tfm.matmul_fold_scaled(None, band, tr, lhs_dig=lhs_dig, encode=enc,
+                                      gen_noise=((*KEY, 40, *mask, 9), 2, 700, "tfry"))
+
+    halves = tu.addmod(run(40, 47), run(47, 56), q)
+    whole = tu.addmod(run(), tfm.matmul_fold_scaled(None, band, tr, lhs_dig=lhs_dig), q)
+    assert torch.equal(halves, whole)
+    planes = tfm.v3k_noise_planes(*KEY, 40, m, n, 16, 700, 9, "cpu", mask=(44, 50))
+    full = tfm.v3k_noise_planes(*KEY, 40, m, n, 16, 700, 9, "cpu")
+    assert torch.equal(planes[:, 4:10], full[:, 4:10])
+    assert not planes[:, :4].any() and not planes[:, 10:].any()
+
+
+@pytest.mark.parametrize("jr,encode", [(0, False), (1, False), (2, True)])
+def test_post_equals_pallas_interpret(jr, encode):
+    """``post=`` (canonical residues added after the fold) alone, with noise
+    planes and with the encode, against the interpret-mode Pallas kernel's
+    ``post`` input."""
+    tr, jring = TRing(TOY, 8), JRing(TOY, 8)
+    m, k, n = 8, 6, 4
+    lhs_dig, band = digit_operands(tr, m, k, n, 64 + jr)
+    rng = np.random.default_rng(65)
+    post = rng.integers(0, 1 << 62, (2, 8, m, n), dtype=np.uint64) % tr.q.reshape(2, 1, 1, 1)
+    noise = bound = None
+    if jr:
+        bound = 50 if jr == 1 else 2000
+        ev = rng.integers(-bound, bound + 1, (m, n, 8)).astype(np.int32)
+        noise = tntt._digit_planes(torch.from_numpy(ev), jr)
+    enc, jenc = encode_operands(tr, m, n, 66) if encode else (None, None)
+    got = tfm.matmul_fold_scaled(None, band, tr, lhs_dig=lhs_dig, noise=noise, encode=enc,
+                                 noise_bound=bound, post=tu.u64_tensor(post))
+    ph, pl = ju.split_u64_np(post.reshape(16, m, n))
+    want = jax_kernel1(jring, lhs_dig, band, jr, False,
+                       noise=None if noise is None else jnp.asarray(noise.numpy()),
+                       post=(jnp.asarray(ph), jnp.asarray(pl)), encode=jenc)
+    np.testing.assert_array_equal(tu.u64_numpy(got), want)
+
+
+def test_v4_and_bad_gen_noise_raise():
     tr = TRing(TOY, 8)
     lhs_dig, band = digit_operands(tr, 4, 2, 4, 42)
     with pytest.raises(NotImplementedError, match="TPU hardware PRNG"):
         tfm.matmul_fold_scaled(None, band, tr, lhs_dig=lhs_dig,
                                gen_noise=((*KEY, 0, 0), 1, 50))
-    with pytest.raises(NotImplementedError, match="masked"):
+    with pytest.raises(ValueError, match="5 words"):
         tfm.matmul_fold_scaled(None, band, tr, lhs_dig=lhs_dig,
-                               gen_noise=((*KEY, 0, 0, 4, 0), 1, 50, "tfry"))
+                               gen_noise=((*KEY, 0, 4, 0), 1, 50, "tfry"))
     with pytest.raises(ValueError, match="mutually exclusive"):
         tfm.matmul_fold_scaled(None, band, tr, lhs_dig=lhs_dig,
                                noise=torch.zeros((8, 4, 4), dtype=torch.int8),
