@@ -11,8 +11,16 @@ path is ``phase_dealer_path`` (CRS, batch keygen or an earlier path's keys,
 the encryption operands, n dealers' shares in one batch, decryption with
 every sampled share exact), with the kernels' launch counts set to 0 just
 before it and read just after, per stage (keygen, encryption, the wrap
-encryption): it fails if a kernel of its route did not launch, or if a
-kernel of another route did.
+encryption): it fails if a kernel of its route did not launch, if a
+kernel of another route did, if a band was relaid to k-packed on its
+way into kernels 1 and 3 (``fused_modmat.band_relayouts``: kernel 4 writes
+every band k-packed), or if an lhs operand was copied to 16-byte rows
+(``fused_modmat.row_relayouts``: the key cache lays them out). The timing
+phases' operands lie as the paths give them to the kernels (the band
+k-packed); each kernel time is a median of
+CUDA events with its spread [min, max], beside the bound, the plain twin,
+``torch._int_mm`` of the same contraction, and the ratios to the bound and
+to ``torch._int_mm``.
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    the five kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
@@ -67,13 +75,14 @@ kernel of another route did.
     masked planes, the encode on the global rows [lo, hi) only) and its
     ``post=`` addmod against the twin at reduced shapes (nd = 5 and 8, jr =
     1 and 2, ranges empty, full, ragged and off the tile, with and without
-    post=; post= alone and with the encode); banded_vs_plain: kernel 2, ``matmul_channels_fused``,
-    at C = 9 and 15 with m and n off its tile;
+    post=; post= alone and with the encode); banded_vs_plain: kernel 2,
+    ``matmul_channels_fused``, at C = 9 and 15 with m and n off its tile;
 16. banded_path: the entry ``matmul_fold_auto`` at kernel 2's two full
     shapes ([16 ch, 4096 x 256] x [256 x 1024], nd = 5; [272 ch, 1024 x 512]
     x [512 x 1024], nd = 8), counted, against the twin; banded_timing: the
     launch, the entry, the twin and ``torch._int_mm`` beside the bound;
-    masked_timing: the masked and post= launches at the config-4 c2 shape;
+    masked_timing: the masked and post= launches at the toy and config-4 c2
+    shapes;
 17. v3k_path: the toy chain under ``noise_stream="v3k"``, then
     v3k_breakdown;
 18. v3k_deep_path: config 4 under v3k on the deep path's keys: threshold
@@ -168,8 +177,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+def cuda_times(fn, reps: int, warmup: int = 1) -> list:
+    """Milliseconds of ``fn`` in each of ``reps`` runs, CUDA events."""
     import torch
 
     for _ in range(warmup):
@@ -183,7 +192,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    return statistics.median(cuda_times(fn, reps, warmup))
+
+
+def kernel_times(fn, reps: int = 5) -> dict:
+    """The median ms of ``fn`` over ``reps`` runs and its spread [min, max]."""
+    t = cuda_times(fn, reps)
+    return {"ms": statistics.median(t), "ms_spread": [min(t), max(t)]}
+
+
+def ratios(rec: dict) -> dict:
+    """``rec`` with its time over the bound and over the library call."""
+    rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    rec["x_library"] = None if rec.get("library_ms") is None else rec["ms"] / rec["library_ms"]
+    return rec
 
 
 def timed(times: dict, name: str, fn):
@@ -216,11 +243,16 @@ def max_abs_err(got, want) -> int:
 
 # kernel 1's launches with neither noise, encode nor post (the bake route's)
 BARE = "fused_scaled_noise_matmul (bare)"
+# bands relaid to k-packed and lhs rows copied to a 16-byte pitch on their way
+# into kernels 1 and 3: none on a path
+RELAYOUTS = "band_relayouts"
+ROW_RELAYOUTS = "row_relayouts"
 
 
 def _counters() -> dict:
     """(wrapper, attribute) of each kernel's launch count; kernel 1's
-    masked and bare launches are also among its own."""
+    masked and bare launches are also among its own; and the module's counts
+    of band and row relayouts."""
     from pvw_tpu_torch.ops import fused_modmat as fm
 
     k1 = fm.fused_scaled_noise_matmul
@@ -231,7 +263,9 @@ def _counters() -> dict:
             fm.PIPELINED_KERNEL: (fm.fused_pipelined_matmul, "launches"),
             fm.MASKED_KERNEL: (k1, "masked_launches"),
             fm.BANDED_KERNEL: (fm.banded_matmul, "launches"),
-            BARE: (k1, "bare_launches")}
+            BARE: (k1, "bare_launches"),
+            RELAYOUTS: (fm, "band_relayouts"),
+            ROW_RELAYOUTS: (fm, "row_relayouts")}
 
 
 def reset_launches() -> None:
@@ -245,7 +279,8 @@ def launches() -> dict:
 
 def operands(ring, m, k, n, jr, encode, gen, dev):
     """Random operands of one fused-matmul call, made on the card: lhs
-    digit planes, the scaled band, then :func:`noise_and_encode`."""
+    digit planes, the scaled band (k-packed, as kernel 4 writes it), then
+    :func:`noise_and_encode`."""
     import torch
 
     from pvw_tpu_torch.ops import modmat
@@ -358,7 +393,7 @@ def phase_timing(ring, m: int, k: int, dev, card: str, phase: str) -> dict:
     err = max_abs_err(kernel(), plain())
     check(err == 0, f"kernel differs from the plain twin at the full c2 shape ({phase})")
     torch.cuda.empty_cache()
-    ms = cuda_ms(kernel, reps=3)
+    times = kernel_times(kernel)
     plain_ms = cuda_ms(plain, reps=3)
     torch.cuda.empty_cache()
     library_ms = cuda_ms(int_mm_banded(ring, lhs_dig, band), reps=3)
@@ -367,13 +402,13 @@ def phase_timing(ring, m: int, k: int, dev, card: str, phase: str) -> dict:
               + 8 * L * S * m * n)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
-    out = {"phase": phase, "kernel": fm.KERNEL,
-           "shape": f"c2 m={m} n={n} channels={L * S} kd={kd} nd={nd}",
-           "card": card, "ms": ms, "plain_ms": plain_ms,
-           "plain": "one limb at a time",
-           "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-           "bytes": nbytes, "int8_macs": macs, "max_abs_err": err}
+    out = ratios({"phase": phase, "kernel": fm.KERNEL,
+                  "shape": f"c2 m={m} n={n} channels={L * S} kd={kd} nd={nd}",
+                  "card": card, **times, "plain_ms": plain_ms,
+                  "plain": "one limb at a time",
+                  "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                  "bytes": nbytes, "int8_macs": macs, "max_abs_err": err})
     emit(out)
     del lhs_dig, band, noise, enc
     torch.cuda.empty_cache()
@@ -636,7 +671,7 @@ def phase_deep_kernel_vs_plain(dev) -> int:
 
 def prescale_timing(ring, k: int, d: int, seed: int, dev, card: str) -> dict:
     """The r-stage kernel and its plain twin at one r shape (jr = 1), each
-    against the bound: CUDA events, medians of 10 and 3."""
+    against the bound: CUDA events, medians of 10 (with the spread) and 3."""
     import torch
 
     from pvw_tpu_torch.ops import fused_modmat as fm
@@ -644,12 +679,12 @@ def prescale_timing(ring, k: int, d: int, seed: int, dev, card: str) -> dict:
     L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
     gen = torch.Generator(device=dev).manual_seed(seed)
     c = r_coeffs(k, d, S, 1, gen, dev)
-    ms = cuda_ms(lambda: fm.ntt_prescale_band(c, ring, 1), reps=10)
+    times = kernel_times(lambda: fm.ntt_prescale_band(c, ring, 1), reps=10)
     plain_ms = cuda_ms(lambda: fm.ntt_prescale_band_plain(c, ring, 1), reps=3)
-    out = {"phase": "deep_timing", "kernel": fm.PRESCALE_KERNEL,
-           "shape": f"r k={k} d={d} channels={L * S} nd={nd} jr=1",
-           "card": card, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-           **prescale_bound(ring, k, d, 1)}
+    out = ratios({"phase": "deep_timing", "kernel": fm.PRESCALE_KERNEL,
+                  "shape": f"r k={k} d={d} channels={L * S} nd={nd} jr=1",
+                  "card": card, **times, "plain_ms": plain_ms, "library_ms": None,
+                  **prescale_bound(ring, k, d, 1)})
     emit(out)
     del c
     torch.cuda.empty_cache()
@@ -805,7 +840,8 @@ def phase_v3k_timing(dev, card: str) -> dict:
 
 def swapped_operands(ring, m, k, n, jr, encode, gen, dev, digits_only: bool = False):
     """Operands of one swapped-form call on the card: the scaled planes
-    [L, S, nd, m, k*nd] and plain digits [L, S, k*nd, n] of random residues
+    [L, S, nd, m, k*nd] and plain digits [L, S, k*nd, n] (k-packed, as
+    ``rhs_digit_cols`` lays them out) of random residues
     (or, with ``digits_only``, random int8 digits: any digits are inputs of
     the same function, and they are made at full width in a moment), then
     :func:`noise_and_encode`; no noise at jr = 0."""
@@ -817,8 +853,8 @@ def swapped_operands(ring, m, k, n, jr, encode, gen, dev, digits_only: bool = Fa
     if digits_only:
         planes = torch.randint(-128, 128, (L, S, nd, m, k * nd), generator=gen, device=dev,
                                dtype=torch.int8)
-        rd = torch.randint(-128, 128, (L, S, k * nd, n), generator=gen, device=dev,
-                           dtype=torch.int8)
+        rd = torch.randint(-128, 128, (L, S, n, k * nd), generator=gen, device=dev,
+                           dtype=torch.int8).transpose(-1, -2)      # k-packed, as made
     else:
         q = ring.table("q", dev)
         a = torch.randint(0, 1 << 62, (m, k, L, S), generator=gen, device=dev) \
@@ -1014,14 +1050,14 @@ def phase_opt_in_timing(dev, card: str) -> dict:
         check(err == 0, f"the pipelined kernel differs from its twin at full-width {label}")
         torch.cuda.empty_cache()
         nbytes = lhs_dig.numel() + band.numel() + 8 * m * n + 8 * L * S * m * n
-        out["pipelined"][label] = {
+        out["pipelined"][label] = ratios({
             "phase": "opt_in_timing", "kernel": fm.PIPELINED_KERNEL, "shape": shape,
             "noise": "v3k in-kernel, jr=1", "card": card, "compared": "every output",
-            "max_abs_err": err, "ms": cuda_ms(pipelined, reps=3),
+            "max_abs_err": err, **kernel_times(pipelined),
             "plain_ms": cuda_ms(plain, reps=3),
             "banded_plus_generator_ms": cuda_ms(lambda: pipelined(False), reps=3),
             "library_ms": cuda_ms(int_mm_banded(ring, lhs_dig, band), reps=3),
-            **contraction_bound(ring, m, k, n, nbytes, m * n * S * V3K_OPS_PER_VALUE)}
+            **contraction_bound(ring, m, k, n, nbytes, m * n * S * V3K_OPS_PER_VALUE)})
         emit(out["pipelined"][label])
         del lhs_dig, band, enc
         torch.cuda.empty_cache()
@@ -1048,12 +1084,12 @@ def phase_opt_in_timing(dev, card: str) -> dict:
                 torch._int_mm(a[c], rt[c].t())
 
         nbytes = planes.numel() + rd.numel() + noise.numel() + 8 * m * n + 8 * L * S * m * n
-        out["swapped"][label] = {
+        out["swapped"][label] = ratios({
             "phase": "opt_in_timing", "kernel": fm.SWAPPED_KERNEL, "shape": shape,
             "noise": "planes, jr=1", "card": card, "compared": "every output",
-            "max_abs_err": err, "ms": cuda_ms(swapped, reps=3),
+            "max_abs_err": err, **kernel_times(swapped),
             "plain_ms": cuda_ms(swapped_plain, reps=3), "library_ms": cuda_ms(library, reps=3),
-            **contraction_bound(ring, m, k, n, nbytes)}
+            **contraction_bound(ring, m, k, n, nbytes)})
         emit(out["swapped"][label])
         del planes, rd, noise, enc, a, rt
         torch.cuda.empty_cache()
@@ -1174,6 +1210,10 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
     check(aborted is not False, f"{threshold - 1} valid dealers did not abort at threshold "
                                 f"{threshold} ({phase})")
     check(wrap_ok, f"the >= 2^63 scalars did not decode with `as i64` semantics ({phase})")
+    check(counts[RELAYOUTS] == 0, f"{counts[RELAYOUTS]} bands were relaid to k-packed in "
+                                  f"{phase}: kernel 4 writes every band so")
+    check(counts[ROW_RELAYOUTS] == 0, f"{counts[ROW_RELAYOUTS]} lhs operands were copied to "
+                                      f"16-byte rows in {phase}: the key cache lays them out")
     # the route's kernels ran in each stage, and the other routes' kernels did not
     product = {"banded": fm.KERNEL, "swapped": fm.SWAPPED_KERNEL,
                "pipelined": fm.PIPELINED_KERNEL}
@@ -1431,57 +1471,63 @@ def phase_banded(dev, card: str) -> tuple[dict, dict]:
 
 
 def phase_masked_timing(dev, card: str) -> dict:
-    """Kernel 1's masked form and its ``post=`` addmod at the full config-4
-    c2 shape (CH = 272, m = n = 1024, kd = 4096), bound 50, through
-    ``matmul_fold_scaled``: the masked form with 6-word v3k seeds on the
-    rows [256, 768) (a (2, 2) mesh shard's block; the generator's masked
-    planes, 0.1-0.2 ms, then the masked launch) and the 32-bit encode, and
-    post= on the bare product. Every output against the twin (one limb at a
-    time), then both timed (CUDA events, median of 3) beside the twin,
-    ``torch._int_mm`` of the contraction and the bound."""
+    """Kernel 1's masked form and its ``post=`` addmod at the full c2 shapes
+    of the toy chain (CH = 16, m = n = 4096, kd = 1280) and config 4 (CH =
+    272, m = n = 1024, kd = 4096), bound 50, through ``matmul_fold_scaled``:
+    the masked form with 6-word v3k seeds on the rows [m/4, 3m/4) (a (2, 2)
+    mesh shard's block; the generator's masked planes, then the masked
+    launch) and the 32-bit encode, and post= on the bare product. Every
+    output against the twin (one limb at a time), then both timed (CUDA
+    events, median of 5 with the spread) beside the twin, ``torch._int_mm``
+    of the contraction and the bound. -> {form: {shape label: record}}."""
     import torch
 
     from pvw_tpu_torch.ops import fused_modmat as fm
     from pvw_tpu_torch.params.ring import get_ring
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
-    ring = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
-    L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
-    m = n = DEEP_N
-    k = DEEP_K
-    gen = torch.Generator(device=dev).manual_seed(14)
-    lhs_dig, band, _, bound, enc = operands(ring, m, k, n, 1, "enc32", gen, dev)
-    lo, hi = m // 4, 3 * m // 4
-    g = ((*V3K_KEY, 0, lo, hi, 0), 1, bound, "tfry")
-    q = ring.table("q", dev).reshape(-1, 1, 1, 1)
-    post = torch.randint(0, 1 << 62, (L, S, m, n), generator=gen, device=dev) % q
-    form = {
-        "masked": (fm.MASKED_KERNEL, lambda: fm.matmul_fold_scaled(
-            None, band, ring, encode=enc, lhs_dig=lhs_dig, encode32=True, gen_noise=g),
-            lambda: fold_plain_by_limb(ring, band, lhs_dig, fm.v3k_noise_planes_plain(
-                *V3K_KEY, 0, m, n, S, bound, 0, dev, mask=(lo, hi)), enc, mask=(0, lo, hi)),
-            L * S * m * n * 8 + m * n * (8 + S)),
-        "post": (f"{fm.KERNEL} (post=)", lambda: fm.matmul_fold_scaled(
-            None, band, ring, lhs_dig=lhs_dig, post=post),
-            lambda: fold_plain_by_limb(ring, band, lhs_dig, post=post), 2 * L * S * m * n * 8)}
-    out = {}
-    for name, (kernel, launch, twin, io_bytes) in form.items():
-        err = max_abs_err(launch(), twin())
-        check(err == 0, f"kernel 1's {name} form differs from its twin at config-4 c2")
+    out = {"masked": {}, "post": {}}
+    for label, ring, m, k in (
+            ("toy c2", get_ring(MODULI, ELL), N_RECEIVERS, K_DIM),
+            ("config-4 c2", get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL),
+             DEEP_N, DEEP_K)):
+        L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+        n = m
+        gen = torch.Generator(device=dev).manual_seed(14)
+        lhs_dig, band, _, bound, enc = operands(ring, m, k, n, 1, "enc32", gen, dev)
+        lo, hi = m // 4, 3 * m // 4
+        g = ((*V3K_KEY, 0, lo, hi, 0), 1, bound, "tfry")
+        q = ring.table("q", dev).reshape(-1, 1, 1, 1)
+        post = torch.randint(0, 1 << 62, (L, S, m, n), generator=gen, device=dev) % q
+        form = {
+            "masked": (fm.MASKED_KERNEL, lambda: fm.matmul_fold_scaled(
+                None, band, ring, encode=enc, lhs_dig=lhs_dig, encode32=True, gen_noise=g),
+                lambda: fold_plain_by_limb(ring, band, lhs_dig, fm.v3k_noise_planes_plain(
+                    *V3K_KEY, 0, m, n, S, bound, 0, dev, mask=(lo, hi)), enc,
+                    mask=(0, lo, hi)),
+                L * S * m * n * 8 + m * n * (8 + S)),
+            "post": (f"{fm.KERNEL} (post=)", lambda: fm.matmul_fold_scaled(
+                None, band, ring, lhs_dig=lhs_dig, post=post),
+                lambda: fold_plain_by_limb(ring, band, lhs_dig, post=post),
+                2 * L * S * m * n * 8)}
+        for name, (kernel, launch, twin, io_bytes) in form.items():
+            err = max_abs_err(launch(), twin())
+            check(err == 0, f"kernel 1's {name} form differs from its twin at {label}")
+            torch.cuda.empty_cache()
+            out[name][label] = ratios({
+                "phase": "masked_timing", "kernel": kernel,
+                "shape": f"c2 m={m} n={n} channels={L * S} kd={k * nd} nd={nd}"
+                         + (f", rows [{lo}, {hi})" if name == "masked" else ""),
+                "card": card, "compared": "every output", "max_abs_err": err,
+                **kernel_times(launch), "plain_ms": cuda_ms(twin, reps=3),
+                "plain": "one limb at a time",
+                "library_ms": cuda_ms(int_mm_banded(ring, lhs_dig, band), reps=3),
+                **contraction_bound(ring, m, k, n,
+                                    lhs_dig.numel() + band.numel() + io_bytes)})
+            emit(out[name][label])
+            torch.cuda.empty_cache()
+        del lhs_dig, band, enc, post
         torch.cuda.empty_cache()
-        out[name] = {"phase": "masked_timing", "kernel": kernel,
-                     "shape": f"c2 m={m} n={n} channels={L * S} kd={k * nd} nd={nd}"
-                              + (f", rows [{lo}, {hi})" if name == "masked" else ""),
-                     "card": card, "compared": "every output", "max_abs_err": err,
-                     "ms": cuda_ms(launch, reps=3), "plain_ms": cuda_ms(twin, reps=3),
-                     "plain": "one limb at a time",
-                     "library_ms": cuda_ms(int_mm_banded(ring, lhs_dig, band), reps=3),
-                     **contraction_bound(ring, m, k, n,
-                                         lhs_dig.numel() + band.numel() + io_bytes)}
-        emit(out[name])
-        torch.cuda.empty_cache()
-    del lhs_dig, band, enc, post
-    torch.cuda.empty_cache()
     return out
 
 
@@ -1581,6 +1627,9 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
             check(exact, f"{name}: a decrypted share differs from the encrypted one")
             check(ran[fm.MASKED_KERNEL] == masked,
                   f"{name}: the masked form launched {ran[fm.MASKED_KERNEL]} times, not {masked}")
+            check(ran[RELAYOUTS] == 0, f"{name}: {ran[RELAYOUTS]} bands relaid to k-packed")
+            check(ran[ROW_RELAYOUTS] == 0,
+                  f"{name}: {ran[ROW_RELAYOUTS]} lhs operands copied to 16-byte rows")
             check(ran[fm.PRESCALE_KERNEL] == nshards,
                   f"{name}: kernel 4 launched {ran[fm.PRESCALE_KERNEL]} times for {nshards} shards")
             for other in (fm.PIPELINED_KERNEL, fm.SWAPPED_KERNEL, fm.BANDED_KERNEL):
@@ -1603,14 +1652,20 @@ def kernel_entry(name: str, source: str, replaces: str, function: str, by_path: 
                  worst: int, timing: dict, config4: dict | None, card: str, **extra) -> dict:
     """One kernel's entry of the kernels line: its launches on each path,
     its worst difference from its twin, and its times at ``timing``'s
-    shape (and config 4's)."""
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape (and config 4's): the median ms beside its plain twin's, its bound
+    and the library call's, and where measured its spread and its ratios to
+    the bound and the library call."""
+    def pick(t):
+        return {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")} | \
+            {k: t[k] for k in ("ms_spread", "x_bound", "x_library") if k in t}
+
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "replaces_function": function, "launches": sum(by_path.values()),
              "launches_by_path": by_path, "bit_exact": worst == 0, "max_abs_err": worst,
-             **{key: timing[key] for key in keys}, "shape": timing["shape"], **extra}
+             **pick(timing), **extra}
     if config4 is not None:
-        entry["config4"] = {key: config4[key] for key in ("shape", *keys, *extra)}
+        entry["config4"] = pick(config4) | {k: config4[k] for k in extra if k in config4}
     entry["card"] = card
     return entry
 
@@ -1715,7 +1770,8 @@ def main() -> int:
                          pi["config-4 c2"]["max_abs_err"]), timing, dm, card),
         kernel_entry(fm.PRESCALE_KERNEL, src + "ntt_prescale_band.cu",
                      "pvw_tpu/ops/pallas_modmat.py:1687", "ntt_prescale_band",
-                     by_path[fm.PRESCALE_KERNEL], prescale_worst, dp, None, card),
+                     by_path[fm.PRESCALE_KERNEL], prescale_worst, deep_timing["prescale_toy"],
+                     dp, card),
         kernel_entry(fm.NOISE_KERNEL, src + "v3k_noise_planes.cu",
                      "pvw_tpu/ops/pallas_modmat.py:232",
                      "_fused_scaled_noise_matmul (in-kernel v3k generation)",
@@ -1738,10 +1794,12 @@ def main() -> int:
                      "pvw_tpu/ops/pallas_modmat.py:193",
                      "_fused_scaled_noise_matmul (masked=True, 6-word seeds; its planes from "
                      "v3k_noise_planes.cu's mask)", by_path[fm.MASKED_KERNEL],
-                     max(masked_worst["masked"], masked_timing["masked"]["max_abs_err"]),
-                     masked_timing["masked"], None, card,
-                     post=masked_timing["post"] | {"max_abs_err": max(
-                         masked_worst["post"], masked_timing["post"]["max_abs_err"])}),
+                     max(masked_worst["masked"],
+                         *(t["max_abs_err"] for t in masked_timing["masked"].values())),
+                     masked_timing["masked"]["toy c2"], masked_timing["masked"]["config-4 c2"],
+                     card, post={label: t | {"max_abs_err": max(masked_worst["post"],
+                                                                t["max_abs_err"])}
+                                 for label, t in masked_timing["post"].items()}),
         kernel_entry(fm.BANDED_KERNEL, src + "banded_matmul.cu",
                      "pvw_tpu/ops/pallas_modmat.py:426", "_fused_banded_matmul",
                      by_path[fm.BANDED_KERNEL],

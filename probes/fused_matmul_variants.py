@@ -7,17 +7,19 @@ Run from the root of the repository on a machine with an NVIDIA H100:
 
 Each variant is the committed kernel 1 (``csrc/fused_scaled_noise_matmul.cu``)
 or pipelined kernel 3 (``csrc/fused_pipelined_matmul.cu``) with some lines of
-its source or of the shared ``csrc/digit_mma.cuh`` rewritten (``VARIANTS``
+its source or of the shared ``csrc/wgmma_digit.cuh`` rewritten (``VARIANTS``
 below; no names: all of them). Every variant is built with nvcc (all at
-once, ``-Xptxas -v`` for registers and spills) into ``build/variants`` and
-launched through the port's own wrapper at the toy chain's c2 shape (16
-channels, m = n = 4096, kd = 1280, nd = 5) and config 4's (272 channels,
-m = n = 1024, kd = 4096, nd = 8), 32-bit encode, bound 50: kernel 1 with noise
-planes, kernel 3 with the v3k noise drawn in it; CUDA events, median of 5.
-The committed kernels are also held against their plain twins, kernel 1 is
-timed without the noise and the encode and in its swapped form. The
-ablations (``no_*``) compute wrong residues on purpose: they show which part
-of a kernel bounds its time. One JSON line per build and per timing.
+once, ``-Xptxas -v``: registers and spills a kernel) into
+``build/variants`` and launched through the port's own wrapper at the toy
+chain's c2 shape (16 channels, m = n = 4096, kd = 1280, nd = 5) and config
+4's (272 channels, m = n = 1024, kd = 4096, nd = 8), 32-bit encode, bound
+50: kernel 1 with noise planes, kernel 3 with the v3k noise drawn in it;
+CUDA events, median of 5. The committed kernels are also held against
+their plain twins, kernel 1 is timed without the noise and the encode and
+in its swapped form, and ``torch._int_mm`` of the same contraction is timed
+beside them. The ablations (``no_*``, ``epilogue_only``) compute wrong
+residues on purpose: they show which part of a kernel bounds its time.
+One JSON line per build and per timing.
 """
 
 from __future__ import annotations
@@ -37,33 +39,98 @@ import chip_smoke as cs  # noqa: E402
 CSRC = ROOT / "pvw_tpu_torch" / "csrc"
 KERNEL1 = "fused_scaled_noise_matmul.cu"
 PIPELINED = "fused_pipelined_matmul.cu"
-HEADER = "digit_mma.cuh"
-NO_STAGE = [("    if (k0 + KT < kd) load(k0 + KT);  // in flight while the tensor cores run", ""),
-            ("    store();\n    sync();", "    if (k0 == 0) store();\n    sync();")]
+HEADER = "wgmma_digit.cuh"
+# the tensor cores idle: each k step's wgmma replaced by a register xor
+NO_MMA = ("      Wgmma<ND>::mma(acc, da + 2 * kk, db + 2 * kk, kb | kk);",
+          "      acc[kk] += (int32_t)(da ^ db);")
+# no bytes moved: the producer arrives on a stage's full barrier without TMA
+NO_TMA = ("      mbar_expect_tx(&R.full[s], Ring<ND>::STAGE);\n"
+          "      tma_load_3d(R.a(s), ma, &R.full[s], kb * KT, a0, ch);\n"
+          "      tma_load_4d(R.b(s), mb, &R.full[s], kb * KT, b0, 0, ch);",
+          "      mbar_arrive(&R.full[s]);")
+# the epilogue calls of kernels 1 and 3
+EPI1 = "      epilogue<ND, SW, false>(acc, E, noise, ch, a0, b0, tl, scratch, BAR_EPI + wg - 1);"
+EPI1_END = "tl, scratch, BAR_EPI + wg - 1);"
+EPI3 = "      epilogue<ND, false, true>(acc, E, planes, ch, a0, b0, tl, scratch, BAR_EPI + wg - 1);"
+TRY_WAIT = "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+NO_EPI1 = (EPI1, "      if (E.m < 0)" + EPI1[5:])
+SPIN = (TRY_WAIT, TRY_WAIT.replace("try_wait", "test_wait"))
+NO_SETMAXNREG = [('    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");', ""),
+                 ('    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");', "")]
+# the trace: a stamp buffer of %globaltimer (ns) readings, block 0's tiles
+# (producer, consumers) and the reader pvw_trace_read
+TRACE_NS = ("namespace wgmma_digit {\n",
+            "namespace wgmma_digit {\n__device__ long long trace_buf[8192];\n"
+            "__device__ __forceinline__ long long now() {\n  long long t;\n"
+            "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n  return t;\n}\n")
+TRACE_TILE = ("    tiles(j, ch, a0, b0);\n",
+              "    tiles(j, ch, a0, b0);\n"
+              "    if (blockIdx.x == 0 && j < 1024) trace_buf[4096 + j] = now();\n")
+TRACE_K1 = [("      contract(acc, R, j, nk, wg - 1, j > 0, j + 1 < count, tl % 32 == 0);",
+             "      const bool tr = blockIdx.x == 0 && tl == 0 && j < 1024;\n"
+             "      if (tr) trace_buf[4 * j] = now();\n"
+             "      contract(acc, R, j, nk, wg - 1, j > 0, j + 1 < count, tl % 32 == 0);\n"
+             "      if (tr) trace_buf[4 * j + 1] = now();"),
+            (EPI1_END, EPI1_END + "\n      if (tr) trace_buf[4 * j + 2] = now();"),
+            ("}  // namespace\n",
+             "}  // namespace\n\nextern \"C\" int pvw_trace_read(void* dst) {\n"
+             "  return (int)cudaMemcpyFromSymbol(dst, wgmma_digit::trace_buf, "
+             "sizeof(long long) * 8192);\n}\n")]
+FOLD_GROUP_AT = lambda g: ("constexpr int FOLD_GROUP = 8;", f"constexpr int FOLD_GROUP = {g};")
 # name -> (kernel source, {file: [(old text, new text), ...]})
 COMMITTED = {"kernel1": (KERNEL1, {}), "pipelined": (PIPELINED, {})}
 VARIANTS = {
-    # kernel 1 tilings
-    "bm64": (KERNEL1, {KERNEL1: [("SW ? 32 : 128;   // output rows", "SW ? 32 : 64;   // output rows")]}),
-    "kt32": (KERNEL1, {HEADER: [("constexpr int KT = 64;", "constexpr int KT = 32;")]}),
+    # kernel 1 ring depth
+    "stages4": (KERNEL1, {HEADER: [("constexpr int MAX_STAGES = 8;", "constexpr int MAX_STAGES = 4;")]}),
+    "stages2": (KERNEL1, {HEADER: [("constexpr int MAX_STAGES = 8;", "constexpr int MAX_STAGES = 2;")]}),
+    # kernel 1 traced: block 0's consumers stamp %globaltimer (ns) before and
+    # after each tile's contraction and after its epilogue, its producer
+    # before each tile's first stage (pvw_trace_read copies them out)
+    "trace": (KERNEL1, {HEADER: [TRACE_NS, TRACE_TILE], KERNEL1: TRACE_K1}),
+    # the barrier wait: a non-blocking test in a spin loop, or try_wait with
+    # a 20 ns suspend-time hint
+    "spin_wait": (KERNEL1, {HEADER: [SPIN]}),
+    "hint_wait": (KERNEL1, {HEADER: [(TRY_WAIT, TRY_WAIT.replace("%2;", "%2, 20;"))]}),
+    # the pipeline alone, traced stage by stage: block 0's producer stamps
+    # each of the first 1024 stages after its empty wait, the consumer after
+    # its full wait
+    "pipe_trace": (KERNEL1, {HEADER: [NO_MMA, NO_TMA, TRACE_NS, TRACE_TILE, (
+        "      mbar_wait(&R.empty[s], ((it / R.S) & 1) ^ 1);\n",
+        "      mbar_wait(&R.empty[s], ((it / R.S) & 1) ^ 1);\n"
+        "      if (blockIdx.x == 0 && it < 1024) trace_buf[6144 + it] = now();\n"), (
+        "    mbar_wait(&R.full[s], (it / R.S) & 1);\n",
+        "    mbar_wait(&R.full[s], (it / R.S) & 1);\n"
+        "    if (blockIdx.x == 0 && lane0 && it < 1024 && threadIdx.x % 128 == 0) trace_buf[5120 + it] = now();\n")],
+        KERNEL1: [NO_EPI1, *TRACE_K1]}),
+    # kernel 1's walk: the B tile fastest (consecutive blocks share an A tile)
+    "walk_b": (KERNEL1, {KERNEL1: [(
+        "    a0 = rem % tiles_a * BM;\n    b0 = rem / tiles_a * BN;",
+        "    a0 = rem / tiles_b * BM;\n    b0 = rem % tiles_b * BN;")]}),
+    # the epilogue folding 4 or 16 of a thread's outputs at a time
+    "fold4": (KERNEL1, {HEADER: [FOLD_GROUP_AT(4)]}),
+    "fold16": (KERNEL1, {HEADER: [FOLD_GROUP_AT(16)]}),
+    "p_fold4": (PIPELINED, {HEADER: [FOLD_GROUP_AT(4)]}),
     # kernel 1 ablations: wrong residues, for where the time goes
-    "no_mma": (KERNEL1, {HEADER: [(
-        "mma_s8(acc[c][j], a0, a1, a2, a3, b[0], b[4 * SB]);",
-        "acc[c][j][0] += (int32_t)(a0 ^ a1 ^ a2 ^ a3 ^ b[0] ^ b[4 * SB]);")]}),
-    "no_stage": (KERNEL1, {HEADER: NO_STAGE}),
-    "no_transpose": (KERNEL1, {HEADER: [(
-        "      transpose_bytes(x, o);\n      transpose_bytes(y, o + 4);\n"
-        "      transpose_bytes(z, o + 8);\n      transpose_bytes(w, o + 12);",
-        "      for (int i = 0; i < 4; ++i) {\n"
-        "        o[i] = x[i]; o[4 + i] = y[i]; o[8 + i] = z[i]; o[12 + i] = w[i];\n      }")]}),
-    # kernel 3 ablations: the tensor-core warps alone, the epilogue warps
-    # (and the noise) alone, no in-kernel noise draw
+    "no_mma": (KERNEL1, {HEADER: [NO_MMA]}),
+    "no_tma": (KERNEL1, {HEADER: [NO_TMA]}),
+    "epilogue_only": (KERNEL1, {HEADER: [NO_MMA, NO_TMA]}),
+    "pipeline_only": (KERNEL1, {HEADER: [NO_MMA, NO_TMA], KERNEL1: [NO_EPI1]}),
+    # the pipeline alone: with a spinning wait, without the register split
+    "pipe_spin": (KERNEL1, {HEADER: [NO_MMA, NO_TMA, SPIN], KERNEL1: [NO_EPI1]}),
+    "pipe_no_setmaxnreg": (KERNEL1, {HEADER: [NO_MMA, NO_TMA], KERNEL1: [NO_EPI1, *NO_SETMAXNREG]}),
+    "no_setmaxnreg": (KERNEL1, {KERNEL1: NO_SETMAXNREG}),
+    "ep_no_noise": (KERNEL1, {HEADER: [NO_MMA, NO_TMA, (
+        "  if (E.nrows > 0) {\n    const int32_t* sN", "  if (E.nrows < 0) {\n    const int32_t* sN")]}),
+    "ep_no_fold": (KERNEL1, {HEADER: [NO_MMA, NO_TMA, (
+        "      res[y] = fold(p);", "      res[y] = (uint64_t)(p[0] ^ p[ND - 1]);")]}),
+    "no_epilogue": (KERNEL1, {KERNEL1: [(
+        EPI1, "      if (E.m < 0)" + EPI1[5:])]}),
+    # kernel 3 ablations: its contraction alone, its epilogue alone, no
+    # in-kernel noise draw
     "p_no_epilogue": (PIPELINED, {PIPELINED: [(
-        "for (int i = 0; i < TILE / EPI_THREADS; ++i) {", "for (int i = 0; i < 0; ++i) {")]}),
-    "p_no_contraction": (PIPELINED, {PIPELINED: [(
-        "      contract_banded<ND, TM, TN, TC_THREADS>(",
-        "      if (kd < 0) contract_banded<ND, TM, TN, TC_THREADS>(")]}),
-    "p_no_generation": (PIPELINED, {PIPELINED: [("  if (gen) {", "  if (gen && kd < 0) {")]}),
+        EPI3, "      if (E.m < 0)" + EPI3[5:])]}),
+    "p_epilogue_only": (PIPELINED, {HEADER: [NO_MMA, NO_TMA]}),
+    "p_no_generation": (PIPELINED, {PIPELINED: [("    if (gen) {", "    if (gen && l < 0) {")]}),
 }
 SYMBOLS = {KERNEL1: "pvw_fused_scaled_noise_matmul", PIPELINED: "pvw_fused_pipelined_matmul"}
 
@@ -91,10 +158,9 @@ def build(names) -> dict:
     """name -> loaded library, every source compiled at once."""
     from pvw_tpu_torch.ops import _build
 
+    srcs = {name: variant_dir(name, *spec(name)) / spec(name)[0] for name in names}
     procs = {}
-    for name in names:
-        kernel, edits = spec(name)
-        src = variant_dir(name, kernel, edits) / kernel
+    for name, src in srcs.items():
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                "-o", str(src.with_suffix(".so")), str(src)]
         procs[name] = (src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -104,11 +170,39 @@ def build(names) -> dict:
         log, _ = proc.communicate()
         cs.emit({"variant": name, "nvcc_rc": proc.returncode,
                  "registers": re.findall(r"Used (\d+) registers", log),
-                 "spill_bytes": re.findall(r"(\d+) bytes spill stores", log)})
+                 "spill_bytes": re.findall(r"(\d+) bytes spill stores", log),
+                 "warnings": sorted(set(re.findall(r"warning.*", log)))})
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
         libs[name] = ctypes.CDLL(str(src.with_suffix(".so")))
     return libs
+
+
+def read_trace(lib) -> dict:
+    """Block 0's stamps of the last traced launch, in microseconds from its
+    first: per tile j, [contraction start, contraction end, epilogue end]
+    (consumer j % 2) and the producer's start of its first stage; the
+    first 24 tiles, and the medians of each span."""
+    import statistics
+
+    buf = (ctypes.c_longlong * 8192)()
+    if lib.pvw_trace_read(buf) != 0:
+        raise RuntimeError("pvw_trace_read failed")
+    tiles = [j for j in range(1024) if buf[4 * j + 1] > 0]
+    t0 = min(buf[4 * j] for j in tiles)
+    us = lambda t: round((t - t0) / 1e3, 2) if t else None
+    span = lambda a, b: statistics.median((buf[4 * j + b] - buf[4 * j + a]) / 1e3 for j in tiles)
+    out = {"tiles": len(tiles),
+           "first": [[us(buf[4 * j]), us(buf[4 * j + 1]), us(buf[4 * j + 2]),
+                      us(buf[4096 + j])] for j in tiles[:24]],
+           "median_wait_and_contract_us": span(0, 1),
+           "median_tile_gap_us": statistics.median(
+               (buf[4 * (j + 1)] - buf[4 * j]) / 1e3 for j in tiles[:-1])}
+    if buf[2]:
+        out["median_epilogue_us"] = span(1, 2)
+    if buf[5120]:    # per stage: the consumer's full wait done, the producer's empty wait done
+        out["stages"] = [[us(buf[5120 + i]), us(buf[6144 + i])] for i in range(96)]
+    return out
 
 
 def main(argv) -> int:
@@ -161,6 +255,8 @@ def main(argv) -> int:
 
             rec = {"shape": label, "variant": name, "card": card,
                    "ms": cs.cuda_ms(run, reps=5)}
+            if name in ("trace", "pipe_trace"):
+                rec["trace"] = read_trace(lib)
             if name == "kernel1":
                 rec["max_abs_err_vs_twin"] = cs.max_abs_err(
                     run(), cs.fold_plain_by_limb(ring, band, lhs_dig, noise, enc))
@@ -174,6 +270,8 @@ def main(argv) -> int:
                 del planes
             cs.emit(rec)
             fm._kernel_fn, fm._pipelined_fn = kernel_fn, pipelined_fn
+        cs.emit({"shape": label, "variant": "torch._int_mm", "card": card,
+                 "ms": cs.cuda_ms(cs.int_mm_banded(ring, lhs_dig, band), reps=5)})
         del lhs_dig, band
         planes, rd, _, _, _ = cs.swapped_operands(ring, m, k, m, 1, "enc32", gen, dev,
                                                   digits_only=True)

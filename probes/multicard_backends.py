@@ -3,7 +3,7 @@
 
 Run from the root of the repository on a machine with four NVIDIA H100s:
 
-    python3 probes/multicard_backends.py
+    python3 probes/multicard_backends.py [--one-card] [--runs R]
 
 Builds the kernels, makes BASELINE config 4 (``presets.threshold_256bit(1024)``)
 with random keys from a seed on cuda:0, then runs ``chip_smoke.phase_backends``
@@ -15,11 +15,14 @@ launches gated as in ``chip_smoke.py``; one JSON line each with host-clocked
 encryption and decryption times (every card synchronized). The shards run in
 turn from one process: this is the port's serial shard loop across cards,
 not concurrent scaling. Exits non-zero on a failed gate or with fewer than
-four cards.
+four cards. ``--one-card`` puts every shard on cuda:0, as ``chip_smoke.py``
+does, and ``--runs R`` repeats the backends R times on the same keys: the
+spread of their host-clocked times between runs of one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -29,7 +32,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     import pvw_tpu_torch as P
@@ -37,8 +40,13 @@ def main() -> int:
     from pvw_tpu_torch.ops import _build, fused_modmat as fm
     from pvw_tpu_torch.params import presets
 
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
-        print("multicard_backends: needs four CUDA cards", file=sys.stderr)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--one-card", action="store_true")
+    ap.add_argument("--runs", type=int, default=1)
+    args = ap.parse_args(argv)
+    cards = 1 if args.one_card else 4
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
+        print(f"multicard_backends: needs {cards} CUDA card(s)", file=sys.stderr)
         return 2
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL])
     card = cs.card_line()
@@ -54,12 +62,13 @@ def main() -> int:
     gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1))
     keys = (gpk, coeffs.cpu().numpy())
     del coeffs
-    devices = [torch.device("cuda", i) for i in range(4)]
-    for stream, seed in (("v3k", 10), ("kernel", 11)):
-        cs.phase_backends(dev, card, params, keys, stream, seed, devices=devices)
+    devices = [torch.device("cuda", 0 if args.one_card else i) for i in range(4)]
+    for _ in range(args.runs):
+        for stream, seed in (("v3k", 10), ("kernel", 11)):
+            cs.phase_backends(dev, card, params, keys, stream, seed, devices=devices)
     cs.emit({"probe": "multicard_backends", "ok": True, "cards": torch.cuda.device_count()})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,14 +10,15 @@
 //                                           + sum_r noise_r[m, n] * ntab[ch, r, c] )
 //                     + post[ch, m, n] + encode(sc[m, n]) * g[ch] ) mod q
 //
-// with the nd int32 columns P_c of digit_mma.cuh:
-// - banded: lhs int8 [CH, m, kd] and band int8 [CH, nd, kd, n] are balanced
-//   digit planes (kd = k*nd); the band carries the 2^(8i) scales,
-//   P_c = lhs . band[c];
+// with the nd int32 columns P_c of the digit contraction (wgmma_digit.cuh):
+// - banded: A = lhs int8 [CH, m, kd] and B = the band int8 [CH, nd, n, kd],
+//   k-packed as kernel 4 writes it (kd = k*nd; the band carries the 2^(8i)
+//   scales), P_c = lhs . band[c];
 // - swapped: the scales live on the cached lhs, lhs int8 [CH, nd, m, kd] of
 //   digit_c(A*2^(8i) mod q) planes, and the rhs is the plain digits of r,
-//   laid out k-packed by the wrapper, int8 [CH, n, kd]; P_c = lhs[c] . rhs.
-//   Same columns, same fold, the same residues.
+//   k-packed, int8 [CH, n, kd]; A = the rhs (64 dealers a tile), B = the
+//   lhs planes (32 receivers a tile), P_c = lhs[c] . rhs, and the epilogue
+//   writes the transposed tile. Same columns, same fold, the same residues.
 // The noise rows add the NTT of the error straight into those columns (ntab =
 // digits of the scaled twiddles). ``post`` (the TPU kernel's ``has_post``) is
 // a residue tensor added after the fold. The ``masked`` form (the TPU kernel's
@@ -32,217 +33,166 @@
 // (CH = 272, m = n = 1024, kd = 4096, nd = 8) they are 9.35e12 int8 MACs,
 // 9.45 ms at the int8 tensor-core peak (1,979 TOPS, 2 ops a MAC); the bytes
 // it must move (the int8 inputs, the int64 output of 2.3 GB) take 3.75 ms at
-// 3.35 TB/s (the swapped lhs is 9.1 GB there, 5.2 ms). So the bound is
-// compute, and the contraction runs on the tensor cores: mma.sync m16n8k32
-// s8 x s8 -> s32.
+// 3.35 TB/s (the swapped lhs is 9.1 GB there, 5.2 ms). So the contraction
+// runs on wgmma.mma_async s8 x s8 -> s32, the only path to the int8 peak,
+// fed by TMA (cp.async.bulk.tensor into an mbarrier ring), with no mma.sync
+// and no staging through registers.
 //
-// The design: one block of 16 warps per (channel, output tile); each warp
-// owns a 16 x 16 tile and keeps nd x 2 accumulator fragments (64 registers at
-// nd = 8). The contraction is staged in steps of 64 bytes (digit_mma.cuh).
-// The tile is 128 x 32 in the banded form and 32 x 128 in the swapped form:
-// the operand that carries the nd planes (the band, or the swapped lhs) is
-// the one re-read from L2 for each tile of the other dimension, so the tile is
-// long along that operand's free axis; with it the swapped form's nd lhs
-// tiles and its one rhs tile take the same ~30 KB of static shared memory as
-// the banded form's tiles, and both read the same 402 MB a channel from L2 at
-// config-4 c2. The epilogue adds the noise NTT to the int32 columns and folds
-// them with native 64-bit Shoup multiplies (the TPU kernel's u32-pair fold
-// exists only because the TPU lacks 64-bit integers). The grid walks the n
-// tiles fastest and the channel slowest, so the blocks in flight share one
-// channel's operands in L2.
-// Left for later: wgmma with TMA loads and a multi-stage ring, a band laid
-// out k-packed by its producer (no transposing here), and overlap of the
-// epilogue with the next tile (csrc/fused_pipelined_matmul.cu overlaps it
-// with the next channel).
+// The design: a persistent grid of one block an SM walks the tiles (64 rows
+// of A x 32 columns of every B plane) with the channel slowest and the A
+// tile fastest, so the blocks in flight share a few B tiles (the operand of
+// nd planes, 1 MB a tile at config-4 c2) in L2 rather than the channel's
+// whole B (32 MB there): 19% faster at config-4 c2 than the B tile fastest
+// (the ``walk_b`` variant of probes/fused_matmul_variants.py).
+// Its producer warpgroup keeps an S-stage TMA ring full (S = 3 at nd = 8,
+// 5 at nd = 5, beside each consumer's 34 KB of epilogue scratch); its two
+// consumer warpgroups take alternate tiles, each contracting with one wgmma
+// m64n(32*nd)k32 a 32-byte k step (n256 at nd = 8: 128 accumulator
+// registers a thread), then running the epilogue from its registers (noise
+// MAC, native 64-bit Shoup fold, post, masked encode, int64 stores) while
+// the other contracts the next tile. The epilogue's inputs (the noise
+// table, the scalars, the first noise planes) are copied to the consumer's
+// shared memory with cp.async before its contraction, so they arrive while
+// it runs: at config 4 the tile's loads otherwise wait on an L2 busy with
+// the TMA stream. The swapped form's transposed stores need no staging: a
+// warp's eight A rows are eight consecutive int64 of one output row, whole
+// 32-byte sectors.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "digit_mma.cuh"
+#include "wgmma_digit.cuh"
 
 namespace {
 
-using namespace digit_mma;
+using namespace wgmma_digit;
 
-constexpr int MAX_ROWS = 64;   // noise MAC rows: l * jr <= 32 * 2
-
-// The masked form's global row range: row r of the output is global row
-// row_off + r (int32, as the TPU kernel's iota); ``on`` 0 keeps every row.
-struct Mask {
-  int on, row_off, lo, hi;
-  __device__ __forceinline__ bool keeps(int row) const {
-    const int g = (int)((unsigned)row_off + (unsigned)row);
-    return !on || (g >= lo && g < hi);
-  }
-};
-
-template <bool SW>
-struct Tile {
-  static constexpr int BM = SW ? 32 : 128;   // output rows per block
-  static constexpr int BN = SW ? 128 : 32;   // output columns per block
-  static constexpr int THREADS = BM / 16 * (BN / 16) * 32;   // a warp per 16 x 16 tile
-};
+constexpr int SCRATCH = scratch_bytes(false);   // a consumer's, beside the ring
 
 template <int ND, bool SW>
-__global__ void __launch_bounds__(Tile<SW>::THREADS, 1)
-fused_scaled_noise_matmul_kernel(const int8_t* __restrict__ lhs,
-                                 const int8_t* __restrict__ rhs,
-                                 const int64_t* __restrict__ tables,
-                                 const int32_t* __restrict__ ntab,
-                                 const int8_t* __restrict__ noise,
-                                 const int64_t* __restrict__ sc,
-                                 const int64_t* __restrict__ etab,
-                                 const int64_t* __restrict__ post,
-                                 int64_t* __restrict__ out,
-                                 int m, int n, int kd, int nrows, int jr,
-                                 int vals, int encode32, Mask mask) {
-  constexpr int BM = Tile<SW>::BM, BN = Tile<SW>::BN, THREADS = Tile<SW>::THREADS;
-  using Banded = BandedSmem<ND, BM, BN>;
-  using Swapped = SwappedSmem<ND, BM, BN>;
-  __shared__ __align__(16) uint32_t sA[SW ? Swapped::A_WORDS : Banded::A_WORDS];
-  __shared__ __align__(16) uint32_t sB[SW ? Swapped::B_WORDS : Banded::B_WORDS];
-  __shared__ int32_t sN[MAX_ROWS * ND];
+__global__ void __launch_bounds__(THREADS, 1)
+fused_scaled_noise_matmul_kernel(const __grid_constant__ CUtensorMap ma,
+                                 const __grid_constant__ CUtensorMap mb, Epilogue E,
+                                 const int8_t* __restrict__ noise, int chs, int rows,
+                                 int cols, int nk, int stages) {
+  extern __shared__ uint8_t smem[];
+  const Ring<ND> R(smem, stages, 2 * SCRATCH);
+  if (threadIdx.x == 0) R.init();
+  __syncthreads();
 
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int ch = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;                 // mma fragment coordinates
-  const int wm = warp % (BM / 16) * 16, wn = warp / (BM / 16) * 16;  // the warp's tile
-
-  for (int i = tid; i < nrows * ND; i += THREADS)
-    sN[i] = ntab[(size_t)ch * nrows * ND + i];  // read after the contraction's barriers
-
-  int32_t acc[ND][2][4];
-  zero_acc<ND>(acc);
-  const auto sync = [] { __syncthreads(); };
-  const bool vecA = kd % 16 == 0 && (reinterpret_cast<uintptr_t>(lhs) & 15) == 0;
-  if constexpr (SW) {
-    const bool vecB = kd % 16 == 0 && (reinterpret_cast<uintptr_t>(rhs) & 15) == 0;
-    contract_swapped<ND, BM, BN, THREADS>(lhs + (size_t)ch * ND * m * kd,
-                                          rhs + (size_t)ch * n * kd, m, n, kd, m0, n0,
-                                          tid, vecA, vecB, sA, sB, acc, sync);
+  const int tiles_a = (rows + BM - 1) / BM, tiles_b = (cols + BN - 1) / BN;
+  const int total = chs * tiles_a * tiles_b;
+  const int count = (int)blockIdx.x < total
+                        ? (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x : 0;
+  // tile j of this block: the channel slowest, the A tile fastest
+  const auto tile = [&](int j, int& ch, int& a0, int& b0) {
+    const int gi = (int)blockIdx.x + j * (int)gridDim.x;
+    ch = gi / (tiles_a * tiles_b);
+    const int rem = gi % (tiles_a * tiles_b);
+    a0 = rem % tiles_a * BM;
+    b0 = rem / tiles_a * BN;
+  };
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) produce(R, &ma, &mb, tile, count, nk);
   } else {
-    const bool vecB = n % 16 == 0 && (reinterpret_cast<uintptr_t>(rhs) & 15) == 0;
-    contract_banded<ND, BM, BN, THREADS>(lhs + (size_t)ch * m * kd,
-                                         rhs + (size_t)ch * ND * kd * n, m, n, kd, m0,
-                                         n0, tid, vecA, vecB, sA, sB, acc, sync);
-  }
-
-  const Fold fold(tables + (size_t)ch * TAB);
-  const Encode encode(etab == nullptr ? nullptr : etab + (size_t)ch * 3);
-  const size_t plane = (size_t)m * n;
-  // accumulator e of fragment j: row g (+8 for e >= 2), column 2t (+1 for odd e)
-  auto row_of = [&](int e) { return m0 + wm + g + 8 * (e >> 1); };
-  auto col_of = [&](int j, int e) { return n0 + wn + 8 * j + 2 * t + (e & 1); };
-  // noise NTT into the columns: value rows (coefficient r composed from its
-  // jr digit planes, against the jr = 1 table) or raw digit rows; the loads
-  // of the thread's eight outputs for one row are in flight together
-  for (int r = 0; r < nrows; ++r) {
-    int32_t v[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row_of(e), col = col_of(j, e);
-        v[j][e] = 0;
-        if (row >= m || col >= n) continue;
-        const size_t idx = (size_t)row * n + col;
-        if (vals) {
-          v[j][e] = noise[(size_t)(r * jr) * plane + idx];
-          if (jr == 2) v[j][e] += 256 * (int32_t)noise[(size_t)(r * 2 + 1) * plane + idx];
-        } else {
-          v[j][e] = noise[(size_t)r * plane + idx];
-        }
-      }
-#pragma unroll
-    for (int c = 0; c < ND; ++c) {
-      const int32_t w = sN[r * ND + c];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c][j][e] += v[j][e] * w;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int tl = threadIdx.x % 128;
+    uint8_t* scratch = R.extra() + (wg - 1) * SCRATCH;
+    int32_t acc[16 * ND];
+    for (int j = wg - 1; j < count; j += 2) {
+      int ch, a0, b0;
+      tile(j, ch, a0, b0);
+      prefetch<ND, SW, false>(E, noise, ch, a0, b0, tl, scratch);
+      contract(acc, R, j, nk, wg - 1, j > 0, j + 1 < count, tl % 32 == 0);
+      epilogue<ND, SW, false>(acc, E, noise, ch, a0, b0, tl, scratch, BAR_EPI + wg - 1);
     }
   }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row_of(e), col = col_of(j, e);
-      if (row >= m || col >= n) continue;
-      const size_t idx = (size_t)row * n + col;
-      int32_t p[ND];
-#pragma unroll
-      for (int c = 0; c < ND; ++c) p[c] = acc[c][j][e];
-      uint64_t res = fold(p);
-      if (post != nullptr) res = addmod(res, (uint64_t)post[(size_t)ch * plane + idx], fold.q);
-      if (sc != nullptr && mask.keeps(row))
-        res = addmod(res, encode((uint64_t)sc[idx], encode32, fold.q), fold.q);
-      out[(size_t)ch * plane + idx] = (int64_t)res;
-    }
 }
 
 template <bool SW>
-int launch(int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals,
-           int encode32, const void* lhs, const void* rhs, const void* tables,
-           const void* ntab, const void* noise, const void* sc, const void* etab,
-           const void* post, Mask mask, void* out, void* stream) {
-  constexpr int BM = Tile<SW>::BM, BN = Tile<SW>::BN, THREADS = Tile<SW>::THREADS;
-  if (ch <= 0 || ch > 65535 || m <= 0 || n <= 0 || kd <= 0 || nd < 1 || nd > 8 ||
-      nrows < 0 || nrows > MAX_ROWS || (nrows > 0 && jr != 1 && jr != 2) ||
-      (nrows > 0 && noise == nullptr) || (sc == nullptr) != (etab == nullptr) ||
-      (m + BM - 1) / BM > 65535)
+int launch(const Operand& a, const Operand& b, int ch, int m, int n, int kd, int nd,
+           int nrows, int jr, int vals, int encode32, const void* tables, const void* ntab,
+           const void* noise, const void* sc, const void* etab, const void* post, Mask mask,
+           void* out, void* stream) {
+  if (ch <= 0 || m <= 0 || n <= 0 || kd <= 0 || nd < 1 || nd > 8 || nrows < 0 ||
+      nrows > MAX_ROWS || (nrows > 0 && jr != 1 && jr != 2) ||
+      (nrows > 0 && noise == nullptr) || (sc == nullptr) != (etab == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, ch);
+  const int rows = SW ? n : m, cols = SW ? m : n;      // of A and of each B plane
+  CUtensorMap ma, mb;
+  if (const int err = make_maps(&ma, &mb, a, b, ch, rows, cols, kd, nd)) return err;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long total =
+      (long long)ch * ((rows + BM - 1) / BM) * ((cols + BN - 1) / BN);
+  if (total > 0x7FFFFFFF || (long long)m * n > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(total < sms ? total : sms);
+  const Epilogue E{(const int64_t*)tables, (const int32_t*)ntab, (const int64_t*)sc,
+                   (const int64_t*)etab, (const int64_t*)post, (int64_t*)out,
+                   m, n, nrows, jr, vals, encode32, mask};
   cudaStream_t s = (cudaStream_t)stream;
-  const auto go = [&](auto kernel) {
-    kernel<<<grid, THREADS, 0, s>>>(
-        (const int8_t*)lhs, (const int8_t*)rhs, (const int64_t*)tables,
-        (const int32_t*)ntab, (const int8_t*)noise, (const int64_t*)sc,
-        (const int64_t*)etab, (const int64_t*)post, (int64_t*)out, m, n, kd, nrows, jr,
-        vals, encode32, mask);
+  const int nk = (kd + KT - 1) / KT;
+  const auto go = [&](auto kernel, int stages, int bytes) -> int {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, THREADS, bytes, s>>>(ma, mb, E, (const int8_t*)noise, ch, rows, cols, nk,
+                                        stages);
+    return (int)cudaGetLastError();
   };
+#define PVW_GO(ND)                                                               \
+  case ND:                                                                       \
+    return go(fused_scaled_noise_matmul_kernel<ND, SW>,                         \
+              ring_stages<ND>(2 * SCRATCH),                                      \
+              smem_bytes<ND>(ring_stages<ND>(2 * SCRATCH), 2 * SCRATCH));
   switch (nd) {
-    case 1: go(fused_scaled_noise_matmul_kernel<1, SW>); break;
-    case 2: go(fused_scaled_noise_matmul_kernel<2, SW>); break;
-    case 3: go(fused_scaled_noise_matmul_kernel<3, SW>); break;
-    case 4: go(fused_scaled_noise_matmul_kernel<4, SW>); break;
-    case 5: go(fused_scaled_noise_matmul_kernel<5, SW>); break;
-    case 6: go(fused_scaled_noise_matmul_kernel<6, SW>); break;
-    case 7: go(fused_scaled_noise_matmul_kernel<7, SW>); break;
-    default: go(fused_scaled_noise_matmul_kernel<8, SW>); break;
+    PVW_GO(1) PVW_GO(2) PVW_GO(3) PVW_GO(4) PVW_GO(5) PVW_GO(6) PVW_GO(7)
+    default: PVW_GO(8)
   }
-  return (int)cudaGetLastError();
+#undef PVW_GO
 }
 
 }  // namespace
 
-// Both launch on ``stream`` and return cudaGetLastError() (0 on success).
-// ``noise`` may be null (nrows = 0); ``sc`` and ``etab`` are null without the
-// encode; ``post`` (int64 [ch, m, n], canonical residues) is null without
-// it. ``masked`` 1 adds the encode only on the global rows row_off + r in
-// [lo, hi). All arrays are contiguous.
+// Both launch on ``stream`` and return a CUDA error code (0 on success;
+// a failed tensor-map encode is cudaErrorInvalidValue). ``noise`` may be
+// null (nrows = 0); ``sc`` and ``etab`` are null without the encode;
+// ``post`` (int64 [ch, m, n], canonical residues) is null without it.
+// ``masked`` 1 adds the encode only on the global rows row_off + r in
+// [lo, hi). The int8 operands are k-contiguous with the byte strides
+// given, each a multiple of 16, and a 16-byte aligned base; tables, ntab,
+// noise, sc, etab, post and out are contiguous.
 
-// lhs int8 [ch, m, kd], band int8 [ch, nd, kd, n].
+// lhs int8 [ch, m, kd] (strides lhs_row, lhs_ch), band int8 [ch, nd, n, kd]
+// k-packed (band_row, band_plane, band_ch).
 extern "C" int pvw_fused_scaled_noise_matmul(
-    const void* lhs, const void* band, const void* tables, const void* ntab,
-    const void* noise, const void* sc, const void* etab, const void* post, void* out,
-    int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals, int encode32,
-    int masked, int row_off, int lo, int hi, void* stream) {
-  return launch<false>(ch, m, n, kd, nd, nrows, jr, vals, encode32, lhs, band, tables,
-                       ntab, noise, sc, etab, post, Mask{masked, row_off, lo, hi}, out,
-                       stream);
+    const void* lhs, long long lhs_row, long long lhs_ch, const void* band,
+    long long band_row, long long band_plane, long long band_ch, const void* tables,
+    const void* ntab, const void* noise, const void* sc, const void* etab, const void* post,
+    void* out, int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals,
+    int encode32, int masked, int row_off, int lo, int hi, void* stream) {
+  return launch<false>(Operand{lhs, lhs_row, 0, lhs_ch},
+                       Operand{band, band_row, band_plane, band_ch}, ch, m, n, kd, nd, nrows,
+                       jr, vals, encode32, tables, ntab, noise, sc, etab, post,
+                       Mask{masked, row_off, lo, hi}, out, stream);
 }
 
-// The swapped form: lhs int8 [ch, nd, m, kd] scaled planes, rhs int8
-// [ch, n, kd] plain digits, k-packed.
+// The swapped form: rhs int8 [ch, n, kd] plain digits, k-packed (rhs_row,
+// rhs_ch), lhs int8 [ch, nd, m, kd] scaled planes (lhs_row, lhs_plane,
+// lhs_ch); no post and no mask.
 extern "C" int pvw_fused_scaled_noise_matmul_swapped(
-    const void* lhs, const void* rhs, const void* tables, const void* ntab,
-    const void* noise, const void* sc, const void* etab, const void* post, void* out,
-    int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals, int encode32,
-    int masked, int row_off, int lo, int hi, void* stream) {
-  return launch<true>(ch, m, n, kd, nd, nrows, jr, vals, encode32, lhs, rhs, tables,
-                      ntab, noise, sc, etab, post, Mask{masked, row_off, lo, hi}, out,
-                      stream);
+    const void* rhs, long long rhs_row, long long rhs_ch, const void* lhs,
+    long long lhs_row, long long lhs_plane, long long lhs_ch, const void* tables,
+    const void* ntab, const void* noise, const void* sc, const void* etab, const void* post,
+    void* out, int ch, int m, int n, int kd, int nd, int nrows, int jr, int vals,
+    int encode32, int masked, int row_off, int lo, int hi, void* stream) {
+  if (post != nullptr || masked) return (int)cudaErrorInvalidValue;
+  return launch<true>(Operand{rhs, rhs_row, 0, rhs_ch},
+                      Operand{lhs, lhs_row, lhs_plane, lhs_ch}, ch, m, n, kd, nd, nrows, jr,
+                      vals, encode32, tables, ntab, noise, sc, etab, post,
+                      Mask{0, row_off, lo, hi}, out, stream);
 }

@@ -202,12 +202,15 @@ class GlobalPublicKey:
     def _cached_operands(self, make):
         """(make(A), make(B)) of the current matrices, in one cache slot:
         remade when either matrix or ``make`` changes, so the banded and the
-        swapped operand sets are never resident together."""
+        swapped operand sets are never resident together. Their k*nd rows
+        get the 16-byte pitch the Hopper kernels read through TMA
+        (:func:`~pvw_tpu_torch.ops.modmat.k_rows`: zero-padded views where
+        k*nd is not a multiple of 16), once, here."""
         key = (make, self.crs.matrix.res, self.matrix.res)
         if self._enc_ops is None or any(a is not b for a, b in zip(self._enc_ops[0], key)):
             self._enc_ops = None                      # drop the old set before making the new
-            self._enc_ops = (key, (make(key[1], self.params.ring),
-                                   make(key[2], self.params.ring)))
+            self._enc_ops = (key, tuple(modmat.k_rows(make(x, self.params.ring))
+                                        for x in key[1:]))
         return self._enc_ops[1]
 
     def encrypt_operands(self):

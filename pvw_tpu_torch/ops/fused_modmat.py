@@ -32,6 +32,22 @@ global row range, the kdim-split mesh shards' contract) and its ``post=``
 addmod are :func:`matmul_fold_scaled` options; the masked launches are
 also counted in ``fused_scaled_noise_matmul.masked_launches``.
 
+Kernels 1 and 3 contract on Hopper's wgmma, fed by TMA
+(``csrc/wgmma_digit.cuh``), which reads both int8 operands k-contiguous
+with 16-byte strides. Kernel 4 writes the band so, k-packed: storage
+[..., nd, n, kd_pad] handed on as the strided view [..., nd, kd, n] (the
+same logical band on every device, the same values for every plain-torch
+consumer). ``modmat.prescale_digits_band``, the plain-torch band (keygen's, the
+twins'), lays it out the same. The entries take such a band as it lies;
+a band of any other layout (an n-major copy) gets one explicit relayout
+(:func:`_kpacked`), counted in ``band_relayouts``: a layout step, never
+another kernel. The lhs rows get the same 16-byte pitch
+(:func:`~pvw_tpu_torch.ops.modmat.k_rows`), once where the key planes are
+cached; lhs rows without it are copied once, counted in ``row_relayouts``.
+The entries (:func:`matmul_fold_scaled`, :func:`matmul_fold_swapped`) are
+the one place that lays operands out; the launch wrappers refuse any
+operand that does not lie so.
+
 Every launch runs with its operands' device current (CUDA refuses a launch
 on another device's stream), so one process drives shards on several
 cards.
@@ -65,8 +81,8 @@ import torch
 
 from . import u64 as u
 from ._build import load
-from .modmat import (_fold_leading, digits, exact_int_matmul, matmul_channels,
-                     prescale_digits_band, scaled_cols)
+from .modmat import (_fold_leading, digits, exact_int_matmul, k_rows, k_rows_ok,
+                     matmul_channels, operand_strides, prescale_digits_band, scaled_cols)
 from .ntt import ntt_forward_signed_ch, signed_digit_count
 from .tfry import reduce96, v3k_noise_digit_planes
 
@@ -84,6 +100,18 @@ TABLE_WIDTH = 8
 PRESCALE_KERNEL = "ntt_prescale_band"
 PRESCALE_TABLE_WIDTH = 22
 PRESCALE_DEGREES = (8, 16, 32, 64)
+
+#: Bands (and the swapped form's rhs digits) handed to the entries of
+#: kernels 1 and 3 in another layout than the k-packed one of kernel 4,
+#: ``prescale_digits_band`` and ``rhs_digit_cols``, each relaid once
+#: (:func:`_kpacked`); 0 on every dealer path, whose bands all come from
+#: those.
+band_relayouts = 0
+#: lhs rows (``lhs_dig``, the swapped form's ``lhs_planes``) handed to those
+#: entries without the 16-byte pitch of :func:`~pvw_tpu_torch.ops.modmat.
+#: k_rows`, each copied once (:func:`_laid_rows`); 0 on every dealer path,
+#: whose key planes are laid out once, where they are cached.
+row_relayouts = 0
 
 
 # --------------------------------------------------------------------------
@@ -226,13 +254,48 @@ def _fold_plain(cols, ring: "RingPlan", noise, encode, post=None, mask=None):
 
 
 # --------------------------------------------------------------------------
+# the band's layout
+# --------------------------------------------------------------------------
+
+def _kpacked(band):
+    """A band int8 [..., nd, kd, n] laid out k-packed (storage [..., nd, n,
+    kd_pad], kd_pad = kd rounded up to 16, the pads zero, as the view
+    [..., nd, kd, n]): ``band`` itself when it lies so, else one relayout
+    (:func:`~pvw_tpu_torch.ops.modmat.k_rows` of its transpose), counted in
+    ``band_relayouts``."""
+    global band_relayouts
+    rows = band.transpose(-1, -2)
+    if k_rows_ok(rows):
+        return band
+    band_relayouts += 1
+    return k_rows(rows).transpose(-1, -2)
+
+
+def _laid_rows(rows):
+    """int8 lhs rows [..., kd] as the kernels read them: ``rows`` itself
+    when :func:`~pvw_tpu_torch.ops.modmat.k_rows_ok`, else one copy
+    (:func:`~pvw_tpu_torch.ops.modmat.k_rows`), counted in
+    ``row_relayouts``."""
+    global row_relayouts
+    if k_rows_ok(rows):
+        return rows
+    row_relayouts += 1
+    return k_rows(rows)
+
+
+# --------------------------------------------------------------------------
 # the CUDA kernels: kernel 1 (banded and swapped) and the pipelined kernel
 # --------------------------------------------------------------------------
 
-# the C signatures of kernel 1's two entry points and the pipelined kernel's
-KERNEL1_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-PIPELINED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_uint32] * 4 + [ctypes.c_int] \
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# the C signatures of kernel 1's two entry points and the pipelined kernel's:
+# each begins with its two int8 operands, A [CH, rows, kd] (pointer, row and
+# channel strides) and B [CH, nd, cols, kd] (pointer, row, plane and channel
+# strides)
+_OPERANDS = [ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] \
+    + [ctypes.c_longlong] * 3
+KERNEL1_ARGTYPES = _OPERANDS + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+PIPELINED_ARGTYPES = _OPERANDS + [ctypes.c_void_p] * 3 + [ctypes.c_uint32] * 4 \
+    + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _kernel_fn(symbol: str = "pvw_fused_scaled_noise_matmul"):
@@ -273,6 +336,28 @@ def _check_args(dev, args: dict) -> None:
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _operands(a, b) -> list:
+    """The ctypes arguments of A [CH, rows, kd] and B [CH, nd, cols, kd]
+    (checked by :func:`_check_operands`): pointer, then the row, (plane,)
+    channel strides in bytes."""
+    a_ch, a_row = operand_strides(a)
+    b_ch, b_plane, b_row = operand_strides(b)
+    return [_ptr(a), a_row, a_ch, _ptr(b), b_row, b_plane, b_ch]
+
+
+def _check_operands(dev, args: dict) -> None:
+    """Raise unless every (rows, shape) of ``args`` is int8 of that shape on
+    ``dev``, k last, laid out as :func:`~pvw_tpu_torch.ops.modmat.k_rows_ok`
+    requires (the entries lay operands out; a launch never copies one)."""
+    for name, (t, shape) in args.items():
+        if t.device != dev or t.dtype != torch.int8 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected int8 {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if not k_rows_ok(t):
+            raise ValueError(f"{name}: the rows must lie k-contiguous with 16-byte strides "
+                             f"(modmat.k_rows_ok), got strides {tuple(t.stride())}")
+
+
 def _epilogue_args(ch: int, m: int, n: int, nd: int, tables, ntab, noise, sc, etab,
                    post=None) -> dict:
     return {"tables": (tables, torch.int64, (ch, TABLE_WIDTH)),
@@ -283,33 +368,40 @@ def _epilogue_args(ch: int, m: int, n: int, nd: int, tables, ntab, noise, sc, et
             "post": (post, torch.int64, (ch, m, n))}
 
 
-def _launch_kernel1(symbol: str, lhs, rhs, shapes: dict, ch: int, m: int, n: int,
-                    kd: int, nd: int, tables, ntab, noise, sc, etab, jr: int, vals: bool,
-                    encode32: bool, post=None, mask=None):
-    dev = lhs.device
-    _check_args(dev, {**shapes, **_epilogue_args(ch, m, n, nd, tables, ntab, noise, sc,
-                                                  etab, post)})
+def _launch_kernel1(symbol: str, a, b, ch: int, m: int, n: int, kd: int, nd: int, tables,
+                    ntab, noise, sc, etab, jr: int, vals: bool, encode32: bool, post=None,
+                    mask=None):
+    """Kernel 1's launch on A [CH, rows, kd] and B [CH, nd, cols, kd], both
+    checked by :func:`_check_operands` -> int64 [CH, m, n]."""
+    dev = a.device
+    _check_args(dev, _epilogue_args(ch, m, n, nd, tables, ntab, noise, sc, etab, post))
     nrows = ntab.shape[1] if noise is not None else 0
     row_off, lo, hi = (0, 0, 0) if mask is None else (_i32(w) for w in mask)
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    _launch(symbol, _kernel_fn(symbol), dev,
-            _ptr(lhs), _ptr(rhs), _ptr(tables), _ptr(ntab), _ptr(noise),
-            _ptr(sc), _ptr(etab), _ptr(post), _ptr(out), ch, m, n, kd, nd, nrows, int(jr),
-            int(vals), int(encode32), int(mask is not None), row_off, lo, hi)
+    _launch(symbol, _kernel_fn(symbol), dev, *_operands(a, b),
+            _ptr(tables), _ptr(ntab), _ptr(noise), _ptr(sc), _ptr(etab), _ptr(post),
+            _ptr(out), ch, m, n, kd, nd, nrows, int(jr), int(vals), int(encode32),
+            int(mask is not None), row_off, lo, hi)
     return out
 
 
-def _banded_shapes(lhs_dig, band) -> tuple[dict, tuple]:
+def _banded_operands(lhs_dig, band) -> tuple:
+    """(lhs rows [CH, m, kd], the band's planes [CH, nd, n, kd], (ch, m, n,
+    kd, nd)), both checked by :func:`_check_operands`."""
     ch, m, kd = lhs_dig.shape
     nd, n = band.shape[1], band.shape[3]
-    return ({"lhs_dig": (lhs_dig, torch.int8, (ch, m, kd)),
-             "band": (band, torch.int8, (ch, nd, kd, n))}, (ch, m, n, kd, nd))
+    planes = band.transpose(-1, -2)
+    _check_operands(lhs_dig.device, {"lhs_dig": (lhs_dig, (ch, m, kd)),
+                                     "band": (planes, (ch, nd, n, kd))})
+    return lhs_dig, planes, (ch, m, n, kd, nd)
 
 
 def fused_scaled_noise_matmul(lhs_dig, band, tables, ntab, noise, sc, etab,
                               jr: int, vals: bool, encode32: bool, post=None, mask=None):
-    """Launch the kernel on the current stream. lhs_dig int8 [CH, m, kd];
-    band int8 [CH, nd, kd, n]; tables int64 [CH, 8]; ntab int32
+    """Launch the kernel on the current stream. lhs_dig int8 [CH, m, kd]
+    with 16-byte rows; band int8 [CH, nd, kd, n], k-packed as
+    :func:`ntt_prescale_band` makes it (other layouts raise: the entry
+    lays operands out); tables int64 [CH, 8]; ntab int32
     [CH, rows, nd]; noise int8 [l*jr, m, n] or None; sc int64 [m, n] and
     etab int64 [CH, 3], or both None; post int64 [CH, m, n] canonical
     residues or None; ``mask`` = (row_off, lo, hi) or None -> int64
@@ -319,8 +411,8 @@ def fused_scaled_noise_matmul(lhs_dig, band, tables, ntab, noise, sc, etab,
     ``fused_scaled_noise_matmul.launches``, the masked ones also in
     ``.masked_launches`` and those with neither noise, encode nor post in
     ``.bare_launches``."""
-    shapes, dims = _banded_shapes(lhs_dig, band)
-    out = _launch_kernel1("pvw_fused_scaled_noise_matmul", lhs_dig, band, shapes, *dims,
+    a, b, dims = _banded_operands(lhs_dig, band)
+    out = _launch_kernel1("pvw_fused_scaled_noise_matmul", a, b, *dims,
                           tables, ntab, noise, sc, etab, jr, vals, encode32, post, mask)
     fused_scaled_noise_matmul.launches += 1
     if mask is not None:
@@ -339,15 +431,18 @@ def fused_scaled_noise_matmul_swapped(lhs_planes, rhs_t, tables, ntab, noise, sc
                                       jr: int, vals: bool, encode32: bool):
     """Launch kernel 1's swapped form on the current stream. lhs_planes int8
     [CH, nd, m, kd] (scaled planes); rhs_t int8 [CH, n, kd] (the plain rhs
-    digits, k-packed); the rest as :func:`fused_scaled_noise_matmul` ->
-    int64 [CH, m, n]. Counts its launches in
+    digits, k-packed); both laid out as :func:`~pvw_tpu_torch.ops.modmat.
+    k_rows_ok` requires (else it raises); the rest as
+    :func:`fused_scaled_noise_matmul` -> int64
+    [CH, m, n]. Counts its launches in
     ``fused_scaled_noise_matmul_swapped.launches``."""
     ch, nd, m, kd = lhs_planes.shape
     n = rhs_t.shape[1]
-    out = _launch_kernel1("pvw_fused_scaled_noise_matmul_swapped", lhs_planes, rhs_t, {
-        "lhs_planes": (lhs_planes, torch.int8, (ch, nd, m, kd)),
-        "rhs_t": (rhs_t, torch.int8, (ch, n, kd))}, ch, m, n, kd, nd, tables, ntab,
-        noise, sc, etab, jr, vals, encode32)
+    _check_operands(lhs_planes.device, {"lhs_planes": (lhs_planes, (ch, nd, m, kd)),
+                                        "rhs_t": (rhs_t, (ch, n, kd))})
+    out = _launch_kernel1("pvw_fused_scaled_noise_matmul_swapped", rhs_t, lhs_planes,
+                          ch, m, n, kd, nd, tables, ntab, noise, sc, etab, jr, vals,
+                          encode32)
     fused_scaled_noise_matmul_swapped.launches += 1
     return out
 
@@ -368,21 +463,19 @@ def fused_pipelined_matmul(lhs_dig, band, tables, ntab, noise, gen, sc, etab, l:
     :func:`fused_scaled_noise_matmul`, one block walking every channel of
     its output tile. The noise is ``noise`` int8 [l*jr, m, n], or ``gen`` =
     (k0, k1, row_off, col_off, bound), the v3k values drawn inside the
-    kernel, or neither (ntab then unused). Counts its launches in
+    kernel, or neither (ntab then unused). The band as for
+    :func:`fused_scaled_noise_matmul`. Counts its launches in
     ``fused_pipelined_matmul.launches``."""
-    ch, m, kd = lhs_dig.shape
-    nd, n = band.shape[1], band.shape[3]
+    a, b, (ch, m, n, kd, nd) = _banded_operands(lhs_dig, band)
     dev = lhs_dig.device
-    _check_args(dev, {"lhs_dig": (lhs_dig, torch.int8, (ch, m, kd)),
-                      "band": (band, torch.int8, (ch, nd, kd, n)),
-                      **_epilogue_args(ch, m, n, nd, tables, ntab, noise, sc, etab)})
+    _check_args(dev, _epilogue_args(ch, m, n, nd, tables, ntab, noise, sc, etab))
     if gen is not None and noise is not None:
         raise ValueError("gen and noise are mutually exclusive")
     k0, k1, row_off, col_off, bound = (int(w) for w in gen) if gen is not None else (0,) * 5
     nrows = ntab.shape[1] if noise is not None or gen is not None else 0
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    _launch(PIPELINED_KERNEL, _pipelined_fn(), dev,
-            _ptr(lhs_dig), _ptr(band), _ptr(tables), _ptr(ntab), _ptr(noise),
+    _launch(PIPELINED_KERNEL, _pipelined_fn(), dev, *_operands(a, b),
+            _ptr(tables), _ptr(ntab), _ptr(noise),
             k0 & u.M32, k1 & u.M32, row_off & u.M32, col_off & u.M32, bound, _ptr(sc),
             _ptr(etab), _ptr(out), ch, m, n, kd, nd, l, int(jr), nrows, int(vals),
             int(encode32), int(gen is not None))
@@ -557,9 +650,11 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
 
     lhs: residues [L, S, m, k], or ``lhs_dig`` int8 [L, S, m, k*nd] (its
     digit planes, :func:`~pvw_tpu_torch.ops.modmat.lhs_digit_planes`);
-    rhs_band: int8 [L, S, nd, k*nd, n] from
-    :func:`~pvw_tpu_torch.ops.modmat.prescale_digits_band` -> int64
-    residues [L, S, m, n].
+    rhs_band: int8 [L, S, nd, k*nd, n] from :func:`ntt_prescale_band` or
+    :func:`~pvw_tpu_torch.ops.modmat.prescale_digits_band`, k-packed; a
+    band of another layout is relaid once (:func:`_kpacked`), an
+    ``lhs_dig`` without 16-byte rows copied once (:func:`_laid_rows`), on
+    every device -> int64 residues [L, S, m, n].
 
     ``noise``: int8 signed digit planes [l*jr, m, n] (row j*jr+dd for
     coefficient j, digit dd); requires S == l. Adds NTT(noise).
@@ -615,16 +710,19 @@ def matmul_fold_scaled(lhs, rhs_band, ring: "RingPlan", noise=None,
                    ring, S)
     _same_device("matmul_fold_scaled", dev, lhs, lhs_dig, rhs_band, noise, post,
                  *(encode if encode is not None else ()))
+    rhs_band = _kpacked(rhs_band)
+    if lhs_dig is not None:
+        lhs_dig = _laid_rows(lhs_dig)
     if dev.type == "cpu":
         return matmul_fold_scaled_plain(lhs, rhs_band, ring, noise=noise,
                                         encode=encode, lhs_dig=lhs_dig, post=post, mask=mask)
     if dev.type != "cuda":
         raise ValueError(f"matmul_fold_scaled: unsupported device {dev}")
-    ld = lhs_dig if lhs_dig is not None else digits(lhs, nd).reshape(L, S, m, k * nd)
+    ld = lhs_dig if lhs_dig is not None else k_rows(digits(lhs, nd).reshape(L, S, m, k * nd))
     vals, tables, ntab, sc, etab = _kernel_tables(ring, L, S, k, jr, noise_bound, encode,
                                                   dev)
-    ld = ld.reshape(L * S, m, k * nd).contiguous()
-    band = rhs_band.reshape(L * S, nd, k * nd, n).contiguous()
+    ld = ld.reshape(L * S, m, k * nd)
+    band = rhs_band.reshape(L * S, nd, k * nd, n)        # a view: still k-packed
     noise = None if noise is None else noise.contiguous()
     if pipelined:
         out = fused_pipelined_matmul(ld, band, tables, ntab, noise, gen, sc, etab,
@@ -649,8 +747,11 @@ def matmul_fold_swapped(lhs_planes, rhs_dig, ring: "RingPlan", noise=None, encod
     ``encode32``, ``gen_noise`` (the generator's planes) and
     ``noise_bound``: as there.
 
-    CUDA operands launch kernel 1's swapped form, with the rhs laid out
-    k-packed ([L*S, n, k*nd]) for it here; CPU operands take the plain twin
+    ``rhs_dig`` is taken as it lies where it is k-packed, as
+    ``rhs_digit_cols`` makes it (storage [L, S, n, kd_pad]), else relaid
+    once (:func:`_kpacked`); ``lhs_planes`` without 16-byte rows are copied
+    once (:func:`_laid_rows`); on every device. CUDA operands launch kernel
+    1's swapped form; CPU operands take the plain twin
     :func:`matmul_fold_swapped_plain`; any other device raises. The JAX
     package's Mosaic tile model and compile caps (``_pick_tiles_swapped``,
     ``swapped_available``) have no counterpart: the kernel takes any shape.
@@ -680,14 +781,15 @@ def matmul_fold_swapped(lhs_planes, rhs_dig, ring: "RingPlan", noise=None, encod
     jr = _noise_jr(0 if noise is None else noise.shape[0], ring, S)
     _same_device("matmul_fold_swapped", dev, rhs_dig, noise,
                  *(encode if encode is not None else ()))
+    rhs_dig, lhs_planes = _kpacked(rhs_dig), _laid_rows(lhs_planes)
     if dev.type == "cpu":
         return matmul_fold_swapped_plain(lhs_planes, rhs_dig, ring, noise=noise,
                                          encode=encode)
     vals, tables, ntab, sc, etab = _kernel_tables(ring, L, S, k, jr, noise_bound, encode,
                                                   dev)
     out = fused_scaled_noise_matmul_swapped(
-        lhs_planes.reshape(L * S, nd, m, kd).contiguous(),
-        rhs_dig.reshape(L * S, kd, n).transpose(1, 2).contiguous(), tables, ntab,
+        lhs_planes.reshape(L * S, nd, m, kd), rhs_dig.reshape(L * S, kd, n).transpose(1, 2),
+        tables, ntab,
         None if noise is None else noise.contiguous(), sc, etab, jr, vals, encode32)
     return out.reshape(L, S, m, n)
 
@@ -802,19 +904,24 @@ def ntt_prescale_band_plain(coeffs, ring: "RingPlan", max_abs: int):
 
 def _prescale_fn():
     fn = load(PRESCALE_KERNEL).pvw_ntt_prescale_band
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def ntt_prescale_band(coeffs, ring: "RingPlan", max_abs: int):
     """Signed coefficients int32/int64 [k, d, l] (|c| <= max_abs) ->
-    scaled-digit band int8 [L, l, nd, k*nd, d], bit-identical to
-    ``prescale_digits_band(ntt_forward_signed_ch(coeffs, ring, max_abs))``.
+    scaled-digit band int8 [L, l, nd, k*nd, d], equal to
+    ``prescale_digits_band(ntt_forward_signed_ch(coeffs, ring, max_abs))``
+    and laid out k-packed: storage [L, l, nd, d, kd_pad] (kd_pad = k*nd
+    rounded up to 16), k contiguous, zero pads, handed on as the strided
+    view [L, l, nd, k*nd, d].
 
     CUDA tensors launch ``csrc/ntt_prescale_band.cu`` on the current
-    stream (counted in ``ntt_prescale_band.launches``); CPU tensors take
-    :func:`ntt_prescale_band_plain`; anything else raises."""
+    stream (counted in ``ntt_prescale_band.launches``), which writes that
+    storage; CPU tensors take :func:`ntt_prescale_band_plain`, whose
+    ``prescale_digits_band`` lays its band out the same; anything else
+    raises."""
     jr = signed_digit_count(max_abs)
     if not jr:
         raise ValueError(f"coefficients up to {max_abs} need the residue path")
@@ -834,11 +941,12 @@ def ntt_prescale_band(coeffs, ring: "RingPlan", max_abs: int):
     x = coeffs.to(torch.int32).contiguous()
     ntab = _prescale_ntab(ring, jr, dev).contiguous()
     tabs = u.u64_tensor(_prescale_tabs(ring, C1), dev)
-    out = torch.empty((L * l, nd, k * nd, d), dtype=torch.int8, device=dev)
+    kd = k * nd
+    out = torch.empty((L, l, nd, d, -(-kd // 16) * 16), dtype=torch.int8, device=dev)
     _launch(PRESCALE_KERNEL, _prescale_fn(), dev, _ptr(x), _ptr(ntab), _ptr(tabs),
-            _ptr(out), L, l, jr, k, d, nd)
+            _ptr(out), L, l, jr, k, d, nd, out.shape[-1])
     ntt_prescale_band.launches += 1
-    return out.reshape(L, l, nd, k * nd, d)
+    return out[..., :kd].transpose(-1, -2)
 
 
 ntt_prescale_band.launches = 0

@@ -98,6 +98,38 @@ def lhs_digit_planes(x, ring: "RingPlan"):
     return digits(x.permute(2, 3, 0, 1), ring.num_digits).reshape(L, l, m, k * ring.num_digits)
 
 
+def operand_strides(x) -> list[int]:
+    """The strides of every axis of ``x`` but the last; a size-1 axis, whose
+    stride nothing reads, gets its dense value rounded up to 16."""
+    st = list(x.stride())
+    for i in range(x.dim() - 2, -1, -1):
+        if x.shape[i] == 1:
+            st[i] = -(-(st[i + 1] * x.shape[i + 1]) // 16) * 16
+    return st[:-1]
+
+
+def k_rows_ok(x) -> bool:
+    """True when the int8 rows ``x`` [..., kd] lie as the Hopper kernels
+    read them through TMA: k contiguous, every other stride and the base on
+    16 bytes."""
+    return (x.dtype == torch.int8 and (x.shape[-1] == 1 or x.stride(-1) == 1)
+            and x.data_ptr() % 16 == 0 and all(s > 0 and s % 16 == 0
+                                               for s in operand_strides(x)))
+
+
+def k_rows(x):
+    """int8 rows ``x`` [..., kd] laid out for the Hopper kernels
+    (:func:`k_rows_ok`): ``x`` itself when they already are, else a copy
+    into storage whose rows are zero-padded to a multiple of 16 bytes,
+    returned as the view [..., :kd] (the same values)."""
+    if k_rows_ok(x):
+        return x
+    kd = x.shape[-1]
+    store = torch.zeros((*x.shape[:-1], -(-kd // 16) * 16), dtype=torch.int8, device=x.device)
+    store[..., :kd] = x
+    return store[..., :kd]
+
+
 def _scaled_digits(x, ring: "RingPlan", shp):
     """Yields, for i < nd, the digit list of x * 2^(8i) mod q (residues x;
     ``shp`` broadcasts the per-limb constants against x)."""
@@ -129,24 +161,39 @@ def rhs_digit_cols(rhs_ch, ring: "RingPlan"):
     """Channel-major residues [L, l, k, n] -> plain digit rows int8
     [L, l, k*nd(i), n] (k-major, digit-minor, the column order of
     :func:`lhs_scaled_planes`): the per-encryption rhs of the swapped
-    form, nd digit extractions and no Shoup scales."""
+    form, nd digit extractions and no Shoup scales. Laid out k-packed, as
+    the swapped kernel reads it: storage [L, l, n, kd_pad] (kd_pad = k*nd
+    rounded up to 16, the pads zero) returned as the strided view
+    [L, l, k*nd, n]."""
     L, l, k, n = rhs_ch.shape
-    return torch.stack(u.to_signed_digit_list(rhs_ch, ring.num_digits),
-                       dim=3).reshape(L, l, k * ring.num_digits, n)
+    nd = ring.num_digits
+    kd = k * nd
+    store = torch.empty((L, l, n, -(-kd // 16) * 16), dtype=torch.int8, device=rhs_ch.device)
+    store[..., kd:] = 0
+    out = store[..., :kd].view(L, l, n, k, nd)                    # (nn, kk, i)
+    for i, d in enumerate(u.to_signed_digit_list(rhs_ch, nd)):
+        out[..., i] = d.transpose(-1, -2)
+    return store[..., :kd].transpose(-1, -2)
 
 
 def prescale_digits_band(rhs, ring: "RingPlan"):
     """Scaled-digit band of the small operand: residues [L, S, k, n] ->
     int8 [L, S, nd(j), k*nd(i), n], entry (j, kk*nd + i, nn) = digit j of
     rhs[kk, nn] * 2^(8i) mod q. Contracting lhs digits over (k, i) against
-    it gives only nd columns: sum_k a*b = sum_j 2^(8j) sum_{k,i} a_i t_ij."""
+    it gives only nd columns: sum_k a*b = sum_j 2^(8j) sum_{k,i} a_i t_ij.
+    Laid out k-packed, as kernel 4 writes it and the Hopper kernels read
+    it: storage [L, S, nd, n, kd_pad] (kd_pad = k*nd rounded up to 16, the
+    pads zero) returned as the strided view [L, S, nd, k*nd, n]."""
     L, S, k, n = rhs.shape
     nd = ring.num_digits
-    out = torch.empty((L, S, nd, k, nd, n), dtype=torch.int8, device=rhs.device)
+    kd = k * nd
+    store = torch.empty((L, S, nd, n, -(-kd // 16) * 16), dtype=torch.int8, device=rhs.device)
+    store[..., kd:] = 0
+    out = store[..., :kd].view(L, S, nd, n, k, nd)                # (j, nn, kk, i)
     for i, digs in enumerate(_scaled_digits(rhs, ring, (L,) + (1,) * (rhs.ndim - 1))):
         for j, d in enumerate(digs):
-            out[:, :, j, :, i, :] = d
-    return out.reshape(L, S, nd, k * nd, n)
+            out[:, :, j, :, :, i] = d.transpose(-1, -2)
+    return store[..., :kd].transpose(-1, -2)
 
 
 def scaled_cols(lhs, band, ring: "RingPlan", lhs_dig=None):

@@ -100,9 +100,9 @@ def test_kernel_equals_plain_twin(cuda_device, moduli, jr, encode, vals, l):
     (TOY, 8, 70, 33, 129, 2), (CHAIN_61X17, 16, 40, 9, 69, 1),
 ])
 def test_kernel_tile_edges_equal_plain_twin(cuda_device, moduli, l, m, k, n, jr):
-    """The fused matmul with m and n off its 128 x 32 block tile: k*nd and n
-    multiples of 16 (tiles staged with 16-byte loads), and odd n (byte-wise
-    staging)."""
+    """The fused matmul with m and n off its 64 x 32 tile: k*nd and n
+    multiples of 16 (rows taken as they lie), and odd k*nd and n (rows
+    zero-padded to 16 bytes for TMA)."""
     ring, lhs_dig, band, noise, bound, enc = operands(moduli, jr, "enc64", 27,
                                                       m=m, k=k, n=n, l=l)
     want = fm.matmul_fold_scaled(None, band, ring, noise=noise, encode=enc, lhs_dig=lhs_dig)
@@ -133,6 +133,27 @@ def test_prescale_kernel_equals_plain_twin(cuda_device, moduli, l, bound, k, d):
     torch.cuda.synchronize()
     assert fm.ntt_prescale_band.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,k", [(3, 5), (5, 3), (6, 3), (7, 6), (8, 3)])
+def test_prescale_kpacked_rows_equal_plain_twin(cuda_device, nd, k):
+    """Kernel 4's k-packed storage, pads included, at every nd that goes
+    through the shared-memory gather (3, 5, 6, 7) and one that stores
+    directly (8), with k*nd off 16 bytes (15, 18, 42, 24: pads of 1 to 14
+    bytes, which must stay zero and must not spill into the next row)."""
+    ring = RingPlan(CHAIN_BY_ND[nd], 8)
+    c = torch.from_numpy(np.random.default_rng(nd).integers(-1, 2, (k, 70, 8))
+                         .astype(np.int32))
+    want = fm.ntt_prescale_band(c, ring, 1)
+    got = fm.ntt_prescale_band(c.to(cuda_device), ring, 1)
+    torch.cuda.synchronize()
+    rows = lambda b: torch.as_strided(b.transpose(-1, -2),
+                                      (*b.transpose(-1, -2).shape[:-1], b.stride(-1)),
+                                      b.transpose(-1, -2).stride(),
+                                      b.storage_offset())
+    assert got.stride() == want.stride()
+    assert torch.equal(rows(got).cpu(), rows(want))
 
 
 @pytest.mark.cuda
@@ -343,8 +364,8 @@ def _move(t, dev):
     (8, 2, "enc64", False, 32, 16, 128)])
 def test_swapped_kernel_equals_plain_twin(cuda_device, nd, jr, encode, vals, m, k, n):
     """Kernel 1's swapped form at every digit count, m and n on and off its
-    32 x 128 tile, k*nd on and off its 16-byte loads: bare, noise (value
-    and digit rows), both encodes."""
+    tile (32 receivers x 64 dealers), k*nd on and off 16 bytes: bare, noise
+    (value and digit rows), both encodes."""
     from pvw_tpu_torch.config import settings
 
     ring, lhs_dig, band, noise, bound, enc = operands(CHAIN_BY_ND[nd], jr, encode, 30 + nd,
@@ -733,3 +754,171 @@ def test_parallel_backends_over_distinct_cards(stream):
         assert shares == [int(v) for v in sc[:, 3]]
     finally:
         del settings.noise_stream
+
+
+# --------------------------------------------------------------------------
+# kernels 1 and 3 on wgmma with a TMA ring, the k-packed band
+# --------------------------------------------------------------------------
+
+# (m, k*nd, n): m and n on, below and off the 64 x 32 tile; k*nd below one
+# 128-byte stage (40) and above the deepest ring (1280: more k stages than
+# ring slots, several tiles a consumer)
+EDGE_SHAPES = [(1, 40, 63), (63, 1280, 1000), (65, 1280, 1), (1000, 40, 65),
+               (1000, 1280, 1000)]
+V3K = (0xDEADBEEF, 0x12345678)
+
+
+def _edge_operands(nd, m, kd, n, dev, seed, jr=1):
+    """Random operands made on the card, l = 8, k*nd near ``kd``: residues
+    a [L, 8, m, k] and b [L, 8, k, n], the lhs digit planes, the band of b
+    (k-packed), noise planes of jr digits (bound 50 or 2000) and the 64-bit
+    encode."""
+    ring = RingPlan(CHAIN_BY_ND[nd], 8)
+    k = max(1, round(kd / nd))
+    rng = np.random.default_rng(seed)
+    L = ring.num_limbs
+    q = ring.q.reshape(L, 1, 1, 1)
+    a = u64.u64_tensor(rand_u64(rng, (L, 8, m, k)) % q, dev)
+    b = u64.u64_tensor(rand_u64(rng, (L, 8, k, n)) % q, dev)
+    bound = 50 if jr == 1 else 2000
+    ev = torch.from_numpy(rng.integers(-bound, bound + 1, (m, n, 8)).astype(np.int32))
+    noise = ntt._digit_planes(ev.to(dev), jr)
+    sc = rand_u64(rng, (m, n))
+    sc.flat[:3] = [0, 1 << 63, (1 << 64) - 1]          # m * n >= 3 at every edge shape
+    g = rand_u64(rng, (L, 8)) % ring.q[:, None]
+    gs = np.array([[(int(g[i, s]) << 64) // qi for s in range(8)]
+                   for i, qi in enumerate(ring.moduli)], object)
+    wrap = np.array([[pow(2, 64, qi) * int(g[i, s]) % qi for s in range(8)]
+                     for i, qi in enumerate(ring.moduli)], np.uint64)
+    etab = fm.encode_tab(g, (gs & 0xFFFFFFFFFFFFFFFF).astype(np.uint64), wrap)
+    enc = (u64.u64_tensor(sc, dev), u64.u64_tensor(etab, dev))
+    lhs_dig = modmat.digits(a, nd).reshape(L, 8, m, k * nd)
+    return ring, a, b, lhs_dig, modmat.prescale_digits_band(b, ring), noise, bound, enc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kd,n", EDGE_SHAPES)
+@pytest.mark.parametrize("nd", range(1, 9))
+def test_wgmma_kernel_edges_equal_plain_twin(cuda_device, nd, m, kd, n):
+    """Kernel 1 at every digit count and the edge shapes, noise rows (jr =
+    2 at even nd) and the 64-bit encode: the k-packed band taken as it
+    lies, an n-major copy relaid once (counted), the same residues as the
+    twin on the card."""
+    jr = 2 - nd % 2
+    ring, _, _, lhs_dig, band, noise, bound, enc = _edge_operands(nd, m, kd, n, cuda_device,
+                                                                  60 + nd, jr)
+    want = fm.matmul_fold_scaled_plain(None, band, ring, noise=noise, encode=enc,
+                                       lhs_dig=lhs_dig)
+    before = fm.band_relayouts
+    for b in (band, band.contiguous()):
+        got = fm.matmul_fold_scaled(None, b, ring, noise=noise, encode=enc, lhs_dig=lhs_dig,
+                                    noise_bound=bound)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    # the copy is relaid unless it lies k-packed already (n = 1, 16-byte rows)
+    assert fm.band_relayouts == before + (not modmat.k_rows_ok(band.contiguous()
+                                                               .transpose(-1, -2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kd,n", EDGE_SHAPES[:4])
+@pytest.mark.parametrize("nd", [1, 3, 5, 8])
+def test_wgmma_swapped_edges_equal_plain_twin(cuda_device, nd, m, kd, n):
+    """Kernel 1's swapped form (A = the rhs digits, 64 dealers a tile; B =
+    the scaled lhs planes, 32 receivers a plane; the transposed tile
+    stored) at the edge shapes."""
+    ring, a, b, _, _, noise, bound, enc = _edge_operands(nd, m, kd, n, cuda_device, 70 + nd)
+    planes = modmat.lhs_scaled_planes(a.permute(2, 3, 0, 1), ring)
+    rd = modmat.rhs_digit_cols(b, ring)
+    want = fm.matmul_fold_swapped_plain(planes, rd, ring, noise=noise, encode=enc)
+    before = fm.fused_scaled_noise_matmul_swapped.launches
+    got = fm.matmul_fold_swapped(planes, rd, ring, noise=noise, encode=enc, noise_bound=bound)
+    torch.cuda.synchronize()
+    assert fm.fused_scaled_noise_matmul_swapped.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kd,n,lo,hi", [(65, 1280, 1000, 10, 50), (1000, 40, 63, 300, 1000),
+                                          (1000, 1280, 1000, 0, 1000)])
+@pytest.mark.parametrize("nd", [3, 8])
+def test_wgmma_masked_post_edges_equal_plain_twin(cuda_device, nd, m, kd, n, lo, hi):
+    """Kernel 1's masked form with ``post=`` at the edge shapes: the
+    generator's masked planes, the encode on the rows [lo, hi), post on
+    every row."""
+    ring, _, _, lhs_dig, band, _, bound, enc = _edge_operands(nd, m, kd, n, cuda_device,
+                                                              80 + nd)
+    q = ring.table("q", cuda_device).reshape(-1, 1, 1, 1)
+    post = u64.u64_tensor(rand_u64(np.random.default_rng(nd), (ring.num_limbs, 8, m, n)),
+                          cuda_device) % q
+    planes = fm.v3k_noise_planes_plain(*V3K, 0, m, n, 8, bound, 3, cuda_device,
+                                       mask=(lo, hi))
+    want = fm.matmul_fold_scaled_plain(None, band, ring, noise=planes, encode=enc,
+                                       lhs_dig=lhs_dig, post=post, mask=(0, lo, hi))
+    before = fm.fused_scaled_noise_matmul.masked_launches
+    got = fm.matmul_fold_scaled(None, band, ring, encode=enc, lhs_dig=lhs_dig, post=post,
+                                gen_noise=((*V3K, 0, lo, hi, 3), 1, bound, "tfry"))
+    torch.cuda.synchronize()
+    assert fm.fused_scaled_noise_matmul.masked_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_kind", ["planes", "v3k"])
+@pytest.mark.parametrize("m,kd,n", [(63, 1280, 1000), (1000, 40, 65), (1, 1280, 63)])
+@pytest.mark.parametrize("nd", range(1, 9))
+def test_wgmma_pipelined_edges_equal_plain_twin(cuda_device, nd, m, kd, n, noise_kind):
+    """Kernel 3 (two consumers in ping-pong over the channels) at every
+    digit count and the edge shapes, with input planes or in-kernel v3k
+    (offsets whose counters wrap), the 64-bit encode."""
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import tfry
+
+    jr = 2 - nd % 2
+    ring, _, _, lhs_dig, band, noise, bound, enc = _edge_operands(nd, m, kd, n, cuda_device,
+                                                                  90 + nd, jr)
+    gen = None
+    if noise_kind == "v3k":
+        offs = ((1 << 32) - 3, 1 << 31)
+        gen = ((*V3K, *offs), jr, bound, "tfry")
+        noise = tfry.v3k_noise_digit_planes(*V3K, offs[0], m, n, 8, bound, offs[1],
+                                            cuda_device)
+    want = fm.matmul_fold_scaled_plain(None, band, ring, noise=noise, encode=enc,
+                                       lhs_dig=lhs_dig)
+    before = fm.fused_pipelined_matmul.launches
+    settings.pipeline_fold = True
+    try:
+        got = fm.matmul_fold_scaled(None, band, ring, noise=None if gen else noise, encode=enc,
+                                    lhs_dig=lhs_dig, noise_bound=bound, gen_noise=gen)
+    finally:
+        del settings.pipeline_fold
+    torch.cuda.synchronize()
+    assert fm.fused_pipelined_matmul.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_on_another_card(cuda_device):
+    """The tensor maps are encoded and the kernels launched with the
+    operands' card current: kernels 1 (banded, swapped) and 3 on cuda:1."""
+    from pvw_tpu_torch.config import settings
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda:1")
+    ring, a, b, lhs_dig, band, noise, bound, enc = _edge_operands(8, 65, 1280, 100, dev, 99)
+    want = fm.matmul_fold_scaled_plain(None, band, ring, noise=noise, encode=enc,
+                                       lhs_dig=lhs_dig)
+    got = [fm.matmul_fold_scaled(None, band, ring, noise=noise, encode=enc, lhs_dig=lhs_dig,
+                                 noise_bound=bound),
+           fm.matmul_fold_swapped(modmat.lhs_scaled_planes(a.permute(2, 3, 0, 1), ring),
+                                  modmat.rhs_digit_cols(b, ring), ring, noise=noise,
+                                  encode=enc, noise_bound=bound)]
+    settings.pipeline_fold = True
+    try:
+        got.append(fm.matmul_fold_scaled(None, band, ring, noise=noise, encode=enc,
+                                         lhs_dig=lhs_dig, noise_bound=bound))
+    finally:
+        del settings.pipeline_fold
+    torch.cuda.synchronize(dev)
+    assert all(g.device == dev and torch.equal(g, want) for g in got)

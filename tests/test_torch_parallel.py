@@ -13,6 +13,8 @@ takes the bake route (``kernel_noise_available`` is False off the TPU), so
 equal bytes hold the masked contract against the bake route.
 """
 
+import functools
+
 import numpy as np
 import jax
 import pytest
@@ -173,16 +175,48 @@ def test_sharded_encrypt_ragged_rows(six, stream):
             [CPU] * 4, kdim=2)) == shares(sc, i)
 
 
-@pytest.mark.parametrize("kdim", [1, 2])
-def test_sharded_encrypt_huge_bound(huge, kdim):
-    """Bounds >= min q: the exact host noise, added after the gather."""
-    sc = scalars(4, 8, 3)
-    tmesh = TP.make_mesh([CPU] * 4, kdim=kdim)
-    tct = TP.encrypt_batch_sharded(sc, huge.tgpk, huge.tkey, tmesh)
-    jct = JP.encrypt_batch_sharded(sc, huge.jgpk, huge.key,
-                                   JP.make_mesh(jax.devices()[:4], kdim=kdim))
+# bounds between 32639 and min q (residue noise after the fused matmul, on
+# one product or both), on the 4 x 55-bit chain, with the stream
+RESIDUE_CASES = [(b, st) for b in ((40000, 50000), (1 << 40, 1 << 41), (100, 1 << 40))
+                 for st in ("kernel", "v3k")]
+
+
+@functools.lru_cache(maxsize=None)
+def residue_system(bounds):
+    return System(8, 8, MODULI4, bounds=bounds, seed=bounds[0] % 97)
+
+
+def residue_ids(cases):
+    return [f"{b1}-{b2}-{st}-{rest}" for (b1, b2), st, rest in cases]
+
+
+@pytest.mark.parametrize("kdim,residue,force", [(1, None, False), (2, None, False)] + [
+    (kdim, case, force) for case in RESIDUE_CASES for kdim, force in
+    ((1, False), (2, False), (4, False), (1, True))], ids=["1", "2"] + [
+    f"{b1}-{b2}-{st}-kdim{kdim}{'-forced' if force else ''}" for (b1, b2), st in
+    RESIDUE_CASES for kdim, force in ((1, False), (2, False), (4, False), (1, True))])
+def test_sharded_encrypt_huge_bound(huge, kdim, residue, force):
+    """Bounds >= min q: the exact host noise, added after the gather. And
+    bounds between 32639 and min q (residue noise: (40000, 50000), (2^40,
+    2^41), (100, 2^40)) under both streams, at kdim 1, 2 and 4 and forced
+    masked: the JAX package's bytes."""
+    system = huge
+    if residue is not None:
+        system = residue_system(residue[0])
+        jsettings.noise_stream = tsettings.noise_stream = residue[1]
+    try:
+        sc = scalars(4, 8, 3)
+        tmesh = TP.make_mesh([CPU] * 4, kdim=kdim)
+        tct = TP.encrypt_batch_sharded(sc, system.tgpk, system.tkey, tmesh,
+                                       _force_masked=force)
+        jct = JP.encrypt_batch_sharded(sc, system.jgpk, system.key,
+                                       JP.make_mesh(jax.devices()[:4], kdim=kdim),
+                                       _force_masked=force)
+    finally:
+        if residue is not None:
+            del jsettings.noise_stream, tsettings.noise_stream
     assert_same(tct, jct)
-    assert TP.decrypt_party_shares_sharded(tct, huge.tsk(1), 1, tmesh) == \
+    assert TP.decrypt_party_shares_sharded(tct, system.tsk(1), 1, tmesh) == \
         shares(sc, 1)
 
 

@@ -8,6 +8,9 @@ backends on the CPU device repeated, the same CRS, key matrix and keys
 exactly (tolerance 0).
 """
 
+import contextlib
+import functools
+
 import numpy as np
 import jax
 import pytest
@@ -133,6 +136,39 @@ def test_data_parallel_no_randomness_reuse(toy):
     assert (c0 != c1).double().mean() > 0.5
 
 
+# bounds between 32639 and min q (residue noise after the fused matmul, on
+# one product or both), on the 4 x 55-bit chain, with the stream
+RESIDUE_CASES = [(b, st) for b in ((40000, 50000), (1 << 40, 1 << 41), (100, 1 << 40))
+                 for st in ("kernel", "v3k")]
+RESIDUE_IDS = [f"{b1}-{b2}-{st}" for (b1, b2), st in RESIDUE_CASES]
+
+
+@functools.lru_cache(maxsize=None)
+def residue_system(bounds):
+    return System(8, 8, MODULI4, bounds=bounds, seed=bounds[0] % 97)
+
+
+@contextlib.contextmanager
+def residue_stream(stream):
+    jsettings.noise_stream = tsettings.noise_stream = stream
+    try:
+        yield
+    finally:
+        del jsettings.noise_stream, tsettings.noise_stream
+
+
+@pytest.mark.parametrize("bounds,stream_name", RESIDUE_CASES, ids=RESIDUE_IDS)
+def test_data_parallel_residue_bounds_equal_jax(bounds, stream_name):
+    """A 2-way dealer split at bounds between 32639 and min q (residue
+    noise): the JAX package's shards, byte for byte."""
+    system = residue_system(bounds)
+    sc = scalars(4, 8, 13)
+    with residue_stream(stream_name):
+        t = TP.encrypt_batch_data_parallel(sc, system.tgpk, system.tkey, [CPU] * 2)
+        j = JP.encrypt_batch_data_parallel(sc, system.jgpk, system.key, jax.devices()[:2])
+    assert_same(t.gather(), j.gather())
+
+
 def test_data_parallel_huge_bound_refused(huge):
     with pytest.raises(InvalidParameters, match="data-parallel"):
         TP.encrypt_batch_data_parallel(np.ones((4, 8), np.uint64), huge.tgpk, huge.tkey,
@@ -176,12 +212,20 @@ def test_limb_parallel_bit_identical(four, shards):
         shares(sc, 4)
 
 
-def test_limb_parallel_huge_bound(huge):
-    """Every limb shard reduces the same host-sampled integers."""
+@pytest.mark.parametrize("bounds,stream_name", [(None, None)] + RESIDUE_CASES,
+                         ids=["huge"] + RESIDUE_IDS)
+def test_limb_parallel_huge_bound(huge, bounds, stream_name):
+    """Every limb shard reduces the same host-sampled integers (4 shards);
+    at bounds between 32639 and min q (residue noise) a 2-way limb split
+    under both streams: the JAX package's single-device bytes."""
+    system = huge if bounds is None else residue_system(bounds)
     sc = scalars(4, 8, 10)
-    ct = TP.encrypt_batch_limb_parallel(sc, huge.tgpk, huge.tkey, [CPU] * 4)
-    assert_same(ct.gather(), J.encrypt_batch(sc, huge.jgpk, huge.key))
-    assert TP.decrypt_party_shares_limb_parallel(ct, huge.tsk(2), 2) == \
+    with residue_stream(stream_name) if bounds else contextlib.nullcontext():
+        ct = TP.encrypt_batch_limb_parallel(sc, system.tgpk, system.tkey,
+                                            [CPU] * (4 if bounds is None else 2))
+        want = J.encrypt_batch(sc, system.jgpk, system.key)
+    assert_same(ct.gather(), want)
+    assert TP.decrypt_party_shares_limb_parallel(ct, system.tsk(2), 2) == \
         shares(sc, 2)
 
 
@@ -200,10 +244,20 @@ def test_grid_bit_identical(four, stream, limb_groups, kdim):
     assert TP.decrypt_party_shares_grid(ct, four.tsk(1), 1) == shares(sc, 1)
 
 
-def test_grid_huge_bound(huge):
+@pytest.mark.parametrize("bounds,stream_name", [(None, None)] + RESIDUE_CASES,
+                         ids=["huge"] + RESIDUE_IDS)
+def test_grid_huge_bound(huge, bounds, stream_name):
+    """A grid of 8 (2 limb groups x a (2, 2) mesh) at bounds >= min q and
+    between 32639 and min q (residue noise, both streams): the JAX package's
+    single-device bytes."""
+    system = huge if bounds is None else residue_system(bounds)
     sc = scalars(4, 8, 12)
-    ct = TP.encrypt_batch_grid(sc, huge.tgpk, huge.tkey, [CPU] * 8, limb_groups=2, kdim=2)
-    assert_same(ct.gather(), J.encrypt_batch(sc, huge.jgpk, huge.key))
-    assert TP.decrypt_party_shares_grid(ct, huge.tsk(2), 2) == shares(sc, 2)
-    with pytest.raises(InvalidParameters, match="limb groups"):
-        TP.encrypt_batch_grid(sc, huge.tgpk, huge.tkey, [CPU] * 6, limb_groups=4)
+    with residue_stream(stream_name) if bounds else contextlib.nullcontext():
+        ct = TP.encrypt_batch_grid(sc, system.tgpk, system.tkey, [CPU] * 8, limb_groups=2,
+                                   kdim=2)
+        want = J.encrypt_batch(sc, system.jgpk, system.key)
+    assert_same(ct.gather(), want)
+    assert TP.decrypt_party_shares_grid(ct, system.tsk(2), 2) == shares(sc, 2)
+    if bounds is None:
+        with pytest.raises(InvalidParameters, match="limb groups"):
+            TP.encrypt_batch_grid(sc, huge.tgpk, huge.tkey, [CPU] * 6, limb_groups=4)
