@@ -23,7 +23,7 @@ CUDA events with its spread [min, max], beside the bound, the plain twin,
 to ``torch._int_mm``.
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   the five kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
+   the six kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
    started together, into ``build/kernels``);
 2. kernel_vs_plain: kernel 1, the fused scaled-noise matmul, against its
    plain PyTorch twin at the keygen, c1 and c2 shapes of the main path at
@@ -47,8 +47,9 @@ to ``torch._int_mm``.
    config-4 r shape (k = 512, d = 1024): every band byte equal;
 7. deep_kernel_vs_plain: kernel 1 at config 4's keygen, c1 and c2 shapes
    (CH = 272, nd = 8, kd = 4096) at a dealer batch of 256;
-8. deep_timing: kernel 4 at the full config-4 and toy r shapes and kernel
-   1 at the full config-4 c2 shape, each beside its bound and twin;
+8. deep_timing: kernel 4 at the full config-4 and toy r shapes (its
+   wrapper and its raw launch, interleaved) and kernel 1 at the full
+   config-4 c2 shape, each beside its bound and twin;
 9. deep_path: BASELINE config 4, ``presets.threshold_256bit(1024)`` (17 x
    61-bit limbs, k = 512, l = 16, nd = 8): 1024 dealers, threshold
    decryption of the 921 dealers whose index is not a multiple of 10 at
@@ -79,8 +80,11 @@ to ``torch._int_mm``.
     ``matmul_channels_fused``, at C = 9 and 15 with m and n off its tile;
 16. banded_path: the entry ``matmul_fold_auto`` at kernel 2's two full
     shapes ([16 ch, 4096 x 256] x [256 x 1024], nd = 5; [272 ch, 1024 x 512]
-    x [512 x 1024], nd = 8), counted, against the twin; banded_timing: the
-    launch, the entry, the twin and ``torch._int_mm`` beside the bound;
+    x [512 x 1024], nd = 8), counted (kernel 2 once, its operand layout
+    kernel ``digit_planes`` twice), against the twin; banded_timing: the
+    launch, the entry, the layout, the twin and ``torch._int_mm`` beside
+    the bound; digits_timing: the layout kernel against its twin and its
+    bytes' bound;
     masked_timing: the masked and post= launches at the toy and config-4 c2
     shapes;
 17. v3k_path: the toy chain under ``noise_stream="v3k"``, then
@@ -110,7 +114,7 @@ to ``torch._int_mm``.
     ``settings.pipeline_fold`` (keygen and both products through kernel 3,
     no generator launch), full decryption for parties 0 and 4095; then
     pipelined_breakdown;
-23. the kernels line (seven entries), then the last line
+23. the kernels line (eight entries), then the last line
     ``{"ok": true, "device": ...}``.
 """
 
@@ -263,6 +267,7 @@ def _counters() -> dict:
             fm.PIPELINED_KERNEL: (fm.fused_pipelined_matmul, "launches"),
             fm.MASKED_KERNEL: (k1, "masked_launches"),
             fm.BANDED_KERNEL: (fm.banded_matmul, "launches"),
+            fm.DIGITS_KERNEL: (fm.digit_planes_kpacked, "launches"),
             BARE: (k1, "bare_launches"),
             RELAYOUTS: (fm, "band_relayouts"),
             ROW_RELAYOUTS: (fm, "row_relayouts")}
@@ -669,9 +674,37 @@ def phase_deep_kernel_vs_plain(dev) -> int:
     return worst
 
 
+def interleaved_times(calls: dict, rounds: int, inner: int = 10) -> dict:
+    """name -> the median ms of one call of ``calls[name]`` and its spread:
+    each round times ``inner`` calls of every entry in turn between two
+    CUDA events, so that they share the card's state."""
+    import torch
+
+    for fn in calls.values():
+        fn()
+    times = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / inner)
+    return {name: {"ms": statistics.median(t), "ms_spread": [min(t), max(t)]}
+            for name, t in times.items()}
+
+
 def prescale_timing(ring, k: int, d: int, seed: int, dev, card: str) -> dict:
     """The r-stage kernel and its plain twin at one r shape (jr = 1), each
-    against the bound: CUDA events, medians of 10 (with the spread) and 3."""
+    against the bound: the wrapper as a path calls it and the raw launch
+    (its C entry on prepared arguments), interleaved in 10 rounds of 10
+    calls (medians with the spread), and the twin, a median of 3; CUDA
+    events."""
+    import ctypes
+
     import torch
 
     from pvw_tpu_torch.ops import fused_modmat as fm
@@ -679,16 +712,30 @@ def prescale_timing(ring, k: int, d: int, seed: int, dev, card: str) -> dict:
     L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
     gen = torch.Generator(device=dev).manual_seed(seed)
     c = r_coeffs(k, d, S, 1, gen, dev)
-    times = kernel_times(lambda: fm.ntt_prescale_band(c, ring, 1), reps=10)
+    ntab, tabs = fm._prescale_tables(ring, 1, dev)
+    out = torch.empty((L, S, nd, d, -(-k * nd // 16) * 16), dtype=torch.int8, device=dev)
+    fn = fm._prescale_fn()
+    args = (fm._ptr(c), fm._ptr(ntab), fm._ptr(tabs), fm._ptr(out), L, S, 1, k, d, nd,
+            out.shape[-1], ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+
+    def raw():
+        check(fn(*args) == 0, "kernel 4's raw launch failed")
+
+    t = interleaved_times({"wrapper": lambda: fm.ntt_prescale_band(c, ring, 1), "raw": raw},
+                          rounds=10)
+    check(torch.equal(out[..., :k * nd].transpose(-1, -2), fm.ntt_prescale_band(c, ring, 1)),
+          "kernel 4's raw launch differs from its wrapper")
     plain_ms = cuda_ms(lambda: fm.ntt_prescale_band_plain(c, ring, 1), reps=3)
-    out = ratios({"phase": "deep_timing", "kernel": fm.PRESCALE_KERNEL,
+    res = ratios({"phase": "deep_timing", "kernel": fm.PRESCALE_KERNEL,
                   "shape": f"r k={k} d={d} channels={L * S} nd={nd} jr=1",
-                  "card": card, **times, "plain_ms": plain_ms, "library_ms": None,
-                  **prescale_bound(ring, k, d, 1)})
-    emit(out)
-    del c
+                  "card": card, **t["wrapper"], "raw_ms": t["raw"]["ms"],
+                  "raw_ms_spread": t["raw"]["ms_spread"], "plain_ms": plain_ms,
+                  "library_ms": None, **prescale_bound(ring, k, d, 1)})
+    res["x_bound_raw"] = res["raw_ms"] / res["bound_ms"]
+    emit(res)
+    del c, out
     torch.cuda.empty_cache()
-    return out
+    return res
 
 
 def phase_deep_timing(dev, card: str) -> dict:
@@ -1397,19 +1444,33 @@ def residue_pair(ring, m, k, n, gen, dev):
             torch.randint(0, 1 << 62, (*shape, k, n), generator=gen, device=dev) % q)
 
 
-def phase_banded(dev, card: str) -> tuple[dict, dict]:
+def digit_planes_bound(m: int, k: int, n: int, ch: int, nd: int) -> dict:
+    """The least time of kernel 2's operand layout for one product: the
+    residues of both operands read (8 bytes each) and their digit planes
+    written (nd bytes an element, rows padded to 16 bytes), once."""
+    k_pad = -(-k // 16) * 16
+    nbytes = ch * (8 * (m * k + k * n) + nd * (m + n) * k_pad)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": bytes_ms, "bound_by": "bytes", "bytes": nbytes, "bytes_ms": bytes_ms}
+
+
+def phase_banded(dev, card: str) -> tuple[dict, dict, dict]:
     """Kernel 2 at the two full shapes, [16 ch, 4096 x 256] x [256 x 1024]
     (toy chain, nd = 5, the JAX docstring's) and [272 ch, 1024 x 512] x
     [512 x 1024] (config 4's chain, nd = 8). ``banded_path``: the entry
     ``matmul_fold_auto`` at both, the launch counts set to 0 before and read
-    after, every output against the twin (one limb at a time). Then
-    ``banded_timing``: the kernel launch alone, the entry (with its digit
-    layout), the twin and ``torch._int_mm`` of the nd^2 digit products (a
-    yardstick the port never calls), CUDA events, median of 3 (the twin
-    once at config 4), beside the bound of the nd^2 useful products."""
+    after (kernel 2 once, its layout kernel twice), every output against
+    the twin (one limb at a time). Then ``banded_timing``: the layout
+    kernel's planes against its twin, byte for byte; the kernel launch
+    alone (median of 5 with the spread), the entry, the layout (both
+    operands, kernel and twin), the twin and ``torch._int_mm`` of the nd^2
+    digit products (a yardstick the port never calls), CUDA events, medians
+    of 3 (the twin once at config 4), beside the bound of the nd^2 useful
+    products; and ``digits_timing``: the layout kernel's two launches beside
+    their bytes' bound."""
     import torch
 
-    from pvw_tpu_torch.ops import fused_modmat as fm, modmat, u64
+    from pvw_tpu_torch.ops import fused_modmat as fm
     from pvw_tpu_torch.params.ring import get_ring
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
@@ -1417,7 +1478,7 @@ def phase_banded(dev, card: str) -> tuple[dict, dict]:
     shapes = (("toy", get_ring(MODULI, ELL), *BANDED_TOY),
               ("config-4", get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL),
                DEEP_N, DEEP_K, DEEP_N))
-    path, timing = {"phase": "banded_path", "card": card, "shapes": {}}, {}
+    path, timing, digits = {"phase": "banded_path", "card": card, "shapes": {}}, {}, {}
     reset_launches()
     for label, ring, m, k, n in shapes:
         a, b = residue_pair(ring, m, k, n, gen, dev)
@@ -1429,8 +1490,8 @@ def phase_banded(dev, card: str) -> tuple[dict, dict]:
         path["shapes"][label].update({"m": m, "k": k, "n": n, "launches": ran,
                                       "max_abs_err": err})
         check(err == 0, f"kernel 2 differs from its twin at the full {label} shape")
-        check(ran[fm.BANDED_KERNEL] == 1 and sum(ran.values()) == 1,
-              f"matmul_fold_auto launched {ran} at the {label} shape")
+        check(ran[fm.BANDED_KERNEL] == 1 and ran[fm.DIGITS_KERNEL] == 2
+              and sum(ran.values()) == 3, f"matmul_fold_auto launched {ran} at the {label} shape")
         del a, b, out
         torch.cuda.empty_cache()
     path["launches"] = launches()
@@ -1438,12 +1499,19 @@ def phase_banded(dev, card: str) -> tuple[dict, dict]:
     for label, ring, m, k, n in shapes:
         L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
         a, b = residue_pair(ring, m, k, n, gen, dev)
-        ap = modmat.digits(a, nd).reshape(L * S, m, k, nd).permute(0, 3, 1, 2).contiguous()
-        bp = modmat.digits(b, nd).reshape(L * S, k, n, nd).permute(0, 3, 2, 1).contiguous()
-        tables = u64.u64_tensor(fm._pack_tables(ring, 2 * nd - 1, fm.BANDED_TABLE_WIDTH),
-                                dev).repeat_interleave(S, dim=0)
-        a_int = ap.reshape(L * S, nd * m, k)
-        b_int = bp.reshape(L * S, nd * n, k)              # column-major rhs, as cuBLASLt takes
+        lhs, rhs = a.reshape(L * S, m, k), b.reshape(L * S, k, n)
+
+        def layout(split=fm.digit_planes_kpacked):
+            return split(lhs, nd), split(rhs, nd, transpose=True)
+
+        ap, bp = layout()
+        want = layout(fm.digit_planes_kpacked_plain)
+        digits_err = max(max_abs_err(ap, want[0]), max_abs_err(bp, want[1]))
+        check(digits_err == 0, f"the digit planes differ from their twin at the {label} shape")
+        del want
+        tables = fm._banded_tables(ring, S, dev)
+        a_int = ap.reshape(L * S, nd * m, k)               # k_pad = k at both shapes
+        b_int = bp.reshape(L * S, nd * n, k)               # column-major rhs, as cuBLASLt takes
 
         def library():
             for c in range(L * S):
@@ -1451,23 +1519,34 @@ def phase_banded(dev, card: str) -> tuple[dict, dict]:
 
         twin_ms = cuda_ms(lambda: channels_plain_by_limb(ring, a, b), reps=1 if L > 2 else 3,
                           warmup=0)
+        layout_ms = cuda_ms(layout, reps=3)
+        layout_plain_ms = cuda_ms(lambda: layout(fm.digit_planes_kpacked_plain), reps=3)
         nbytes = 8 * L * S * (m * k + k * n + m * n)       # residues in, residues out
-        timing[label] = {
+        shape = f"[{L * S} ch, {m} x {k}] x [{k} x {n}] nd={nd}"
+        timing[label] = ratios({
             "phase": "banded_timing", "kernel": fm.BANDED_KERNEL,
-            "shape": f"[{L * S} ch, {m} x {k}] x [{k} x {n}] nd={nd} C={2 * nd - 1}",
-            "card": card, "max_abs_err": path["shapes"][label]["max_abs_err"],
-            "ms": cuda_ms(lambda: fm.banded_matmul(ap, bp, tables), reps=3),
+            "shape": f"{shape} C={2 * nd - 1}", "card": card,
+            "max_abs_err": path["shapes"][label]["max_abs_err"],
+            **kernel_times(lambda: fm.banded_matmul(ap, bp, tables)),
             "entry_ms": cuda_ms(lambda: fm.matmul_channels_fused(a, b, ring), reps=3),
+            "layout_ms": layout_ms, "layout_plain_ms": layout_plain_ms,
             "plain_ms": twin_ms, "plain": "one limb at a time",
             "library_ms": cuda_ms(library, reps=3),
             "library": "torch._int_mm of the nd^2 digit products, one channel at a time",
             **contraction_bound(ring, m, k, n, nbytes),
-            "bound_counts": "the nd^2 useful digit products; the JAX band's C*nd would be "
-                            f"{2 * nd - 1}/{nd} of them"}
+            "bound_counts": "the nd^2 useful digit products; the kernel's windows run "
+                            f"{2 * nd - 1}/{nd} of them"})
+        timing[label]["x_bound_entry"] = timing[label]["entry_ms"] / timing[label]["bound_ms"]
         emit(timing[label])
-        del a, b, ap, bp, a_int, b_int
+        digits[label] = ratios({
+            "phase": "digits_timing", "kernel": fm.DIGITS_KERNEL,
+            "shape": f"both operands of {shape}", "card": card, "max_abs_err": digits_err,
+            **kernel_times(layout), "plain_ms": layout_plain_ms, "library_ms": None,
+            **digit_planes_bound(m, k, n, L * S, nd)})
+        emit(digits[label])
+        del a, b, lhs, rhs, ap, bp, a_int, b_int
         torch.cuda.empty_cache()
-    return path, timing
+    return path, timing, digits
 
 
 def phase_masked_timing(dev, card: str) -> dict:
@@ -1684,7 +1763,7 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL,
-                      fm.BANDED_KERNEL])
+                      fm.BANDED_KERNEL, fm.DIGITS_KERNEL])
     build_s = time.perf_counter() - t0
     print(card, flush=True)
     emit({"phase": "device", "card": card, "torch": torch.__version__,
@@ -1721,7 +1800,7 @@ def main() -> int:
     opt_timing = phase_opt_in_timing(dev, card)
     masked_worst = phase_masked_vs_plain(dev)
     banded_worst = phase_banded_vs_plain(dev)
-    paths["banded_path"], banded_timing = phase_banded(dev, card)
+    paths["banded_path"], banded_timing, digits_timing = phase_banded(dev, card)
     masked_timing = phase_masked_timing(dev, card)
     paths["v3k_path"], ctx = phase_dealer_path(
         "v3k_path", presets.pvss_8192(N_RECEIVERS), dev, card, 5, "v3k",
@@ -1771,7 +1850,7 @@ def main() -> int:
         kernel_entry(fm.PRESCALE_KERNEL, src + "ntt_prescale_band.cu",
                      "pvw_tpu/ops/pallas_modmat.py:1687", "ntt_prescale_band",
                      by_path[fm.PRESCALE_KERNEL], prescale_worst, deep_timing["prescale_toy"],
-                     dp, card),
+                     dp, card, raw_ms=deep_timing["prescale_toy"]["raw_ms"]),
         kernel_entry(fm.NOISE_KERNEL, src + "v3k_noise_planes.cu",
                      "pvw_tpu/ops/pallas_modmat.py:232",
                      "_fused_scaled_noise_matmul (in-kernel v3k generation)",
@@ -1805,7 +1884,15 @@ def main() -> int:
                      by_path[fm.BANDED_KERNEL],
                      max(banded_worst, *(t["max_abs_err"] for t in banded_timing.values())),
                      banded_timing["toy"], banded_timing["config-4"], card,
-                     entry_ms=banded_timing["toy"]["entry_ms"]),
+                     includes=src + "wgmma_digit.cuh",
+                     entry_ms=banded_timing["toy"]["entry_ms"],
+                     layout_ms=banded_timing["toy"]["layout_ms"]),
+        kernel_entry(fm.DIGITS_KERNEL, src + "digit_planes.cu",
+                     "pvw_tpu/ops/pallas_modmat.py:1532",
+                     "matmul_channels_pallas's digit split (XLA, ahead of "
+                     "_fused_banded_matmul)", by_path[fm.DIGITS_KERNEL],
+                     max(t["max_abs_err"] for t in digits_timing.values()),
+                     digits_timing["toy"], digits_timing["config-4"], card),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,9 +5,10 @@ Run from the root of the repository on a machine with an NVIDIA H100:
 
     python3 probes/fused_matmul_variants.py [variant ...]
 
-Each variant is the committed kernel 1 (``csrc/fused_scaled_noise_matmul.cu``)
-or pipelined kernel 3 (``csrc/fused_pipelined_matmul.cu``) with some lines of
-its source or of the shared ``csrc/wgmma_digit.cuh`` rewritten (``VARIANTS``
+Each variant is the committed kernel 1 (``csrc/fused_scaled_noise_matmul.cu``),
+pipelined kernel 3 (``csrc/fused_pipelined_matmul.cu``) or kernel 2
+(``csrc/banded_matmul.cu``, the ``k2_*`` variants) with some lines of its
+source or of the shared ``csrc/wgmma_digit.cuh`` rewritten (``VARIANTS``
 below; no names: all of them). Every variant is built with nvcc (all at
 once, ``-Xptxas -v``: registers and spills a kernel) into
 ``build/variants`` and launched through the port's own wrapper at the toy
@@ -17,7 +18,9 @@ chain's c2 shape (16 channels, m = n = 4096, kd = 1280, nd = 5) and config
 CUDA events, median of 5. The committed kernels are also held against
 their plain twins, kernel 1 is timed without the noise and the encode and
 in its swapped form, and ``torch._int_mm`` of the same contraction is timed
-beside them. The ablations (``no_*``, ``epilogue_only``) compute wrong
+beside them. Kernel 2's builds run at its two full shapes (chip_smoke.py's
+banded ones: 16 channels of [4096 x 256] x [256 x 1024] at nd = 5, 272 of
+[1024 x 512] x [512 x 1024] at nd = 8) on one set of digit planes. The ablations (``no_*``, ``epilogue_only``) compute wrong
 residues on purpose: they show which part of a kernel bounds its time.
 One JSON line per build and per timing.
 """
@@ -41,7 +44,7 @@ KERNEL1 = "fused_scaled_noise_matmul.cu"
 PIPELINED = "fused_pipelined_matmul.cu"
 HEADER = "wgmma_digit.cuh"
 # the tensor cores idle: each k step's wgmma replaced by a register xor
-NO_MMA = ("      Wgmma<ND>::mma(acc, da + 2 * kk, db + 2 * kk, kb | kk);",
+NO_MMA = ("      Wgmma<32 * ND>::template mma<0>(acc, da + 2 * kk, db + 2 * kk, kb | kk);",
           "      acc[kk] += (int32_t)(da ^ db);")
 # no bytes moved: the producer arrives on a stage's full barrier without TMA
 NO_TMA = ("      mbar_expect_tx(&R.full[s], Ring<ND>::STAGE);\n"
@@ -77,8 +80,83 @@ TRACE_K1 = [("      contract(acc, R, j, nk, wg - 1, j > 0, j + 1 < count, tl % 3
              "  return (int)cudaMemcpyFromSymbol(dst, wgmma_digit::trace_buf, "
              "sizeof(long long) * 8192);\n}\n")]
 FOLD_GROUP_AT = lambda g: ("constexpr int FOLD_GROUP = 8;", f"constexpr int FOLD_GROUP = {g};")
+# kernel 2 (banded_matmul.cu): its window products, its producer's loads
+BANDED = "banded_matmul.cu"
+K2_MMA = ("        window_products<ND>(acc, da + 2 * kk, db + 2 * kk, "
+          "std::make_integer_sequence<int, ND>{});")
+K2_NO_MMA = (K2_MMA, "        acc[kk] += (int32_t)(da ^ db);")
+K2_NO_TMA = ("        mbar_expect_tx(&full[s], ND * St::A_PLANE + (second ? 2 : 1) * St::B_HALF);\n"
+             "        tma_load_4d(a_stage(s), &ma, &full[s], kb * KB, a0, 0, ch);\n"
+             "        tma_load_4d(b_half(s, 0), &mb, &full[s], kb * KB, b0, 0, ch);\n"
+             "        if (second) tma_load_4d(b_half(s, 1), &mb, &full[s], kb * KB, b0 + HALF, 0, ch);",
+             "        mbar_arrive(&full[s]);")
+K2_EPI = "    const Fold<C> fold(tables + (size_t)ch * TAB);"
+# the exact alternative to the windows: one m64n16k32 a digit pair (i, j),
+# nd^2 of them a 32-byte step, each into its own column's 8 registers
+K2_PAIRS = [("template <int ND>\n__global__ void",
+             "template <int ND, int... P>\n"
+             "__device__ __forceinline__ void pair_products(int32_t (&acc)[8 * (2 * ND - 1)], "
+             "uint64_t da, uint64_t db, std::integer_sequence<int, P...>) {\n"
+             "  (Wgmma<HALF>::template mma<8 * (P / ND + P % ND)>(acc, da + P / ND * "
+             "(Stage<ND>::A_PLANE >> 4), db + P % ND * (Stage<ND>::B_PLANE >> 4), 1), ...);\n"
+             "}\n\ntemplate <int ND>\n__global__ void"),
+            (K2_MMA, "        pair_products<ND>(acc, da + 2 * kk, db + 2 * kk, "
+                     "std::make_integer_sequence<int, ND * ND>{});")]
+# the same digit-pair products with A from registers: each thread loads its
+# fragment of every lhs plane from the swizzled stage once a 32-byte step,
+# so the tensor cores read only B (16 rows) from shared memory
+K2_REGA_FNS = """template <int OFF, int R>
+__device__ __forceinline__ void mma_n16_rega(int32_t (&d)[R], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile("{\\n.reg .pred p;\\nsetp.ne.b32 p, %13, 0;\\n"
+               "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+               "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\\n}\\n"
+               : "+r"(d[OFF]), "+r"(d[OFF + 1]), "+r"(d[OFF + 2]), "+r"(d[OFF + 3]),
+                 "+r"(d[OFF + 4]), "+r"(d[OFF + 5]), "+r"(d[OFF + 6]), "+r"(d[OFF + 7])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int ND, int... P>
+__device__ __forceinline__ void pair_products_rega(int32_t (&acc)[8 * (2 * ND - 1)],
+                                                   const uint32_t (&fa)[ND][4], uint64_t db,
+                                                   std::integer_sequence<int, P...>) {
+  (mma_n16_rega<8 * (P / ND + P % ND)>(acc, fa[P / ND], db + P % ND * (Stage<ND>::B_PLANE >> 4)),
+   ...);
+}
+
+template <int ND>
+__global__ void"""
+K2_REGA = [("template <int ND>\n__global__ void", K2_REGA_FNS),
+           ("      wgmma_fence();\n#pragma unroll\n      for (int kk = 0; kk < KB / 32; ++kk)\n" + K2_MMA,
+            "#pragma unroll\n"
+            "      for (int kk = 0; kk < KB / 32; ++kk) {\n"
+            "        uint32_t fa[ND][4];\n"
+            "        const int r0 = 16 * w + g, sw = (r0 >> 1) & 3;\n"
+            "#pragma unroll\n"
+            "        for (int i = 0; i < ND; ++i)\n"
+            "#pragma unroll\n"
+            "          for (int e = 0; e < 4; ++e)\n"
+            "            fa[i][e] = *reinterpret_cast<const uint32_t*>(\n"
+            "                a_stage(s) + i * St::A_PLANE + (r0 + 8 * (e & 1)) * KB +\n"
+            "                ((2 * kk + (e >> 1)) ^ sw) * 16 + 4 * t);\n"
+            "        wgmma_fence();\n"
+            "        pair_products_rega<ND>(acc, fa, db + 2 * kk, "
+            "std::make_integer_sequence<int, ND * ND>{});\n"
+            "      }")]
+# the first design: one m64n(16nd)k32 a lhs digit, A = plane i against the
+# half's nd planes, into the accumulator columns i..i+nd-1; products into
+# overlapping runs of registers are not ordered in flight, so its sums are
+# wrong at nd >= 2 (``bit_exact_vs_committed`` false)
+K2_SLICES = [("template <int ND>\n__global__ void",
+              "template <int ND, int... I>\n"
+              "__device__ __forceinline__ void slice_products(int32_t (&acc)[8 * (2 * ND - 1)], "
+              "uint64_t da, uint64_t db, std::integer_sequence<int, I...>) {\n"
+              "  (Wgmma<HALF * ND>::template mma<8 * I>(acc, da + I * (Stage<ND>::A_PLANE >> 4), "
+              "db, 1), ...);\n"
+              "}\n\ntemplate <int ND>\n__global__ void"),
+             (K2_MMA, "        slice_products<ND>(acc, da + 2 * kk, db + 2 * kk, "
+                      "std::make_integer_sequence<int, ND>{});")]
 # name -> (kernel source, {file: [(old text, new text), ...]})
-COMMITTED = {"kernel1": (KERNEL1, {}), "pipelined": (PIPELINED, {})}
+COMMITTED = {"kernel1": (KERNEL1, {}), "pipelined": (PIPELINED, {}), "kernel2": (BANDED, {})}
 VARIANTS = {
     # kernel 1 ring depth
     "stages4": (KERNEL1, {HEADER: [("constexpr int MAX_STAGES = 8;", "constexpr int MAX_STAGES = 4;")]}),
@@ -131,8 +209,23 @@ VARIANTS = {
         EPI3, "      if (E.m < 0)" + EPI3[5:])]}),
     "p_epilogue_only": (PIPELINED, {HEADER: [NO_MMA, NO_TMA]}),
     "p_no_generation": (PIPELINED, {PIPELINED: [("    if (gen) {", "    if (gen && l < 0) {")]}),
+    # kernel 2: the digit-pair products instead of the windows; its
+    # ablations (the tensor cores idle, no bytes moved, both: the epilogue
+    # and the barrier pipeline alone; no epilogue)
+    "k2_pairs": (BANDED, {BANDED: K2_PAIRS}),
+    "k2_pairs_rega": (BANDED, {BANDED: K2_REGA}),
+    "k2_slices": (BANDED, {BANDED: K2_SLICES}),
+    # a producer warpgroup (384 threads, as kernels 1 and 3): ptxas caps the
+    # registers at 168 and spills
+    "k2_384": (BANDED, {BANDED: [("constexpr int THREADS2 = 2 * 128 + 32;",
+                                  "constexpr int THREADS2 = 3 * 128;")]}),
+    "k2_no_mma": (BANDED, {BANDED: [K2_NO_MMA]}),
+    "k2_no_tma": (BANDED, {BANDED: [K2_NO_TMA]}),
+    "k2_epilogue_only": (BANDED, {BANDED: [K2_NO_MMA, K2_NO_TMA]}),
+    "k2_no_epilogue": (BANDED, {BANDED: [(K2_EPI, "    if (m > 0) continue;\n" + K2_EPI)]}),
 }
-SYMBOLS = {KERNEL1: "pvw_fused_scaled_noise_matmul", PIPELINED: "pvw_fused_pipelined_matmul"}
+SYMBOLS = {KERNEL1: "pvw_fused_scaled_noise_matmul", PIPELINED: "pvw_fused_pipelined_matmul",
+           BANDED: "pvw_banded_matmul"}
 
 
 def spec(name: str):
@@ -231,6 +324,8 @@ def main(argv) -> int:
         g = ((*cs.V3K_KEY, 0, 0), 1, bound, "tfry")
         for name, lib in libs.items():
             kernel = spec(name)[0]
+            if kernel == BANDED:
+                continue
             fn = getattr(lib, SYMBOLS[kernel])
             fn.restype = ctypes.c_int
             if kernel == KERNEL1:
@@ -285,7 +380,58 @@ def main(argv) -> int:
         fm._kernel_fn = kernel_fn
         del planes, rd, noise, enc
         torch.cuda.empty_cache()
+    time_kernel2({name: lib for name, lib in libs.items() if spec(name)[0] == BANDED}, dev, card)
     return 0
+
+
+def time_kernel2(libs: dict, dev, card: str) -> None:
+    """Kernel 2's builds at its two full shapes (chip_smoke's banded
+    ones), launched on one set of k-packed digit planes: median of 5 with
+    the spread; each build that is no ablation held against the committed
+    kernel's output, itself held against the twin."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    banded_fn = fm._banded_fn
+    shapes = (("toy", get_ring(cs.MODULI, cs.ELL), *cs.BANDED_TOY),
+              ("config-4", get_ring(generate_ntt_primes(61, 17, cs.DEEP_ELL), cs.DEEP_ELL),
+               cs.DEEP_N, cs.DEEP_K, cs.DEEP_N))
+    for label, ring, m, k, n in shapes:
+        L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+        gen = torch.Generator(device=dev).manual_seed(4)
+        a, b = cs.residue_pair(ring, m, k, n, gen, dev)
+        ap = fm.digit_planes_kpacked(a.reshape(L * S, m, k), nd)
+        bp = fm.digit_planes_kpacked(b.reshape(L * S, k, n), nd, transpose=True)
+        tables = fm._banded_tables(ring, S, dev)
+        want = None
+        for name, lib in libs.items():
+            fn = lib.pvw_banded_matmul
+            fn.argtypes, fn.restype = fm._BANDED_ARGTYPES, ctypes.c_int
+            fm._banded_fn = lambda fn=fn: fn
+            rec = {"shape": label, "variant": name, "card": card,
+                   **cs.kernel_times(lambda: fm.banded_matmul(ap, bp, tables))}
+            if name == "kernel2":
+                want = fm.banded_matmul(ap, bp, tables)
+                rec["max_abs_err_vs_twin"] = cs.max_abs_err(want, cs.channels_plain_by_limb(
+                    ring, a, b).reshape(L * S, m, n))
+            elif "_no_" not in name and "only" not in name:
+                rec["bit_exact_vs_committed"] = bool(torch.equal(
+                    fm.banded_matmul(ap, bp, tables), want))
+            cs.emit(rec)
+        fm._banded_fn = banded_fn
+        a_int, b_int = ap.reshape(L * S, nd * m, k), bp.reshape(L * S, nd * n, k)
+
+        def library():
+            for c in range(L * S):
+                torch._int_mm(a_int[c], b_int[c].t())
+
+        cs.emit({"shape": label, "variant": "torch._int_mm", "card": card,
+                 "ms": cs.cuda_ms(library, reps=5)})
+        del a, b, ap, bp, a_int, b_int, want
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

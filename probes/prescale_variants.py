@@ -16,8 +16,12 @@ round times every build once (ten launches between two CUDA events, the
 time a launch), the builds in turn, so that they share the card's state;
 the median over the rounds, with the spread. Every build's band is held
 against the committed kernel's, byte for byte (pads included). The
-committed wrapper ``fused_modmat.ntt_prescale_band`` (its tables made and
-uploaded each call, as ``chip_smoke.py`` times it) is timed beside them.
+committed wrapper ``fused_modmat.ntt_prescale_band`` (its tables cached
+per ring, as ``chip_smoke.py`` times it) is timed beside them.
+``shuffle_gather`` (``probes/prescale_shuffle.cu``) and ``lane16``
+(``probes/prescale_lane16.cu``) are whole sources with the committed
+entry: the two ways to store where nd does not divide 16 without staging
+bytes in shared memory.
 
 ``--baseline SOURCE``: an n-major form of the kernel (entry
 ``pvw_ntt_prescale_band(coeffs, ntab, tabs, out, L, deg, jr, k, d, nd,
@@ -121,6 +125,13 @@ VARIANTS = {
          "          if ((int)threadIdx.x < chunks && kd_pad < 0)\n")]},
 }
 ABLATIONS = ("no_stage", "no_stores", "coalesced_coeffs")
+# whole-source variants with the committed entry: the store path where nd
+# does not divide 16 without shared memory, (a) as warp shuffles
+# (``shuffle_gather``, any shape) or (b) with lanes that own 16 k rows, so
+# that each stores nd whole 16-byte chunks a plane (``lane16``, the probe's
+# two r shapes only)
+WHOLE = {"shuffle_gather": ROOT / "probes" / "prescale_shuffle.cu",
+         "lane16": ROOT / "probes" / "prescale_lane16.cu"}
 
 
 def variant_dir(name: str, edits: dict) -> Path:
@@ -178,7 +189,11 @@ def main(argv) -> int:
         return 2
     shutil.rmtree(ROOT / "build" / "prescale_variants", ignore_errors=True)
     srcs = {"committed": variant_dir("committed", {}) / SOURCE}
-    srcs |= {n: variant_dir(n, VARIANTS[n]) / SOURCE for n in args.variants or VARIANTS}
+    names = args.variants or [*VARIANTS, *WHOLE]
+    srcs |= {n: variant_dir(n, VARIANTS[n]) / SOURCE for n in names if n in VARIANTS}
+    for n in (n for n in names if n in WHOLE):
+        srcs[n] = variant_dir(n, {}) / SOURCE
+        shutil.copy(WHOLE[n], srcs[n])
     if args.baseline is not None:
         base = ROOT / "build" / "prescale_variants" / "n_major"
         base.mkdir(parents=True, exist_ok=True)
@@ -195,8 +210,7 @@ def main(argv) -> int:
         L, l, nd = ring.num_limbs, ring.degree, ring.num_digits
         gen = torch.Generator(device=dev).manual_seed(7)
         c = cs.r_coeffs(k, d, l, 1, gen, dev).to(torch.int32).contiguous()
-        ntab = fm._prescale_ntab(ring, 1, dev).contiguous()
-        tabs = fm.u.u64_tensor(fm._prescale_tabs(ring, nd), dev)
+        ntab, tabs = fm._prescale_tables(ring, 1, dev)
         kd = k * nd
         kd_pad = -(-kd // 16) * 16
         # the committed kernel's band, then one output for the k-packed

@@ -1,8 +1,7 @@
-// Pieces shared by the fused matmul kernels: the mma.sync int8 tensor-core
-// product and the 16-byte staging load of kernel 2 (banded_matmul.cu), and
-// the exact fold of nd int32 columns to a canonical residue with the gadget
-// encode, which kernels 1 and 3 (on wgmma, wgmma_digit.cuh) run in their
-// epilogues.
+// Pieces shared by the fused matmul kernels on wgmma (wgmma_digit.cuh): the
+// 16-byte load of their noise staging, and the exact fold of nd int32
+// columns to a canonical residue with the gadget encode, which kernels 1 and
+// 3 run in their epilogues.
 
 #pragma once
 
@@ -22,15 +21,6 @@ __device__ __forceinline__ uint4 load16(const int8_t* p, long long avail, bool v
   for (int b = 0; b < 16; ++b)
     if (b < avail) w[b / 4] |= (uint32_t)(uint8_t)p[b] << (8 * (b % 4));
   return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Per-channel fold constants, from tables [CH, TAB] int64: q, bias K

@@ -20,6 +20,10 @@
 // the fold runs there, with no shuffle. TMA zero-fills past kd, rows, cols,
 // so no tail code touches the contraction.
 //
+// Kernel 2 (csrc/banded_matmul.cu) uses the primitives below (mbarriers,
+// TMA loads, Wgmma<16(2nd-1)> into all its columns) with a stage
+// layout and roles of its own.
+//
 // Roles (one big if/else a kernel, as setmaxnreg needs): warpgroup 0 is the
 // producer (one thread starts the TMA copies: it waits on a stage's
 // ``empty`` barrier and arms its ``full`` barrier with the stage's bytes),
@@ -142,67 +146,120 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// wgmma.mma_async m64n(32*ND)k32 s32.s8.s8, A and B from shared memory;
-// ``acc`` 0 overwrites d, else adds to it. One asm body, specialised for
-// each ND by PVW_WGMMA: the 16*ND accumulator operands come in groups of
-// 16 (PVW_WG_Dg names the operands of group g, PVW_WG_OPS(g) binds them),
-// followed by the two descriptors and the flag.
-template <int ND>
+// wgmma.mma_async m64nNk32 s32.s8.s8, A and B from shared memory, into the
+// N/2 registers of ``d`` from register OFF on (a slice of a larger
+// accumulator; products in flight into overlapping slices are not ordered,
+// only those of one shape into the same registers are); ``acc`` 0
+// overwrites them, else adds to them. One asm body,
+// instantiated for each N by PVW_WGMMA(N, G, A, B, F): the accumulator
+// operands come in G = N/16 groups of 8 (PVW_WG_G names the operands of a
+// group, PVW_WG_D<G> the first G, PVW_WG_O<G> binds them), followed by the
+// two descriptors and the flag (operands A, B, F = N/2, +1, +2).
+template <int N>
 struct Wgmma;
 
-#define PVW_WG_D0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-#define PVW_WG_D1 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define PVW_WG_D2 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-#define PVW_WG_D3 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define PVW_WG_D4 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
-#define PVW_WG_D5 "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-#define PVW_WG_D6 "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111"
-#define PVW_WG_D7 "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-#define PVW_WG_OPS(g)                                                                \
-  "+r"(d[16 * g + 0]), "+r"(d[16 * g + 1]), "+r"(d[16 * g + 2]), "+r"(d[16 * g + 3]),     \
-      "+r"(d[16 * g + 4]), "+r"(d[16 * g + 5]), "+r"(d[16 * g + 6]), "+r"(d[16 * g + 7]), \
-      "+r"(d[16 * g + 8]), "+r"(d[16 * g + 9]), "+r"(d[16 * g + 10]),                     \
-      "+r"(d[16 * g + 11]), "+r"(d[16 * g + 12]), "+r"(d[16 * g + 13]),                   \
-      "+r"(d[16 * g + 14]), "+r"(d[16 * g + 15])
-// ND, the instruction's N, the accumulator operand names, the descriptors'
-// and the flag's operand numbers (16*ND, +1, +2), then the bound operands
-#define PVW_WGMMA(ND, N, DSTR, A, B, FLAG, ...)                                     \
+#define PVW_WG_G0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define PVW_WG_G1 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define PVW_WG_G2 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define PVW_WG_G3 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define PVW_WG_G4 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define PVW_WG_G5 "%40, %41, %42, %43, %44, %45, %46, %47"
+#define PVW_WG_G6 "%48, %49, %50, %51, %52, %53, %54, %55"
+#define PVW_WG_G7 "%56, %57, %58, %59, %60, %61, %62, %63"
+#define PVW_WG_G8 "%64, %65, %66, %67, %68, %69, %70, %71"
+#define PVW_WG_G9 "%72, %73, %74, %75, %76, %77, %78, %79"
+#define PVW_WG_G10 "%80, %81, %82, %83, %84, %85, %86, %87"
+#define PVW_WG_G11 "%88, %89, %90, %91, %92, %93, %94, %95"
+#define PVW_WG_G12 "%96, %97, %98, %99, %100, %101, %102, %103"
+#define PVW_WG_G13 "%104, %105, %106, %107, %108, %109, %110, %111"
+#define PVW_WG_G14 "%112, %113, %114, %115, %116, %117, %118, %119"
+#define PVW_WG_G15 "%120, %121, %122, %123, %124, %125, %126, %127"
+#define PVW_WG_D1 PVW_WG_G0
+#define PVW_WG_D2 PVW_WG_D1 ", " PVW_WG_G1
+#define PVW_WG_D3 PVW_WG_D2 ", " PVW_WG_G2
+#define PVW_WG_D4 PVW_WG_D3 ", " PVW_WG_G3
+#define PVW_WG_D5 PVW_WG_D4 ", " PVW_WG_G4
+#define PVW_WG_D6 PVW_WG_D5 ", " PVW_WG_G5
+#define PVW_WG_D7 PVW_WG_D6 ", " PVW_WG_G6
+#define PVW_WG_D8 PVW_WG_D7 ", " PVW_WG_G7
+#define PVW_WG_D9 PVW_WG_D8 ", " PVW_WG_G8
+#define PVW_WG_D10 PVW_WG_D9 ", " PVW_WG_G9
+#define PVW_WG_D11 PVW_WG_D10 ", " PVW_WG_G10
+#define PVW_WG_D12 PVW_WG_D11 ", " PVW_WG_G11
+#define PVW_WG_D13 PVW_WG_D12 ", " PVW_WG_G12
+#define PVW_WG_D14 PVW_WG_D13 ", " PVW_WG_G13
+#define PVW_WG_D15 PVW_WG_D14 ", " PVW_WG_G14
+#define PVW_WG_D16 PVW_WG_D15 ", " PVW_WG_G15
+#define PVW_WG_O(g)                                                                      \
+  "+r"(d[OFF + 8 * g + 0]), "+r"(d[OFF + 8 * g + 1]), "+r"(d[OFF + 8 * g + 2]),          \
+      "+r"(d[OFF + 8 * g + 3]), "+r"(d[OFF + 8 * g + 4]), "+r"(d[OFF + 8 * g + 5]),      \
+      "+r"(d[OFF + 8 * g + 6]), "+r"(d[OFF + 8 * g + 7])
+#define PVW_WG_O1 PVW_WG_O(0)
+#define PVW_WG_O2 PVW_WG_O1, PVW_WG_O(1)
+#define PVW_WG_O3 PVW_WG_O2, PVW_WG_O(2)
+#define PVW_WG_O4 PVW_WG_O3, PVW_WG_O(3)
+#define PVW_WG_O5 PVW_WG_O4, PVW_WG_O(4)
+#define PVW_WG_O6 PVW_WG_O5, PVW_WG_O(5)
+#define PVW_WG_O7 PVW_WG_O6, PVW_WG_O(6)
+#define PVW_WG_O8 PVW_WG_O7, PVW_WG_O(7)
+#define PVW_WG_O9 PVW_WG_O8, PVW_WG_O(8)
+#define PVW_WG_O10 PVW_WG_O9, PVW_WG_O(9)
+#define PVW_WG_O11 PVW_WG_O10, PVW_WG_O(10)
+#define PVW_WG_O12 PVW_WG_O11, PVW_WG_O(11)
+#define PVW_WG_O13 PVW_WG_O12, PVW_WG_O(12)
+#define PVW_WG_O14 PVW_WG_O13, PVW_WG_O(13)
+#define PVW_WG_O15 PVW_WG_O14, PVW_WG_O(14)
+#define PVW_WG_O16 PVW_WG_O15, PVW_WG_O(15)
+#define PVW_WGMMA(N, G, A, B, F)                                                      \
   template <>                                                                      \
-  struct Wgmma<ND> {                                                               \
-    __device__ __forceinline__ static void mma(int32_t (&d)[16 * ND], uint64_t a,  \
+  struct Wgmma<N> {                                                                \
+    template <int OFF, int R>                                                      \
+    __device__ __forceinline__ static void mma(int32_t (&d)[R], uint64_t a,        \
                                                uint64_t b, int acc) {              \
-      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " FLAG ", 0;\n"                 \
-                   "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 {" DSTR     \
-                   "}, " A ", " B ", p;\n}\n"                                        \
-                   : __VA_ARGS__                                                   \
+      static_assert(OFF >= 0 && OFF + N / 2 <= R, "accumulator slice out of range"); \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #F ", 0;\n"                \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 {"        \
+                   PVW_WG_D##G "}, %" #A ", %" #B ", p;\n}\n"                       \
+                   : PVW_WG_O##G                                                   \
                    : "l"(a), "l"(b), "r"(acc));                                    \
     }                                                                              \
   };
 
-PVW_WGMMA(1, 32, PVW_WG_D0, "%16", "%17", "%18", PVW_WG_OPS(0))
-PVW_WGMMA(2, 64, PVW_WG_D0 ", " PVW_WG_D1, "%32", "%33", "%34", PVW_WG_OPS(0), PVW_WG_OPS(1))
-PVW_WGMMA(3, 96, PVW_WG_D0 ", " PVW_WG_D1 ", " PVW_WG_D2, "%48", "%49", "%50",
-          PVW_WG_OPS(0), PVW_WG_OPS(1), PVW_WG_OPS(2))
-PVW_WGMMA(4, 128, PVW_WG_D0 ", " PVW_WG_D1 ", " PVW_WG_D2 ", " PVW_WG_D3, "%64", "%65", "%66",
-          PVW_WG_OPS(0), PVW_WG_OPS(1), PVW_WG_OPS(2), PVW_WG_OPS(3))
-PVW_WGMMA(5, 160, PVW_WG_D0 ", " PVW_WG_D1 ", " PVW_WG_D2 ", " PVW_WG_D3 ", " PVW_WG_D4,
-          "%80", "%81", "%82", PVW_WG_OPS(0), PVW_WG_OPS(1), PVW_WG_OPS(2), PVW_WG_OPS(3),
-          PVW_WG_OPS(4))
-PVW_WGMMA(6, 192, PVW_WG_D0 ", " PVW_WG_D1 ", " PVW_WG_D2 ", " PVW_WG_D3 ", " PVW_WG_D4
-          ", " PVW_WG_D5, "%96", "%97", "%98", PVW_WG_OPS(0), PVW_WG_OPS(1), PVW_WG_OPS(2),
-          PVW_WG_OPS(3), PVW_WG_OPS(4), PVW_WG_OPS(5))
-PVW_WGMMA(7, 224, PVW_WG_D0 ", " PVW_WG_D1 ", " PVW_WG_D2 ", " PVW_WG_D3 ", " PVW_WG_D4
-          ", " PVW_WG_D5 ", " PVW_WG_D6, "%112", "%113", "%114", PVW_WG_OPS(0),
-          PVW_WG_OPS(1), PVW_WG_OPS(2), PVW_WG_OPS(3), PVW_WG_OPS(4), PVW_WG_OPS(5),
-          PVW_WG_OPS(6))
-PVW_WGMMA(8, 256, PVW_WG_D0 ", " PVW_WG_D1 ", " PVW_WG_D2 ", " PVW_WG_D3 ", " PVW_WG_D4
-          ", " PVW_WG_D5 ", " PVW_WG_D6 ", " PVW_WG_D7, "%128", "%129", "%130",
-          PVW_WG_OPS(0), PVW_WG_OPS(1), PVW_WG_OPS(2), PVW_WG_OPS(3), PVW_WG_OPS(4),
-          PVW_WG_OPS(5), PVW_WG_OPS(6), PVW_WG_OPS(7))
+PVW_WGMMA(16, 1, 8, 9, 10)
+PVW_WGMMA(32, 2, 16, 17, 18)
+PVW_WGMMA(48, 3, 24, 25, 26)
+PVW_WGMMA(64, 4, 32, 33, 34)
+PVW_WGMMA(80, 5, 40, 41, 42)
+PVW_WGMMA(96, 6, 48, 49, 50)
+PVW_WGMMA(112, 7, 56, 57, 58)
+PVW_WGMMA(128, 8, 64, 65, 66)
+PVW_WGMMA(144, 9, 72, 73, 74)
+PVW_WGMMA(160, 10, 80, 81, 82)
+PVW_WGMMA(176, 11, 88, 89, 90)
+PVW_WGMMA(192, 12, 96, 97, 98)
+PVW_WGMMA(208, 13, 104, 105, 106)
+PVW_WGMMA(224, 14, 112, 113, 114)
+PVW_WGMMA(240, 15, 120, 121, 122)
+PVW_WGMMA(256, 16, 128, 129, 130)
 
 #undef PVW_WGMMA
-#undef PVW_WG_OPS
-#undef PVW_WG_D0
+#undef PVW_WG_O
+#undef PVW_WG_G0
+#undef PVW_WG_G1
+#undef PVW_WG_G2
+#undef PVW_WG_G3
+#undef PVW_WG_G4
+#undef PVW_WG_G5
+#undef PVW_WG_G6
+#undef PVW_WG_G7
+#undef PVW_WG_G8
+#undef PVW_WG_G9
+#undef PVW_WG_G10
+#undef PVW_WG_G11
+#undef PVW_WG_G12
+#undef PVW_WG_G13
+#undef PVW_WG_G14
+#undef PVW_WG_G15
 #undef PVW_WG_D1
 #undef PVW_WG_D2
 #undef PVW_WG_D3
@@ -210,6 +267,31 @@ PVW_WGMMA(8, 256, PVW_WG_D0 ", " PVW_WG_D1 ", " PVW_WG_D2 ", " PVW_WG_D3 ", " PV
 #undef PVW_WG_D5
 #undef PVW_WG_D6
 #undef PVW_WG_D7
+#undef PVW_WG_D8
+#undef PVW_WG_D9
+#undef PVW_WG_D10
+#undef PVW_WG_D11
+#undef PVW_WG_D12
+#undef PVW_WG_D13
+#undef PVW_WG_D14
+#undef PVW_WG_D15
+#undef PVW_WG_D16
+#undef PVW_WG_O1
+#undef PVW_WG_O2
+#undef PVW_WG_O3
+#undef PVW_WG_O4
+#undef PVW_WG_O5
+#undef PVW_WG_O6
+#undef PVW_WG_O7
+#undef PVW_WG_O8
+#undef PVW_WG_O9
+#undef PVW_WG_O10
+#undef PVW_WG_O11
+#undef PVW_WG_O12
+#undef PVW_WG_O13
+#undef PVW_WG_O14
+#undef PVW_WG_O15
+#undef PVW_WG_O16
 
 // The ring: S stages of [A | B] from a 1024-byte boundary, then the
 // ``extra`` bytes a kernel keeps beside it, then the full and empty
@@ -283,7 +365,7 @@ __device__ __forceinline__ void contract(int32_t (&acc)[16 * ND], const Ring<ND>
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KT / 32; ++kk)
-      Wgmma<ND>::mma(acc, da + 2 * kk, db + 2 * kk, kb | kk);
+      Wgmma<32 * ND>::template mma<0>(acc, da + 2 * kk, db + 2 * kk, kb | kk);
     wgmma_commit();
     wgmma_wait<1>();                    // the previous stage's products are done
     if (prev >= 0 && lane0) mbar_arrive(&R.empty[prev]);

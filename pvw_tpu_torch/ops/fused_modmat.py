@@ -55,8 +55,11 @@ cards.
 :func:`matmul_channels_fused` (also :func:`matmul_fold_auto`) is the
 counterpart of ``pvw_tpu.ops.pallas_modmat.matmul_channels_pallas``: the
 modular matmul of two residue matrices per channel by the digit
-convolution, kernel 2 (``csrc/banded_matmul.cu``) on a card; its plain twin
-is :func:`~pvw_tpu_torch.ops.modmat.matmul_channels`.
+convolution, kernel 2 (``csrc/banded_matmul.cu``, on wgmma with a TMA
+ring; plain twin :func:`banded_matmul_plain`) on the operands' digit
+planes, which :func:`digit_planes_kpacked` lays out k-packed
+(``csrc/digit_planes.cu``); the entry's plain twin is
+:func:`~pvw_tpu_torch.ops.modmat.matmul_channels`.
 
 Two opt-in forms of the same product, as in the JAX package:
 
@@ -81,7 +84,7 @@ import torch
 
 from . import u64 as u
 from ._build import load
-from .modmat import (_fold_leading, digits, exact_int_matmul, k_rows, k_rows_ok,
+from .modmat import (_column_sums, _fold_leading, digits, exact_int_matmul, k_rows, k_rows_ok,
                      matmul_channels, operand_strides, prescale_digits_band, scaled_cols)
 from .ntt import ntt_forward_signed_ch, signed_digit_count
 from .tfry import reduce96, v3k_noise_digit_planes
@@ -93,6 +96,7 @@ KERNEL = "fused_scaled_noise_matmul"
 SWAPPED_KERNEL = "fused_scaled_noise_matmul_swapped"     # in KERNEL's source
 MASKED_KERNEL = "fused_scaled_noise_matmul_masked"       # KERNEL's masked launches
 BANDED_KERNEL = "banded_matmul"
+DIGITS_KERNEL = "digit_planes"                           # kernel 2's operand layout
 BANDED_TABLE_WIDTH = 10
 PIPELINED_KERNEL = "fused_pipelined_matmul"
 NOISE_KERNEL = "v3k_noise_planes"
@@ -798,9 +802,105 @@ def matmul_fold_swapped(lhs_planes, rhs_dig, ring: "RingPlan", noise=None, encod
 # kernel 2: the product of two residue matrices by the digit convolution
 # --------------------------------------------------------------------------
 
+_BANDED_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] \
+    + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+#: The balanced-digit bias: byte j of ``(x + DIGIT_BIAS) ^ DIGIT_BIAS`` is
+#: digit j of x's balanced base-256 form (the final carry dropped), as
+#: kernel 4 splits its scales (``csrc/ntt_prescale_band.cu``, step (d)).
+DIGIT_BIAS = 0x8080808080808080 - (1 << 64)                  # as int64
+
+#: Fold and prescale tables built for a launch (:func:`_banded_tables`,
+#: :func:`_prescale_tables`); each is built once per ring and device.
+table_builds = 0
+
+
+def digit_planes_kpacked_plain(x, nd: int, transpose: bool = False):
+    """Plain PyTorch version of :func:`digit_planes_kpacked`: one int64
+    add and one xor give all eight digits (:data:`DIGIT_BIAS`), and one
+    strided copy of their first nd bytes lays the planes out."""
+    if transpose:
+        x = x.transpose(-1, -2)
+    ch, rows, k = x.shape
+    y = torch.empty((ch, rows, k), dtype=torch.int64, device=x.device)
+    torch.add(x, DIGIT_BIAS, out=y)
+    y ^= DIGIT_BIAS
+    store = torch.empty((ch, nd, rows, -(-k // 16) * 16), dtype=torch.int8, device=x.device)
+    store[..., k:] = 0
+    planes = store[..., :k]
+    planes.copy_(y.view(torch.int8).reshape(ch, rows, k, 8)[..., :nd].permute(0, 3, 1, 2))
+    return planes
+
+
+def _digits_fn():
+    fn = load(DIGITS_KERNEL).pvw_digit_planes
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def digit_planes_kpacked(x, nd: int, transpose: bool = False):
+    """Residues x int64 [CH, rows, k] (``transpose``: [CH, k, rows]) ->
+    their nd balanced signed digits as int8 planes [CH, nd, rows, k], laid
+    out k-packed as kernel 2 reads them: storage [CH, nd, rows, k_pad]
+    (k_pad = k rounded up to 16, the pads zero) returned as the view
+    [..., :k]. The digits are those of ``u64.to_signed_digits``.
+
+    CUDA tensors launch ``csrc/digit_planes.cu`` on the current stream
+    (counted in ``digit_planes_kpacked.launches``); CPU tensors take the
+    plain twin :func:`digit_planes_kpacked_plain`; anything else raises."""
+    dev = x.device
+    if dev.type == "cpu":
+        return digit_planes_kpacked_plain(x, nd, transpose)
+    if dev.type != "cuda":
+        raise ValueError(f"digit_planes_kpacked: unsupported device {dev}")
+    if x.dtype != torch.int64:
+        raise ValueError(f"digit_planes_kpacked: expected int64 residues, got {x.dtype}")
+    if transpose:
+        x = x.transpose(-1, -2)
+    ch, rows, k = x.shape
+    store = torch.empty((ch, nd, rows, -(-k // 16) * 16), dtype=torch.int8, device=dev)
+    _launch(DIGITS_KERNEL, _digits_fn(), dev, _ptr(x), *x.stride(), _ptr(store), ch, rows, k,
+            store.shape[-1], nd)
+    digit_planes_kpacked.launches += 1
+    return store[..., :k]
+
+
+digit_planes_kpacked.launches = 0
+
+
+def _banded_tables(ring: "RingPlan", S: int, device):
+    """Kernel 2's fold tables int64 [L*S, 10] (:func:`_pack_tables` of
+    2nd-1 columns, four groups, each limb's row repeated for its S
+    channels), cached per (ring, S, device)."""
+    def make(dev):
+        global table_builds
+        table_builds += 1
+        nd = ring.num_digits
+        return u.u64_tensor(_pack_tables(ring, 2 * nd - 1, BANDED_TABLE_WIDTH),
+                            dev).repeat_interleave(S, dim=0)
+
+    return ring.cached(("banded_tables", S), device, make)
+
+
+def banded_matmul_plain(lhs_planes, rhs_planes, tables):
+    """Plain PyTorch version of :func:`banded_matmul`, the kernel's
+    contract: the nd^2 digit-pair products a_i . b_j summed into the
+    2nd-1 columns c = i + j, then the grouped fold with the tables' q, bias
+    and four (2^(32g) mod q, Shoup companion) pairs -> int64 [CH, m, n]."""
+    ch, nd, m, k = lhs_planes.shape
+    n = rhs_planes.shape[2]
+    p = exact_int_matmul(lhs_planes.reshape(ch, nd * m, k),
+                         rhs_planes.reshape(ch, nd * n, k).transpose(1, 2))
+    cols = _column_sums(p.reshape(ch, nd, m, nd, n), nd)           # [CH, m, n, C]
+    t = tables[:, None, None]
+    return u.fold_columns_grouped(cols, t[..., 2:10:2], t[..., 3:10:2], t[..., 1], t[..., 0])
+
+
 def _banded_fn():
     fn = load(BANDED_KERNEL).pvw_banded_matmul
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = _BANDED_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -808,18 +908,25 @@ def _banded_fn():
 def banded_matmul(lhs_planes, rhs_planes, tables):
     """Launch kernel 2 on the current stream. lhs_planes int8 [CH, nd, m, k]
     and rhs_planes int8 [CH, nd, n, k]: the balanced digits of the two
-    residue matrices, digit-major, k contiguous; tables int64 [CH, 10]
-    (:func:`_pack_tables` of 2nd-1 columns, four groups) -> int64
-    [CH, m, n]. Counts its launches in ``banded_matmul.launches``."""
+    residue matrices, digit-major, k contiguous, laid out as
+    :func:`~pvw_tpu_torch.ops.modmat.k_rows_ok` requires (16-byte strides:
+    :func:`digit_planes_kpacked` makes them so; other layouts raise);
+    tables int64 [CH, 10] (:func:`_banded_tables`) -> int64 [CH, m, n].
+    Counts its launches in ``banded_matmul.launches``. CPU tensors take
+    the plain twin :func:`banded_matmul_plain`."""
     ch, nd, m, k = lhs_planes.shape
     n = rhs_planes.shape[2]
     dev = lhs_planes.device
-    _check_args(dev, {"lhs_planes": (lhs_planes, torch.int8, (ch, nd, m, k)),
-                      "rhs_planes": (rhs_planes, torch.int8, (ch, nd, n, k)),
-                      "tables": (tables, torch.int64, (ch, BANDED_TABLE_WIDTH))})
+    if dev.type == "cpu":
+        return banded_matmul_plain(lhs_planes, rhs_planes, tables)
+    _check_operands(dev, {"lhs_planes": (lhs_planes, (ch, nd, m, k)),
+                          "rhs_planes": (rhs_planes, (ch, nd, n, k))})
+    _check_args(dev, {"tables": (tables, torch.int64, (ch, BANDED_TABLE_WIDTH))})
+    a_ch, a_plane, a_row = operand_strides(lhs_planes)
+    b_ch, b_plane, b_row = operand_strides(rhs_planes)
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    _launch(BANDED_KERNEL, _banded_fn(), dev, _ptr(lhs_planes), _ptr(rhs_planes),
-            _ptr(tables), _ptr(out), ch, m, n, k, nd)
+    _launch(BANDED_KERNEL, _banded_fn(), dev, _ptr(lhs_planes), a_row, a_plane, a_ch,
+            _ptr(rhs_planes), b_row, b_plane, b_ch, _ptr(tables), _ptr(out), ch, m, n, k, nd)
     banded_matmul.launches += 1
     return out
 
@@ -833,11 +940,14 @@ def matmul_channels_fused(lhs, rhs, ring: "RingPlan"):
     and rhs [L, S, k, n] -> [L, S, m, n].
 
     CUDA operands launch kernel 2 (``csrc/banded_matmul.cu``) on their
-    balanced digits, laid out digit-major and k-contiguous here; CPU
-    operands take the plain twin :func:`~pvw_tpu_torch.ops.modmat.
-    matmul_channels`; any other device raises. The JAX package's tile
-    arguments and its materialised band (``_build_band_cmajor``) have no
-    counterpart: the kernel contracts each digit pair once."""
+    balanced digits, laid out by ``csrc/digit_planes.cu``
+    (:func:`digit_planes_kpacked`), with the fold tables cached per ring
+    (:func:`_banded_tables`); CPU operands take the plain twin
+    :func:`~pvw_tpu_torch.ops.modmat.matmul_channels`; any other device
+    raises. The JAX package's tile arguments have no counterpart, nor has
+    its band in device memory (``_build_band_cmajor``): the kernel reads
+    windows of the rhs digit planes between zero blocks in shared
+    memory."""
     L, S, m, k = lhs.shape
     n = rhs.shape[-1]
     if tuple(rhs.shape[:3]) != (L, S, k):
@@ -852,11 +962,9 @@ def matmul_channels_fused(lhs, rhs, ring: "RingPlan"):
     if dev.type != "cuda":
         raise ValueError(f"matmul_channels_fused: unsupported device {dev}")
     nd = ring.num_digits
-    a = digits(lhs, nd).reshape(L * S, m, k, nd).permute(0, 3, 1, 2).contiguous()
-    b = digits(rhs, nd).reshape(L * S, k, n, nd).permute(0, 3, 2, 1).contiguous()
-    tables = u.u64_tensor(_pack_tables(ring, 2 * nd - 1, BANDED_TABLE_WIDTH),
-                          dev).repeat_interleave(S, dim=0)
-    return banded_matmul(a, b, tables).reshape(L, S, m, n)
+    a = digit_planes_kpacked(lhs.reshape(L * S, m, k), nd)
+    b = digit_planes_kpacked(rhs.reshape(L * S, k, n), nd, transpose=True)
+    return banded_matmul(a, b, _banded_tables(ring, S, dev)).reshape(L, S, m, n)
 
 
 #: The JAX package's ``matmul_fold_auto`` (Pallas on a TPU, XLA elsewhere):
@@ -894,6 +1002,20 @@ def _prescale_ntab(ring: "RingPlan", jr: int, device):
     band = ring.table("ntt_band_jr", device, "fwd", jr)           # [L, C1*l, l*jr]
     C1 = band.shape[1] // l
     return band.reshape(L, C1, l, l * jr).permute(0, 2, 1, 3).reshape(L * l, C1, l * jr)
+
+
+def _prescale_tables(ring: "RingPlan", jr: int, device) -> tuple:
+    """(ntab, tabs) of kernel 4 for ``jr`` digit rows: the scaled twiddle
+    digits (:func:`_prescale_ntab`, contiguous) and the per-limb constants
+    (:func:`_prescale_tabs` of nd + jr - 1 columns), cached per (ring, jr,
+    device)."""
+    def make(dev):
+        global table_builds
+        table_builds += 1
+        return (_prescale_ntab(ring, jr, dev).contiguous(),
+                u.u64_tensor(_prescale_tabs(ring, ring.num_digits + jr - 1), dev))
+
+    return ring.cached(("prescale_tables", jr), device, make)
 
 
 def ntt_prescale_band_plain(coeffs, ring: "RingPlan", max_abs: int):
@@ -937,10 +1059,8 @@ def ntt_prescale_band(coeffs, ring: "RingPlan", max_abs: int):
         raise ValueError(f"ntt_prescale_band: the kernel takes ring degrees "
                          f"{PRESCALE_DEGREES}, got {l}")
     L, nd = ring.num_limbs, ring.num_digits
-    C1 = nd + jr - 1
     x = coeffs.to(torch.int32).contiguous()
-    ntab = _prescale_ntab(ring, jr, dev).contiguous()
-    tabs = u.u64_tensor(_prescale_tabs(ring, C1), dev)
+    ntab, tabs = _prescale_tables(ring, jr, dev)
     kd = k * nd
     out = torch.empty((L, l, nd, d, -(-kd // 16) * 16), dtype=torch.int8, device=dev)
     _launch(PRESCALE_KERNEL, _prescale_fn(), dev, _ptr(x), _ptr(ntab), _ptr(tabs),

@@ -197,19 +197,25 @@ class RingPlan:
         tables as int8. ``name`` is an attribute (``"q"``,
         ``"grp_w"``, ...) or, with ``args``, a method (``"ntt_scaled_tab"``,
         ``"bias_for_columns"``, ``"ntt_band_jr"``)."""
-        dev = torch.device(device)
-        key = (name, args, dev)
-        if key not in self._tensor_cache:
+        def make(dev):
             src = getattr(self, name)
             arr = np.asarray(src(*args) if args else src)
             if arr.dtype == np.uint64:
-                t = u64op.u64_tensor(arr, dev)
-            elif arr.dtype == np.uint32:
-                t = torch.from_numpy(arr.astype(np.int64)).to(dev)
-            else:
-                t = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-            self._tensor_cache[key] = t
-        return self._tensor_cache[key]
+                return u64op.u64_tensor(arr, dev)
+            if arr.dtype == np.uint32:
+                return torch.from_numpy(arr.astype(np.int64)).to(dev)
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+        return self.cached((name, args), device, make)
+
+    def cached(self, key, device, make):
+        """``make(device)`` (tensors) for (``key``, device), made once per
+        plan and device: the tables a kernel launch reads, so that a launch
+        builds and uploads none."""
+        dev = torch.device(device)
+        if (key, dev) not in self._tensor_cache:
+            self._tensor_cache[(key, dev)] = make(dev)
+        return self._tensor_cache[(key, dev)]
 
     # -- construction helpers ------------------------------------------
 

@@ -136,12 +136,14 @@ def test_prescale_kernel_equals_plain_twin(cuda_device, moduli, l, bound, k, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nd,k", [(3, 5), (5, 3), (6, 3), (7, 6), (8, 3)])
+@pytest.mark.parametrize("nd,k", [(3, 5), (5, 3), (6, 3), (7, 6), (8, 3), (3, 16), (5, 16),
+                                  (6, 8), (7, 16), (3, 37), (5, 40), (7, 33), (5, 256)])
 def test_prescale_kpacked_rows_equal_plain_twin(cuda_device, nd, k):
     """Kernel 4's k-packed storage, pads included, at every nd that goes
-    through the shared-memory gather (3, 5, 6, 7) and one that stores
-    directly (8), with k*nd off 16 bytes (15, 18, 42, 24: pads of 1 to 14
-    bytes, which must stay zero and must not spill into the next row)."""
+    through the shared-memory gather (3, 5, 6, 7) and one that stores directly
+    (8): k*nd off 16 bytes (15, 18, 42, 24, 111, 200, 231: pads of 1 to 14
+    bytes, which must stay zero and must not spill into the next row) and
+    on it (48, 80, 112, 1280), one warp's rows and several."""
     ring = RingPlan(CHAIN_BY_ND[nd], 8)
     c = torch.from_numpy(np.random.default_rng(nd).integers(-1, 2, (k, 70, 8))
                          .astype(np.int32))
@@ -625,7 +627,7 @@ def test_masked_post_equals_plain_twin(cuda_device, moduli, l, jr, lo, hi):
 def test_banded_kernel_equals_plain_twin(cuda_device, moduli, l, m, k, n):
     """Kernel 2 against ``modmat.matmul_channels``: C = 9 and 15 columns
     (and 7, a 31-bit modulus), m and n off its 64 x 32 tile, k multiples of
-    16 (16-byte staging) and odd k."""
+    16 and odd k."""
     ring = RingPlan(moduli, l)
     rng = np.random.default_rng(31)
     qs = ring.q.reshape(-1, 1, 1, 1)
@@ -640,13 +642,80 @@ def test_banded_kernel_equals_plain_twin(cuda_device, moduli, l, m, k, n):
     assert torch.equal(got.cpu(), want)
 
 
+# (m, k, n): m and n on, below and off kernel 2's 64 x 32 tile, k below
+# one 64-byte stage (1, 17, 40) and many stages (512)
+BANDED_EDGES = [(1, 1, 63), (63, 17, 1000), (65, 40, 1), (1000, 512, 65), (65, 512, 1000),
+                (1000, 40, 63)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k", [(1, 1), (63, 17), (65, 40), (130, 512), (1000, 100)])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("nd", range(1, 9))
+def test_digit_planes_kernel_equals_plain_twin(cuda_device, nd, transpose, rows, k):
+    """Kernel 2's operand layout kernel against its twin at every digit
+    count, both operand orientations (the rhs read transposed) and rows and
+    k off its 64 x 64 tile: every byte of the storage, pads included."""
+    ring = RingPlan(CHAIN_BY_ND[nd], 8)
+    rng = np.random.default_rng(50 + nd)
+    q = ring.q.reshape(-1, 1, 1, 1)
+    shape = (k, rows) if transpose else (rows, k)
+    x = u64.u64_tensor(rand_u64(rng, (ring.num_limbs, 8, *shape)) % q, cuda_device)
+    x[:, :, 0, 0] = torch.from_numpy(ring.q.astype(np.int64) - 1).to(cuda_device)[:, None]
+    x = x.reshape(-1, *shape)
+    before = fm.digit_planes_kpacked.launches
+    got = fm.digit_planes_kpacked(x, nd, transpose)
+    want = fm.digit_planes_kpacked_plain(x, nd, transpose)
+    torch.cuda.synchronize()
+    assert fm.digit_planes_kpacked.launches == before + 1
+    store = lambda p: torch.as_strided(p, (*p.shape[:-1], p.stride(-2)), p.stride())
+    assert got.stride() == want.stride() and torch.equal(store(got), store(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", BANDED_EDGES)
+@pytest.mark.parametrize("nd", range(1, 9))
+def test_banded_kernel_edges_equal_plain_twin(cuda_device, nd, m, k, n):
+    """Kernel 2 on wgmma at every digit count and the edge shapes: the
+    launch on the k-packed digit planes against its contract's twin
+    ``banded_matmul_plain``, and the entry ``matmul_fold_auto`` against
+    ``modmat.matmul_channels``, residues with 0 and q - 1 among them."""
+    ring = RingPlan(CHAIN_BY_ND[nd], 8)
+    assert ring.num_digits == nd
+    rng = np.random.default_rng(40 + nd)
+    L = ring.num_limbs
+    q = ring.q.reshape(-1, 1, 1, 1)
+    a = u64.u64_tensor(rand_u64(rng, (L, 8, m, k)) % q, cuda_device)
+    b = u64.u64_tensor(rand_u64(rng, (L, 8, k, n)) % q, cuda_device)
+    a[:, :, 0, 0] = torch.from_numpy(ring.q.astype(np.int64) - 1).to(cuda_device)[:, None]
+    b[:, :, 0, 0] = 0
+    ap = fm.digit_planes_kpacked(a.reshape(L * 8, m, k), nd)
+    bp = fm.digit_planes_kpacked(b.reshape(L * 8, k, n), nd, transpose=True)
+    tables = fm._banded_tables(ring, 8, cuda_device)
+    before = fm.banded_matmul.launches
+    got = fm.banded_matmul(ap, bp, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fm.banded_matmul_plain(ap, bp, tables))
+    got = fm.matmul_fold_auto(a, b, ring)
+    torch.cuda.synchronize()
+    assert fm.banded_matmul.launches == before + 2
+    assert torch.equal(got, modmat.matmul_channels(a, b, ring))
+
+
 @pytest.mark.cuda
 def test_banded_and_masked_failures_raise(cuda_device, monkeypatch):
-    """No fallback: refused launches of kernel 2 and of the masked form raise."""
+    """No fallback: refused launches of kernel 2, of its layout kernel and of
+    the masked form raise, and so do digit planes that are not k-packed."""
     ring = RingPlan(TOY, 8)
     a = torch.zeros((2, 8, 4, 3), dtype=torch.int64, device=cuda_device)
     b = torch.zeros((2, 8, 3, 5), dtype=torch.int64, device=cuda_device)
+    planes = torch.zeros((16, 5, 4, 3), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte strides"):     # rows not k-packed
+        fm.banded_matmul(planes, planes, fm._banded_tables(ring, 8, cuda_device))
     monkeypatch.setattr(fm, "_banded_fn", lambda: (lambda *args: 700))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fm.matmul_channels_fused(a, b, ring)
+    monkeypatch.setattr(fm, "_digits_fn", lambda: (lambda *args: 700))
     with pytest.raises(RuntimeError, match="launch failed"):
         fm.matmul_channels_fused(a, b, ring)
     monkeypatch.setattr(fm, "_kernel_fn", lambda symbol: (lambda *args: 700))
@@ -900,7 +969,8 @@ def test_wgmma_pipelined_edges_equal_plain_twin(cuda_device, nd, m, kd, n, noise
 @pytest.mark.cuda
 def test_wgmma_kernels_on_another_card(cuda_device):
     """The tensor maps are encoded and the kernels launched with the
-    operands' card current: kernels 1 (banded, swapped) and 3 on cuda:1."""
+    operands' card current: kernels 1 (banded, swapped), 3 and 2 on
+    cuda:1."""
     from pvw_tpu_torch.config import settings
 
     if torch.cuda.device_count() < 2:
@@ -920,5 +990,7 @@ def test_wgmma_kernels_on_another_card(cuda_device):
                                          lhs_dig=lhs_dig, noise_bound=bound))
     finally:
         del settings.pipeline_fold
+    banded = fm.matmul_fold_auto(a, b, ring)
     torch.cuda.synchronize(dev)
     assert all(g.device == dev and torch.equal(g, want) for g in got)
+    assert banded.device == dev and torch.equal(banded, modmat.matmul_channels(a, b, ring))
