@@ -23,7 +23,7 @@ CUDA events with its spread [min, max], beside the bound, the plain twin,
 to ``torch._int_mm``.
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   the six kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
+   the nine kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
    started together, into ``build/kernels``);
 2. kernel_vs_plain: kernel 1, the fused scaled-noise matmul, against its
    plain PyTorch twin at the keygen, c1 and c2 shapes of the main path at
@@ -87,6 +87,20 @@ to ``torch._int_mm``.
     bytes' bound;
     masked_timing: the masked and post= launches at the toy and config-4 c2
     shapes;
+16a. the probes' kernels (``pvw_tpu_torch/benchmarks``), each path at the
+    toy and config-4 c2 shapes with its own launch gates (and none of them
+    on any dealer path or backend): twopass_vs_plain (``fold_only`` against
+    its plain version over the whole int32 range, reduced shapes),
+    twopass_path (kernel 1 bare A; ``torch._int_mm`` into the int32 digit
+    columns B; ``fold_only`` of them C; C == A and ``fold_only`` == its
+    plain version, every residue) and twopass_timing (A, B, C, pass 2
+    alone, bounds, the verdict); int32_peak (bit-exact on the JAX probe's
+    (512, 1024) tile at 512 multiply-adds, then timed at 65536 and twice
+    that: the linearity gate, IMAD/s, the JAX count and
+    ``INT32_OPS_PER_S``); dot_structure_vs_plain and dot_structure_timing
+    (kernel 1's contraction with a trivial epilogue in the planes, one_dot
+    and wide band layouts against their plain versions, then timed beside
+    the int8 bound, ``torch._int_mm`` and kernel 1 bare);
 17. v3k_path: the toy chain under ``noise_stream="v3k"``, then
     v3k_breakdown;
 18. v3k_deep_path: config 4 under v3k on the deep path's keys: threshold
@@ -114,7 +128,7 @@ to ``torch._int_mm``.
     ``settings.pipeline_fold`` (keygen and both products through kernel 3,
     no generator launch), full decryption for parties 0 and 4095; then
     pipelined_breakdown;
-23. the kernels line (eight entries), then the last line
+23. the kernels line (thirteen entries), then the last line
     ``{"ok": true, "device": ...}``.
 """
 
@@ -129,32 +143,29 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the dense int8
-# tensor-core rate. 32-bit integer instructions (add, logic, shift,
-# multiply-add: one each) on the CUDA cores: at most one warp instruction a
-# clock from each of an SM's four schedulers, 132 SMs x 128 lanes x the 1.98
-# GHz boost clock. Not the 64 INT32 lanes alone (16.7e12 a second): the
-# compiler also issues integer adds as IMAD on the FP32 pipe, and the v3k
-# generator measured faster than the INT32 lanes allow (PERF.md). Not the
-# 67e12 float32 rate, which counts an FMA twice.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
-INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# the card's peaks that the bounds use (H100 SXM): HBM bandwidth, the dense
+# int8 tensor-core rate and the INT32 issue rate; the dealer paths' c2
+# shapes; the CUDA-event timings: a median ms, and a kernel's median of 5
+# runs with its spread
+from pvw_tpu_torch.benchmarks import (C2_SHAPES, HBM_BYTES_PER_S, INT8_OPS_PER_S,
+                                      INT32_OPS_PER_S, cuda_ms, kernel_times)
+
 # 32-bit operations of one v3k value: 1.5 Threefry-2x32-20 evaluations
 # (20 rounds of add, rotate and xor, five key injections of two adds, two
 # initial adds: 72) and the 96-bit reduction (three wide products, two
 # carries, the offset: 8); counters and digit splits not counted
 V3K_OPS_PER_VALUE = 1.5 * (20 * 3 + 5 * 2 + 2) + 8
 
-N_RECEIVERS, K_DIM, ELL = 4096, 256, 8
-MODULI = (0xFFFFC4001, 0x1FFFFE0001)
+# the toy chain: the moduli, ring degree, m receivers and k of its c2 product
+MODULI, ELL, N_RECEIVERS, K_DIM, _ = C2_SHAPES["toy"]
 COMPARE_BATCH = 512
 GOLDEN_MODULI = (0xFFFFEE001, 0xFFFFC4001, 0x1FFFFE0001)
 GOLDEN = {"crs": "87295f5306ea364d", "secret_key": "d3bc51f25628c4f5",
           "global_pk": "8d40adf52c1c9af2", "c1": "9c7654078768ba8f",
           "c2": "2d627fd108fc81bd"}
-# BASELINE config 4: presets.threshold_256bit(1024)
-DEEP_N, DEEP_K, DEEP_ELL = 1024, 512, 16
+# BASELINE config 4: presets.threshold_256bit(1024), its chain named by
+# its primes (bits, count)
+DEEP_PRIMES, DEEP_ELL, DEEP_N, DEEP_K, _ = C2_SHAPES["config-4"]
 DEEP_COMPARE_BATCH = 256
 DEEP_THRESHOLD = 683                                  # ceil(2n/3)
 # the reference's 128-bit example: presets.secure_128_reference(1024)
@@ -179,35 +190,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_times(fn, reps: int, warmup: int = 1) -> list:
-    """Milliseconds of ``fn`` in each of ``reps`` runs, CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
-    return statistics.median(cuda_times(fn, reps, warmup))
-
-
-def kernel_times(fn, reps: int = 5) -> dict:
-    """The median ms of ``fn`` over ``reps`` runs and its spread [min, max]."""
-    t = cuda_times(fn, reps)
-    return {"ms": statistics.median(t), "ms_spread": [min(t), max(t)]}
 
 
 def ratios(rec: dict) -> dict:
@@ -255,11 +237,14 @@ ROW_RELAYOUTS = "row_relayouts"
 
 def _counters() -> dict:
     """(wrapper, attribute) of each kernel's launch count; kernel 1's
-    masked and bare launches are also among its own; and the module's counts
-    of band and row relayouts."""
+    masked and bare launches are also among its own; the probes' kernels
+    (the dot-structure kernel per layout); and the module's counts of band
+    and row relayouts."""
+    from pvw_tpu_torch.benchmarks import fold_roofline, probe_dot_structure, probe_twopass
     from pvw_tpu_torch.ops import fused_modmat as fm
 
     k1 = fm.fused_scaled_noise_matmul
+    ds = probe_dot_structure.dot_structure
     return {fm.KERNEL: (k1, "launches"),
             fm.PRESCALE_KERNEL: (fm.ntt_prescale_band, "launches"),
             fm.NOISE_KERNEL: (fm.v3k_noise_planes, "launches"),
@@ -269,8 +254,26 @@ def _counters() -> dict:
             fm.BANDED_KERNEL: (fm.banded_matmul, "launches"),
             fm.DIGITS_KERNEL: (fm.digit_planes_kpacked, "launches"),
             BARE: (k1, "bare_launches"),
+            fm.FOLD_ONLY_KERNEL: (probe_twopass.fold_only, "launches"),
+            fm.INT32_PEAK_KERNEL: (fold_roofline.int32_peak, "launches"),
+            **{dot_name(layout): (ds, f"{layout}_launches") for layout in fm.DOT_LAYOUTS},
             RELAYOUTS: (fm, "band_relayouts"),
             ROW_RELAYOUTS: (fm, "row_relayouts")}
+
+
+def dot_name(layout: str) -> str:
+    """The kernels line's and the counters' name of a dot-structure layout."""
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    return f"{fm.DOT_KERNEL}_{layout}"
+
+
+def probe_kernels() -> list:
+    """The counters' names of the probes' kernels, which no dealer path or
+    backend launches."""
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    return [fm.FOLD_ONLY_KERNEL, fm.INT32_PEAK_KERNEL, *map(dot_name, fm.DOT_LAYOUTS)]
 
 
 def reset_launches() -> None:
@@ -562,7 +565,7 @@ def phase_prescale_vs_plain(dev) -> int:
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    deep = generate_ntt_primes(61, 17, DEEP_ELL)
+    deep = generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL)
     cases = [("toy chain", MODULI, ELL, 1, K_DIM, COMPARE_BATCH),
              ("4 x 55-bit chain, d off the 256-column tile", presets.MODULI_55BIT4, ELL, 1,
               K_DIM, 1000),
@@ -640,7 +643,7 @@ def phase_deep_kernel_vs_plain(dev) -> int:
     from pvw_tpu_torch.params.ring import get_ring
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
-    ring = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    ring = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
     gen = torch.Generator(device=dev).manual_seed(4)
     d = DEEP_COMPARE_BATCH
     cases = [("keygen", d, DEEP_K, 1, None, True),
@@ -745,7 +748,7 @@ def phase_deep_timing(dev, card: str) -> dict:
     from pvw_tpu_torch.params.ring import get_ring
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
-    ring = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    ring = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
     return {"prescale": prescale_timing(ring, DEEP_K, DEEP_N, 5, dev, card),
             "prescale_toy": prescale_timing(get_ring(MODULI, ELL), K_DIM, N_RECEIVERS, 6,
                                             dev, card),
@@ -796,7 +799,7 @@ def phase_v3k_vs_plain(dev) -> int:
                                             col_off, dev))
 
     toy = get_ring(MODULI, ELL)
-    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    deep = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
     ref = get_ring(presets.MODULI_55BIT4, 8)
     gen = torch.Generator(device=dev).manual_seed(7)
     # gen_noise: name, ring, m, k, n, jr, value rows, row offset, column offset
@@ -944,7 +947,7 @@ def phase_swapped_vs_plain(dev) -> int:
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
     toy = get_ring(MODULI, ELL)
-    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    deep = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
     gen = torch.Generator(device=dev).manual_seed(8)
     worst = 0
     # name, ring, m, k, n, jr, encode, value rows
@@ -993,7 +996,7 @@ def phase_pipelined_vs_plain(dev) -> int:
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
     toy = get_ring(MODULI, ELL)
-    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    deep = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
     gen = torch.Generator(device=dev).manual_seed(9)
     worst = 0
     # name, ring, m, k, n, noise, jr, encode, value rows, (row, column) offsets
@@ -1070,7 +1073,7 @@ def phase_opt_in_timing(dev, card: str) -> dict:
     out = {"swapped": {}, "pipelined": {}}
     for label, ring, m, k in (
             ("toy c2", get_ring(MODULI, ELL), N_RECEIVERS, K_DIM),
-            ("config-4 c2", get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL),
+            ("config-4 c2", get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL),
              DEEP_N, DEEP_K)):
         L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
         n, kd = m, k * nd
@@ -1261,6 +1264,9 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
                                   f"{phase}: kernel 4 writes every band so")
     check(counts[ROW_RELAYOUTS] == 0, f"{counts[ROW_RELAYOUTS]} lhs operands were copied to "
                                       f"16-byte rows in {phase}: the key cache lays them out")
+    for name in probe_kernels():
+        check(counts[name] == 0, f"the probe kernel {name} launched {counts[name]} times in "
+                                 f"{phase}")
     # the route's kernels ran in each stage, and the other routes' kernels did not
     product = {"banded": fm.KERNEL, "swapped": fm.SWAPPED_KERNEL,
                "pipelined": fm.PIPELINED_KERNEL}
@@ -1320,7 +1326,7 @@ def phase_masked_vs_plain(dev) -> dict:
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
     toy = get_ring(MODULI, ELL)
-    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    deep = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
     gen = torch.Generator(device=dev).manual_seed(11)
     worst = {"masked": 0, "post": 0}
     # name, ring, m, k, n, jr, encode, value rows, row offset, [lo, hi), column
@@ -1413,7 +1419,7 @@ def phase_banded_vs_plain(dev) -> int:
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
     toy = get_ring(MODULI, ELL)
-    deep = get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL)
+    deep = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
     gen = torch.Generator(device=dev).manual_seed(12)
     worst = 0
     for name, ring, m, k, n in (("toy", toy, 250, 64, 300), ("toy", toy, 97, 33, 129),
@@ -1476,7 +1482,7 @@ def phase_banded(dev, card: str) -> tuple[dict, dict, dict]:
 
     gen = torch.Generator(device=dev).manual_seed(13)
     shapes = (("toy", get_ring(MODULI, ELL), *BANDED_TOY),
-              ("config-4", get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL),
+              ("config-4", get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL),
                DEEP_N, DEEP_K, DEEP_N))
     path, timing, digits = {"phase": "banded_path", "card": card, "shapes": {}}, {}, {}
     reset_launches()
@@ -1568,7 +1574,7 @@ def phase_masked_timing(dev, card: str) -> dict:
     out = {"masked": {}, "post": {}}
     for label, ring, m, k in (
             ("toy c2", get_ring(MODULI, ELL), N_RECEIVERS, K_DIM),
-            ("config-4 c2", get_ring(generate_ntt_primes(61, 17, DEEP_ELL), DEEP_ELL),
+            ("config-4 c2", get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL),
              DEEP_N, DEEP_K)):
         L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
         n = m
@@ -1711,7 +1717,8 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
                   f"{name}: {ran[ROW_RELAYOUTS]} lhs operands copied to 16-byte rows")
             check(ran[fm.PRESCALE_KERNEL] == nshards,
                   f"{name}: kernel 4 launched {ran[fm.PRESCALE_KERNEL]} times for {nshards} shards")
-            for other in (fm.PIPELINED_KERNEL, fm.SWAPPED_KERNEL, fm.BANDED_KERNEL):
+            for other in (fm.PIPELINED_KERNEL, fm.SWAPPED_KERNEL, fm.BANDED_KERNEL,
+                          *probe_kernels()):
                 check(ran[other] == 0, f"{name}: {other} launched {ran[other]} times")
             check(ran[fm.KERNEL] == products,
                   f"{name}: {ran[fm.KERNEL]} product launches for {products} products")
@@ -1725,6 +1732,288 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
     del ref1, ref2
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# the probes' kernels (pvw_tpu_torch/benchmarks): the two-pass product, the
+# int32 peak and kernel 1's contraction in three band layouts, each at the
+# dealer paths' c2 shapes; no dealer path launches them
+# --------------------------------------------------------------------------
+
+def fold_only_plain_by_limb(ring, cols):
+    """The fold kernel's plain version, one limb (S channels) at a time."""
+    import torch
+
+    from pvw_tpu_torch.benchmarks import probe_twopass as tp
+    from pvw_tpu_torch.params.ring import get_ring
+
+    S = ring.degree
+    return torch.cat([tp.fold_only_plain(cols[i * S:(i + 1) * S], get_ring((q,), S))
+                      for i, q in enumerate(ring.moduli)])
+
+
+def probe_launches_only(ran: dict, allowed: dict, what: str) -> None:
+    """Gate a probe path's launches: exactly ``allowed`` {kernel: count},
+    every other kernel none (relayout counts are not kernels)."""
+    for name, count in ran.items():
+        if name in (RELAYOUTS, ROW_RELAYOUTS):
+            continue
+        check(count == allowed.get(name, 0), f"{what}: {name} launched {count} times, "
+                                             f"not {allowed.get(name, 0)}")
+
+
+def phase_twopass(dev, card: str) -> tuple[dict, int, dict]:
+    """The two-pass c2 product (``pvw_tpu_torch.benchmarks.probe_twopass``).
+    ``twopass_vs_plain``: the fold kernel ``fold_only`` against its plain
+    version at reduced shapes (nd = 5 and 8, m and n off its 256-column
+    block) over int32 columns across the whole int32 range. ``twopass_path``
+    at the toy and config-4 c2 shapes: the launch counts set to 0, the
+    probe's path (A: kernel 1 bare; B: ``torch._int_mm`` into the int32
+    columns, no copy; C: ``fold_only`` of them), the counts read: kernel 1
+    (bare) and ``fold_only`` once a shape, nothing else; C == A and
+    ``fold_only`` == its plain version (one limb at a time), every residue.
+    ``twopass_timing``: A, B, C and pass 2 alone (CUDA events, median of 5
+    with the spread) beside their bounds (pass 2 by its bytes, C by the
+    int8 operations plus pass 2's bytes) and pass 2's plain version, and the
+    probe's verdict. -> (the path record, the worst difference, {label:
+    timing record})."""
+    import torch
+
+    from pvw_tpu_torch.benchmarks import C2_SHAPES, c2_shape, probe_twopass as tp
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    worst = 0
+    deep = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
+    for name, ring, m, n in (("toy chain", get_ring(MODULI, ELL), 37, 1000),
+                             ("config-4 chain", deep, 5, 333)):
+        nd = ring.num_digits
+        cols = torch.randint(-(1 << 31), 1 << 31, (ring.num_limbs * ring.degree, m, nd, n),
+                             generator=gen, device=dev)
+        cols[0, 0, :, 0], cols[-1, -1, :, -1] = -(1 << 31), (1 << 31) - 1
+        cols = cols.to(torch.int32)
+        err = max_abs_err(tp.fold_only(cols, ring), fold_only_plain_by_limb(ring, cols))
+        worst = max(worst, err)
+        emit({"phase": "twopass_vs_plain", "kernel": fm.FOLD_ONLY_KERNEL,
+              "shape": f"{name} CH={cols.shape[0]} m={m} nd={nd} n={n}",
+              "columns": "the whole int32 range", "bit_exact": err == 0, "max_abs_err": err})
+        check(err == 0, f"fold_only differs from its plain version at the {name} shape")
+        del cols
+    path = {"phase": "twopass_path", "card": card, "shapes": {},
+            "launches": dict.fromkeys(launches(), 0)}
+    timing = {}
+    reset_launches()
+    for label in C2_SHAPES:
+        ring, m, k, n = c2_shape(label)
+        L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+        lhs_dig, band = tp.operands(ring, m, k, n, 15, dev)
+        before, relaid = launches(), tp.pass1_dot.relayouts
+        res = timed(path["shapes"].setdefault(label, {}), "path_ms",
+                    lambda: tp.run(lhs_dig, band, ring))
+        ran = {name: c - before[name] for name, c in launches().items()}
+        path["launches"] = {name: c + ran[name] for name, c in path["launches"].items()}
+        relayouts = tp.pass1_dot.relayouts - relaid
+        del res["A"]
+        torch.cuda.empty_cache()
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(fold_only_plain_by_limb(ring, res["cols"])),
+                           reps=1, warmup=0)
+        fold_err = max_abs_err(res["C"], plain[0])
+        worst = max(worst, fold_err)
+        del plain, res["C"]
+        torch.cuda.empty_cache()
+        path["shapes"][label].update({"CH": L * S, "m": m, "k": k, "n": n, "nd": nd,
+                                      "launches": ran, "pass1_relayouts": relayouts,
+                                      "c_equals_a": res["equal"], "fold_max_abs_err": fold_err})
+        check(res["equal"], f"the two passes differ from kernel 1 at the {label} c2 shape")
+        check(fold_err == 0, f"fold_only differs from its plain version at the {label} c2 "
+                             "shape")
+        check(relayouts == 0, f"pass 1 copied an operand {relayouts} times at {label}")
+        probe_launches_only(ran, {fm.KERNEL: 1, BARE: 1, fm.FOLD_ONLY_KERNEL: 1},
+                            f"the two-pass path at {label}")
+        t = tp.times(lhs_dig, band, ring, res["cols"])
+        b = tp.bounds(ring, m, k, n)
+        shape = f"c2 CH={L * S} m={m} n={n} kd={k * nd} nd={nd}"
+        timing[label] = {
+            "phase": "twopass_timing", "card": card, "shape": shape, **t, **b,
+            "pass2_plain_ms": plain_ms, "pass2_plain": "one limb at a time",
+            "x_pass2_bound": t["pass2_ms"] / b["pass2_bound_ms"],
+            "x_two_pass_bound": t["C_ms"] / b["two_pass_bound_ms"],
+            "c_over_a": t["C_ms"] / t["A_ms"], "verdict": tp.verdict(t["C_ms"], t["A_ms"]),
+            # the kernels line's record of fold_only (pass 2)
+            "fold_only": {"shape": f"{shape}: int32 columns -> residues", "ms": t["pass2_ms"],
+                          "ms_spread": t["pass2_ms_spread"], "plain_ms": plain_ms,
+                          "bound_ms": b["pass2_bound_ms"], "bound_by": "bytes",
+                          "library_ms": None,
+                          "x_bound": t["pass2_ms"] / b["pass2_bound_ms"], "x_library": None}}
+        emit(timing[label])
+        del lhs_dig, band, res
+        torch.cuda.empty_cache()
+    emit(path)
+    return path, worst, timing
+
+
+def phase_int32_peak(dev, card: str) -> tuple[dict, int, dict]:
+    """The int32 multiply-add peak (``pvw_tpu_torch.benchmarks.
+    fold_roofline``) on the JAX probe's tile (512, 1024): bit-exact against
+    its plain version at its 512 multiply-adds an element (lanes 8 and 1);
+    then the path, counted: the probe's measurement at 65536 and 131072
+    (CUDA events, median of 5), gated on linearity (the time at twice the
+    work 1.9-2.1x), with the IMAD rate, the JAX probe's count of 2 operations
+    a multiply-add and ``INT32_OPS_PER_S`` beside each other; then bit-exact
+    against its plain version at both timed counts too (the plain version
+    timed once at 65536). Its bound is the function's multiply-adds at
+    ``INT32_OPS_PER_S`` (the kernel's extra register IMAD a block is its
+    own). -> (the path record, the worst difference, the timing record)."""
+    from pvw_tpu_torch.benchmarks import fold_roofline as fr
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    x = fr.tile(dev)
+    worst = 0
+    for lanes in (8, 1):
+        err = max_abs_err(fr.int32_peak(x, fr.CHECK_ITERS, lanes),
+                          fr.int32_peak_plain(x, fr.CHECK_ITERS, lanes))
+        worst = max(worst, err)
+        emit({"phase": "int32_peak_vs_plain", "kernel": fm.INT32_PEAK_KERNEL,
+              "shape": f"{tuple(x.shape)} x {fr.CHECK_ITERS} multiply-adds, lanes {lanes}",
+              "bit_exact": err == 0, "max_abs_err": err})
+        check(err == 0, f"int32_peak differs from its plain version at lanes {lanes}")
+    reset_launches()
+    r = fr.measure(x, fr.TIMED_ITERS)
+    ran = launches()
+    # two timings of a warm-up and 5 runs each
+    probe_launches_only(ran, {fm.INT32_PEAK_KERNEL: 12}, "the int32 peak path")
+    check(1.9 <= r["linearity"] <= 2.1, f"int32_peak took {r['linearity']:.3f}x the time at "
+                                        "twice the multiply-adds: not every one ran")
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(fr.int32_peak_plain(x, fr.TIMED_ITERS)),
+                       reps=1, warmup=0)
+    for iters, want in ((fr.TIMED_ITERS, plain.pop()),
+                        (2 * fr.TIMED_ITERS, fr.int32_peak_plain(x, 2 * fr.TIMED_ITERS))):
+        err = max_abs_err(fr.int32_peak(x, iters), want)
+        worst = max(worst, err)
+        emit({"phase": "int32_peak_vs_plain", "kernel": fm.INT32_PEAK_KERNEL,
+              "shape": f"{tuple(x.shape)} x {iters} multiply-adds, lanes 8 (timed)",
+              "bit_exact": err == 0, "max_abs_err": err})
+        check(err == 0, f"int32_peak differs from its plain version at {iters} multiply-adds")
+    imads = fr.imads(x.numel(), fr.TIMED_ITERS, 8)
+    bound_ms = r["madds"] / INT32_OPS_PER_S * 1e3
+    rec = ratios({"phase": "int32_peak", "kernel": fm.INT32_PEAK_KERNEL, "card": card,
+                  "shape": f"{tuple(x.shape)} x {fr.TIMED_ITERS} multiply-adds, 8 lanes", **r,
+                  "imads": imads, "int32_ops_per_s": INT32_OPS_PER_S,
+                  "imad_over_int32_ops": r["imad_per_s"] / INT32_OPS_PER_S,
+                  "jax_ops_over_int32_ops": r["jax_ops_per_s"] / INT32_OPS_PER_S,
+                  "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+                  "bound_by": "operations",
+                  "bound_counts": "the function's multiply-adds at INT32_OPS_PER_S (one "
+                                  "instruction a lane and clock); 8 bytes an element "
+                                  "beside them"})
+    emit(rec)
+    return {"phase": "int32_peak_path", "card": card, "launches": ran}, worst, rec
+
+
+def phase_dot_structure(dev, card: str) -> tuple[dict, int, dict]:
+    """Kernel 1's contraction with the trivial epilogue
+    (``pvw_tpu_torch.benchmarks.probe_dot_structure``) in its three band
+    layouts at the toy and config-4 c2 shapes, the JAX probe's random
+    operands in [-64, 64). Each layout's band relaid once (k innermost)
+    before the counts are set to 0; ``dot_structure_path``: the three
+    launches, counted (each layout once a shape, nothing else, no relayout),
+    every output against the layout's plain version (one limb at a time,
+    ``dot_structure_vs_plain``) and the three equal. ``dot_structure_timing``:
+    each launch (CUDA events, median of 5 with the spread) beside its bound
+    (the int8 operations, 1.74 / 9.45 ms), its plain version,
+    ``torch._int_mm`` of the contraction (the JAX probe's one-dot floor) and
+    kernel 1 bare (its fold) on the same operands, T MAC/s and the fold's
+    share of kernel 1. -> (the path record, the worst difference, {layout:
+    {label: timing record}})."""
+    import torch
+
+    from pvw_tpu_torch.benchmarks import C2_SHAPES, c2_shape, probe_dot_structure as ds
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    path = {"phase": "dot_structure_path", "card": card, "shapes": {},
+            "launches": dict.fromkeys(launches(), 0)}
+    timing = {layout: {} for layout in ds.LAYOUTS}
+    worst = 0
+    reset_launches()
+    for label in C2_SHAPES:
+        ring, m, k, n = c2_shape(label)
+        L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
+        ch, kd = L * S, k * nd
+        lhs, band = ds.operands(ch, m, kd, nd, n, 16, dev)
+        relaid = ds.dot_structure.relayouts
+        laid = {}
+        for layout in ds.LAYOUTS:
+            laid[layout] = ds.dot_operand(ds.band_layout(band, layout), layout)
+            torch.cuda.empty_cache()
+        layout_relayouts = ds.dot_structure.relayouts - relaid
+        before, relaid = launches(), ds.dot_structure.relayouts
+        outs = {layout: ds.dot_structure(lhs, laid[layout], layout, ds.TN, nd)
+                for layout in ds.LAYOUTS}
+        torch.cuda.synchronize()
+        ran = {name: c - before[name] for name, c in launches().items()}
+        path["launches"] = {name: c + ran[name] for name, c in path["launches"].items()}
+        probe_launches_only(ran, {dot_name(layout): 1 for layout in ds.LAYOUTS},
+                            f"the dot-structure path at {label}")
+        check(ds.dot_structure.relayouts == relaid,
+              f"the dot-structure launches relaid an operand at {label}")
+        shape = f"c2 CH={ch} m={m} kd={kd} nd={nd} D={n}"
+        plain_ms = {}
+        for layout in ds.LAYOUTS:
+            def plain(layout=layout):
+                return torch.cat([ds.dot_structure_plain(lhs[i * S:(i + 1) * S],
+                                                         laid[layout][i * S:(i + 1) * S],
+                                                         layout, ds.TN, nd)
+                                  for i in range(L)])
+
+            want = []
+            plain_ms[layout] = cuda_ms(lambda: want.append(plain()), reps=1, warmup=0)
+            err = max_abs_err(outs[layout], want[0])
+            worst = max(worst, err)
+            emit({"phase": "dot_structure_vs_plain", "kernel": dot_name(layout),
+                  "shape": shape, "compared": "every output, one limb at a time",
+                  "bit_exact": err == 0, "max_abs_err": err})
+            check(err == 0, f"dot_structure ({layout}) differs from its plain version at "
+                            f"{label}")
+            del want
+            torch.cuda.empty_cache()
+        same = all(torch.equal(outs[layout], outs["planes"]) for layout in ds.LAYOUTS)
+        check(same, f"the three layouts differ from each other at {label}")
+        path["shapes"][label] = {"shape": shape, "launches": ran,
+                                 "layout_relayouts": layout_relayouts, "layouts_equal": same}
+        del outs
+        torch.cuda.empty_cache()
+        macs = ch * m * kd * nd * n
+        library = kernel_times(lambda: ds.int_mm(lhs, band), reps=3)
+        torch.cuda.empty_cache()
+        k1 = kernel_times(lambda: fm.matmul_fold_scaled(
+            None, band.reshape(L, S, nd, kd, n), ring, lhs_dig=lhs.reshape(L, S, m, kd)))
+        nbytes = lhs.numel() + band.numel() + 4 * ch * m * n
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
+        for layout in ds.LAYOUTS:
+            t = kernel_times(lambda: ds.dot_structure(lhs, laid[layout], layout, ds.TN, nd))
+            timing[layout][label] = ratios({
+                "phase": "dot_structure_timing", "kernel": dot_name(layout), "card": card,
+                "shape": shape, **t, "plain_ms": plain_ms[layout],
+                "plain": "one limb at a time", "library_ms": library["ms"],
+                "library": "torch._int_mm of the contraction, one channel at a time (the "
+                           "int32 products, no combine)",
+                "library_ms_spread": library["ms_spread"],
+                "kernel1_bare_ms": k1["ms"], "kernel1_bare_ms_spread": k1["ms_spread"],
+                "fold_share_of_kernel1": (k1["ms"] - t["ms"]) / k1["ms"],
+                "t_mac_per_s": macs / t["ms"] / 1e9, "int8_macs": macs,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms})
+            emit(timing[layout][label])
+        del lhs, band, laid
+        torch.cuda.empty_cache()
+    emit(path)
+    return path, worst, timing
 
 
 def kernel_entry(name: str, source: str, replaces: str, function: str, by_path: dict,
@@ -1749,6 +2038,44 @@ def kernel_entry(name: str, source: str, replaces: str, function: str, by_path: 
     return entry
 
 
+def probe_entries(by_path: dict, twopass, peak, dots, card: str) -> list:
+    """The kernels line's entries of the probes' kernels: ``fold_only``
+    (with the two-pass verdict), ``int32_peak`` (its rates) and the three
+    dot-structure layouts (kernel 1 bare and the fold's share of it), each
+    with ptxas's registers and spills; ``twopass``, ``peak`` and ``dots``
+    are (worst difference, timing) of their phases."""
+    from pvw_tpu_torch.ops import _build, fused_modmat as fm
+
+    src = "pvw_tpu_torch/csrc/"
+    (fold_worst, fold), (peak_worst, rec), (dot_worst, dot) = twopass, peak, dots
+    dot_ptxas = _build.ptxas_report(fm.DOT_KERNEL)
+    return [
+        kernel_entry(fm.FOLD_ONLY_KERNEL, src + "fold_only.cu",
+                     "benchmarks/probe_twopass.py:119", "fold_only (body _fold_only_body)",
+                     by_path[fm.FOLD_ONLY_KERNEL], fold_worst, fold["toy"]["fold_only"],
+                     fold["config-4"]["fold_only"], card,
+                     ptxas=_build.ptxas_report(fm.FOLD_ONLY_KERNEL),
+                     two_pass={label: {k: t[k] for k in ("A_ms", "B_ms", "C_ms", "verdict")}
+                               for label, t in fold.items()}),
+        kernel_entry(fm.INT32_PEAK_KERNEL, src + "int32_peak.cu",
+                     "benchmarks/fold_roofline.py:62", "vpu_peak_kernel",
+                     by_path[fm.INT32_PEAK_KERNEL], peak_worst, rec, None, card,
+                     ptxas=_build.ptxas_report(fm.INT32_PEAK_KERNEL),
+                     **{k: rec[k] for k in ("linearity", "imad_per_s", "jax_ops_per_s",
+                                            "int32_ops_per_s")}),
+        *(kernel_entry(dot_name(layout), src + "dot_structure.cu",
+                       f"benchmarks/probe_dot_structure.py:{line}", function,
+                       by_path[dot_name(layout)], dot_worst, dot[layout]["toy"],
+                       dot[layout]["config-4"], card,
+                       ptxas=[e for e in dot_ptxas
+                              if e["template_args"][1:] == [fm.DOT_LAYOUTS.index(layout)]],
+                       kernel1_bare_ms=dot[layout]["toy"]["kernel1_bare_ms"],
+                       fold_share_of_kernel1=dot[layout]["toy"]["fold_share_of_kernel1"])
+          for layout, line, function in (("planes", 91, "pallas_dots"),
+                                         ("one_dot", 121, "pallas_one_dot"),
+                                         ("wide", 159, "pallas_wide_dot")))]
+
+
 def main() -> int:
     import torch
 
@@ -1763,7 +2090,8 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL,
-                      fm.BANDED_KERNEL, fm.DIGITS_KERNEL])
+                      fm.BANDED_KERNEL, fm.DIGITS_KERNEL, fm.FOLD_ONLY_KERNEL,
+                      fm.INT32_PEAK_KERNEL, fm.DOT_KERNEL])
     build_s = time.perf_counter() - t0
     print(card, flush=True)
     emit({"phase": "device", "card": card, "torch": torch.__version__,
@@ -1802,6 +2130,9 @@ def main() -> int:
     banded_worst = phase_banded_vs_plain(dev)
     paths["banded_path"], banded_timing, digits_timing = phase_banded(dev, card)
     masked_timing = phase_masked_timing(dev, card)
+    paths["twopass_path"], twopass_worst, twopass_timing = phase_twopass(dev, card)
+    paths["int32_peak_path"], peak_worst, peak = phase_int32_peak(dev, card)
+    paths["dot_structure_path"], dot_worst, dot_timing = phase_dot_structure(dev, card)
     paths["v3k_path"], ctx = phase_dealer_path(
         "v3k_path", presets.pvss_8192(N_RECEIVERS), dev, card, 5, "v3k",
         full_parties=toy_parties, config="toy chain")
@@ -1893,6 +2224,8 @@ def main() -> int:
                      "_fused_banded_matmul)", by_path[fm.DIGITS_KERNEL],
                      max(t["max_abs_err"] for t in digits_timing.values()),
                      digits_timing["toy"], digits_timing["config-4"], card),
+        *probe_entries(by_path, (twopass_worst, twopass_timing), (peak_worst, peak),
+                       (dot_worst, dot_timing), card),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -254,7 +254,7 @@ def build(names) -> dict:
     srcs = {name: variant_dir(name, *spec(name)) / spec(name)[0] for name in names}
     procs = {}
     for name, src in srcs.items():
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS,
                "-o", str(src.with_suffix(".so")), str(src)]
         procs[name] = (src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))

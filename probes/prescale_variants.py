@@ -156,7 +156,7 @@ def build(srcs: dict) -> dict:
 
     procs = {}
     for name, src in srcs.items():
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(CSRC),
                "-o", str(src.with_suffix(".so")), str(src)]
         procs[name] = (src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))

@@ -6,7 +6,9 @@ covers the source, the shared headers and the flags, so an edited source
 rebuilds). Builds
 happen at first use, or up front with :func:`build_all`, which starts one
 nvcc per source at once. A failed build raises with nvcc's output; there is
-no fallback.
+no fallback. nvcc's output is kept beside each library
+(``<name>-<hash>.log``), from which :func:`ptxas_report` reads each
+kernel's registers and spills, for a cached library as for a fresh one.
 """
 
 from __future__ import annotations
@@ -14,13 +16,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -67,6 +70,9 @@ def build_all(names) -> None:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        log_tmp = tmp.with_suffix(".log")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, out.with_suffix(".log"))
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -80,3 +86,24 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
         _loaded[name] = ctypes.CDLL(str(path))
     return _loaded[name]
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Each kernel of the current library of ``csrc/<name>.cu``: its
+    template arguments (from the mangled name), registers a thread and
+    bytes of spill stores and loads, as ``-Xptxas -v`` printed them into
+    the build's log ([] before the library is built)."""
+    log = target(name).with_suffix(".log")
+    out = []
+    for entry in re.split(r"Compiling entry function",
+                          log.read_text() if log.exists() else "")[1:]:
+        mangled = re.match(r"\s*'(\S+)'", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        out.append({"entry": mangled.group(1) if mangled else None,
+                    "template_args": [int(a) for a in re.findall(
+                        r"Li(\d+)E", mangled.group(1) if mangled else "")],
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None,
+                    "spill_load_bytes": int(spill.group(2)) if spill else None})
+    return out

@@ -104,6 +104,13 @@ TABLE_WIDTH = 8
 PRESCALE_KERNEL = "ntt_prescale_band"
 PRESCALE_TABLE_WIDTH = 22
 PRESCALE_DEGREES = (8, 16, 32, 64)
+# the kernels of the measurement probes (pvw_tpu_torch/benchmarks/), which no
+# dealer path launches; they launch through :func:`_launch` and count their
+# launches on their wrappers, as the kernels above do
+FOLD_ONLY_KERNEL = "fold_only"                           # probe_twopass.fold_only
+INT32_PEAK_KERNEL = "int32_peak"                         # fold_roofline.int32_peak
+DOT_KERNEL = "dot_structure"                             # probe_dot_structure.dot_structure
+DOT_LAYOUTS = ("planes", "one_dot", "wide")              # its three entries, in C order
 
 #: Bands (and the swapped form's rhs digits) handed to the entries of
 #: kernels 1 and 3 in another layout than the k-packed one of kernel 4,

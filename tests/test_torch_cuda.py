@@ -994,3 +994,133 @@ def test_wgmma_kernels_on_another_card(cuda_device):
     torch.cuda.synchronize(dev)
     assert all(g.device == dev and torch.equal(g, want) for g in got)
     assert banded.device == dev and torch.equal(banded, modmat.matmul_channels(a, b, ring))
+
+
+# --------------------------------------------------------------------------
+# the probes' kernels (pvw_tpu_torch/benchmarks): fold_only, int32_peak and
+# the three dot-structure layouts
+# --------------------------------------------------------------------------
+
+# two limbs of each digit count the fold kernel is held at
+FOLD_MODULI = {5: TOY, 7: (0x3FFFFFFFFFFF01, 0x3FFFFFFFFFFE81),
+               8: (0x1FFFFFFFFFFFFFE1, 0x1FFFFFFFFFFFFCE1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(1, 1), (1, 300), (3, 255), (17, 257), (64, 1000)])
+@pytest.mark.parametrize("nd", [5, 7, 8])
+def test_fold_only_kernel_equals_plain_twin(cuda_device, nd, m, n):
+    """Pass 2 of the two-pass probe over int32 columns across the whole
+    int32 range (both ends among them), n off the kernel's 256-column
+    block, m = 1: every residue, one launch."""
+    from pvw_tpu_torch.benchmarks import probe_twopass as tp
+
+    ring = RingPlan(FOLD_MODULI[nd], 8)
+    assert ring.num_digits == nd
+    rng = np.random.default_rng(nd * m + n)
+    cols = rng.integers(-(1 << 31), 1 << 31, (16, m, nd, n), dtype=np.int64)
+    cols[0, 0, :, 0], cols[-1, -1, :, -1] = -(1 << 31), (1 << 31) - 1
+    cols = torch.from_numpy(cols.astype(np.int32)).to(cuda_device)
+    before = tp.fold_only.launches
+    got = tp.fold_only(cols, ring)
+    torch.cuda.synchronize()
+    assert tp.fold_only.launches == before + 1
+    assert torch.equal(got, tp.fold_only_plain(cols, ring))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,m,k,n", [(5, 17, 8, 40), (8, 33, 4, 64), (8, 20, 3, 24)])
+def test_two_pass_equals_kernel1_bare_on_the_card(cuda_device, nd, m, k, n):
+    """The two-pass probe's check on the card: ``torch._int_mm`` columns
+    (no copy of a k-packed band and 16-byte lhs rows with kd a multiple of
+    16; one copy of each, counted, where it is not) folded by the kernel
+    equal kernel 1's bare product. ``torch._int_mm`` takes m > 16 and kd
+    and nd*n multiples of 8."""
+    from pvw_tpu_torch.benchmarks import probe_twopass as tp
+
+    ring = RingPlan(TOY if nd == 5 else BIG, 8)
+    lhs_dig, band = tp.operands(ring, m, k, n, nd + m, cuda_device)
+    before = tp.pass1_dot.relayouts
+    res = tp.run(lhs_dig, band, ring)
+    torch.cuda.synchronize()
+    assert res["equal"]
+    assert tp.pass1_dot.relayouts == before + 2 * ((k * nd) % 16 != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (7, 33), (512, 1024)])
+@pytest.mark.parametrize("iters", [0, 20, 300, 512])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_int32_peak_kernel_equals_plain_twin(cuda_device, shape, iters, lanes):
+    """The int32 peak over values whose products wrap, with whole blocks of
+    256 multiply-adds (300, 512), a remainder (20, 300 at some lanes) and
+    none (0): every element."""
+    from pvw_tpu_torch.benchmarks import fold_roofline as fr
+
+    rng = np.random.default_rng(iters + lanes)
+    x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, shape, dtype=np.int64)
+                         .astype(np.int32)).to(cuda_device)
+    before = fr.int32_peak.launches
+    got = fr.int32_peak(x, iters, lanes)
+    torch.cuda.synchronize()
+    assert fr.int32_peak.launches == before + 1
+    assert torch.equal(got, fr.int32_peak_plain(x, iters, lanes))
+
+
+@pytest.mark.cuda
+def test_int32_peak_time_is_linear_in_its_work(cuda_device):
+    """Twice the multiply-adds take 1.9-2.1x the time (CUDA events, medians
+    of 5): the compiler folded none of them."""
+    from pvw_tpu_torch.benchmarks import fold_roofline as fr
+
+    r = fr.measure(fr.tile(cuda_device), iters_inner=16384)
+    assert 1.9 <= r["linearity"] <= 2.1, r
+
+
+@pytest.mark.cuda
+def test_probe_kernels_refuse_what_they_lack(cuda_device):
+    from pvw_tpu_torch.benchmarks import fold_roofline as fr
+    from pvw_tpu_torch.benchmarks import probe_dot_structure as ds
+
+    x = torch.zeros((4, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="lanes"):
+        fr.int32_peak(x, 16, 3)
+    with pytest.raises(ValueError, match="expected contiguous"):
+        fr.int32_peak(x.to(torch.int64), 16)
+    lhs = torch.zeros((2, 70, 64), dtype=torch.int8, device=cuda_device)
+    band = torch.zeros((2, 5, 64, 96), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ds.dot_structure(lhs, ds.band_wide(band, 48), "wide", 48, 5)
+
+
+DOT_EDGES = [(1, 64, 32), (70, 40, 96), (65, 1280, 64), (200, 136, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kd,d", DOT_EDGES)
+@pytest.mark.parametrize("nd", [5, 7, 8])
+@pytest.mark.parametrize("layout", ["planes", "one_dot", "wide"])
+def test_dot_structure_kernel_equals_plain_twin(cuda_device, layout, nd, m, kd, d):
+    """Each layout at the edge shapes (m = 1 and off the 64-row tile, kd
+    off the 128-byte stage and the 16-byte pitch; D a multiple of the wide
+    layout's 32-column blocks, off the 64-column pair of tiles), the whole
+    int8 range: every output, one launch of that layout; the band in the
+    JAX memory layout relaid once, a laid one not again."""
+    from pvw_tpu_torch.benchmarks import probe_dot_structure as ds
+
+    rng = np.random.default_rng(m + kd + nd)
+    lhs = modmat.k_rows(torch.from_numpy(rng.integers(-128, 128, (3, m, kd)).astype(np.int8))
+                        .to(cuda_device))
+    band = torch.from_numpy(rng.integers(-128, 128, (3, nd, kd, d)).astype(np.int8))
+    bx = ds.band_layout(band, layout, 32).to(cuda_device)
+    want = ds.dot_structure_plain(lhs, bx, layout, 32, nd)
+    relaid, before = ds.dot_structure.relayouts, getattr(ds.dot_structure,
+                                                         f"{layout}_launches")
+    laid = ds.dot_operand(bx, layout)
+    got = ds.dot_structure(lhs, laid, layout, 32, nd)
+    torch.cuda.synchronize()
+    assert getattr(ds.dot_structure, f"{layout}_launches") == before + 1
+    assert ds.dot_structure.relayouts == relaid + 1
+    assert torch.equal(got, want)
+    assert torch.equal(ds.dot_structure(lhs, bx, layout, 32, nd), want)
+    assert ds.dot_structure.relayouts == relaid + 2
