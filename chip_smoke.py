@@ -9,7 +9,10 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 Phases, one JSON line each; any failure raises and exits non-zero. Every
 path is ``phase_dealer_path`` (CRS, batch keygen or an earlier path's keys,
 the encryption operands, n dealers' shares in one batch, decryption with
-every sampled share exact), with the kernels' launch counts set to 0 just
+every sampled share exact, decoded on the card by the plain-torch device
+decode, one batch a decryption (``device_decode.decode_residues.calls``),
+and one party's shares decoded again by the Python decode and held
+equal), with the kernels' launch counts set to 0 just
 before it and read just after, per stage (keygen, encryption, the wrap
 encryption): it fails if a kernel of its route did not launch, if a
 kernel of another route did, if a band was relaid to k-packed on its
@@ -39,7 +42,8 @@ to ``torch._int_mm``.
    chain), default stream: 4096 dealers, four parties' shares decrypted,
    and one encryption with scalars >= 2^63 decoded with the reference's
    `as i64` semantics; then breakdown (each stage of one encryption and
-   decryption timed alone);
+   decryption timed alone; the decode on the card and by the Python decode
+   on the same residues, per message, every message equal);
 6. prescale_vs_plain: kernel 4, the fused r-stage (signed NTT +
    scaled-digit band), against its twin: the toy chain (nd = 5), the 4 x
    55-bit chain, the 17 x 61-bit chain at l = 16 with jr = 1 and 2, a
@@ -55,12 +59,21 @@ to ``torch._int_mm``.
    decryption of the 921 dealers whose index is not a multiple of 10 at
    threshold 683 for four parties, the abort one dealer below it, full
    decryption for two; then deep_breakdown;
+9a. decode_vs_python: the device decode on the card against the Python
+   decode ``decode_scalar_pvw_rns``, every message of a full batch (the CPU
+   tests' edge rows, noisy encodings of random u64 messages, uniform
+   residues) at the toy chain (4096), config 4 (1024, a 65-bit Δ) and the
+   reference preset (1024); both timed per message, the device decode also
+   at a quarter of the batch, its aten op count and one decode under
+   ``torch.profiler``;
 10. v3k_vs_plain: the v3k noise generator against its twin, every byte, at
     the toy, config-4 and reference c1/c2 shapes (l = 8, 16, 32; jr = 1
     and 2; offsets; widths off its column tile); kernel 1 with ``gen_noise``
     and kernel 1 bare and encode-only (also at the full reference c2 shape);
 11. v3k_timing: the generator at the full width of every product it serves,
-    every byte against its twin, then timed beside its bound and twin;
+    every byte against its twin, then timed beside its bound and twin, and
+    without its wrapper (its C entry, 20 launches back to back between two
+    events) beside the wrapper's host time a call;
 12. swapped_vs_plain: kernel 1's swapped form against its twin at reduced
     shapes (nd = 5 and 8, jr = 1 and 2, value and digit rows, bare, both
     encodes, m and n off its tile);
@@ -115,7 +128,9 @@ to ``torch._int_mm``.
     launch gates (a mesh's c1 on its recv row 0 only, c2 on every shard;
     the masked form for every v3k kdim > 1 or forced product and nowhere
     else, kernel 4 once a shard, no kernel 3 or swapped form, the bake
-    route's products bare): under v3k sharded_path ((2, 2) mesh),
+    route's products bare; each decryption equal to the single-device one
+    by the Python decode, with a device decode a recv row of a mesh, one
+    for gathered limbs or dealers): under v3k sharded_path ((2, 2) mesh),
     forced_masked_path ((1, 1), ``_force_masked``), data_parallel_path (4
     dealer shards), limb_parallel_path (17 limbs in 4 groups), grid_path
     (2 limb groups x a (1, 2) mesh); under the default stream
@@ -227,20 +242,81 @@ def max_abs_err(got, want) -> int:
                for g, w in zip(got.reshape(rows, -1), want.reshape(rows, -1)))
 
 
+# aten ops that make no new values (views) or only allocate: left out of
+# op_count
+_VIEW_OPS = frozenset({"alias", "as_strided", "detach", "empty", "empty_strided", "expand",
+                       "lift_fresh", "narrow", "permute", "select", "slice", "split",
+                       "squeeze", "t", "transpose", "unbind", "unsqueeze", "view",
+                       "_reshape_alias", "_unsafe_view"})
+
+
+def op_count(fn) -> int:
+    """The aten ops that ``fn()`` dispatches, views and bare allocations
+    left out: on a card, about its kernel launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__.split(".")[0] not in _VIEW_OPS:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def profiled(fn) -> dict:
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA): the wall ms
+    (the profiler's own overhead included), the card's summed busy ms and
+    event count (kernels, copies, fills), the idle share, and the ten
+    entries with the most device time; None where it recorded no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the card's own events; the CPU ops that launched them report the same
+    # time again, and the profiler's buffer request is not the program's work
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
+    device = sum(e.self_device_time_total for e in on_device) / 1e3
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
+    return {"wall_ms": wall, "device_ms": device or None,
+            "device_events": sum(e.count for e in on_device) or None,
+            "idle_share": 1 - device / wall if device else None,
+            "top": [{"name": e.key[:90], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3} for e in top]}
+
+
 # kernel 1's launches with neither noise, encode nor post (the bake route's)
 BARE = "fused_scaled_noise_matmul (bare)"
 # bands relaid to k-packed and lhs rows copied to a 16-byte pitch on their way
 # into kernels 1 and 3: none on a path
 RELAYOUTS = "band_relayouts"
 ROW_RELAYOUTS = "row_relayouts"
+# batches decoded on the residues' device (crypto/device_decode.py, plain torch)
+DECODES = "decode_residues"
 
 
 def _counters() -> dict:
     """(wrapper, attribute) of each kernel's launch count; kernel 1's
     masked and bare launches are also among its own; the probes' kernels
     (the dot-structure kernel per layout); and the module's counts of band
-    and row relayouts."""
+    and row relayouts; and the device decode's batches."""
     from pvw_tpu_torch.benchmarks import fold_roofline, probe_dot_structure, probe_twopass
+    from pvw_tpu_torch.crypto import device_decode
     from pvw_tpu_torch.ops import fused_modmat as fm
 
     k1 = fm.fused_scaled_noise_matmul
@@ -258,7 +334,8 @@ def _counters() -> dict:
             fm.INT32_PEAK_KERNEL: (fold_roofline.int32_peak, "launches"),
             **{dot_name(layout): (ds, f"{layout}_launches") for layout in fm.DOT_LAYOUTS},
             RELAYOUTS: (fm, "band_relayouts"),
-            ROW_RELAYOUTS: (fm, "row_relayouts")}
+            ROW_RELAYOUTS: (fm, "row_relayouts"),
+            DECODES: (device_decode.decode_residues, "calls")}
 
 
 def dot_name(layout: str) -> str:
@@ -491,7 +568,10 @@ def phase_breakdown(dev, card: str, ctx, name: str = "breakdown",
     ``encryption._encrypt_kernel`` under ``stream`` (a value of
     ``settings.kernel_noise_stream()``) and ``route`` (the swapped form's
     scaled key planes, or ``settings.pipeline_fold`` on for "pipelined"),
-    each stage timed through its ``stage`` hook."""
+    each stage timed through its ``stage`` hook. The decode runs twice on
+    the same residues, on the card (``decode_device_ms``, the messages
+    fetched) and by the Python decode (``decode_python_ms``, the residues
+    fetched), every message held equal."""
     from pvw_tpu_torch import random as R
     from pvw_tpu_torch.config import settings
     from pvw_tpu_torch.crypto import decryption, encryption
@@ -515,10 +595,111 @@ def phase_breakdown(dev, card: str, ctx, name: str = "breakdown",
     sk = ctx["sk"].to_polynomials(dev).res
     z = timed(times, "decrypt_contract_ntt_ms", lambda: decryption._noisy_messages(
         params, sk, c1, c2[:, :, 0]))
-    timed(times, "decode_python_ms", lambda: decryption._decode_batch(z, params))
+    got = timed(times, "decode_device_ms", lambda: decryption._decode_batch(z, params))
+    settings.decode_mode = "python"
+    try:
+        want = timed(times, "decode_python_ms", lambda: decryption._decode_batch(z, params))
+    finally:
+        del settings.decode_mode
     out = {"phase": name, "card": card, "stream": stream, "route": route, "dealers": d,
-           **times, "decode_ms_per_message": times["decode_python_ms"] / d}
+           **times, "decode_device_ms_per_message": times["decode_device_ms"] / d,
+           "decode_python_ms_per_message": times["decode_python_ms"] / d,
+           "decode_equal": got == want}
     emit(out)
+    check(got == want, f"{name}: the device decode differs from the Python decode")
+    return out
+
+
+def edge_residues(params, d: int, seed: int) -> np.ndarray:
+    """A full batch of PowerBasis residue blocks, uint64 [d, L, l]: the CPU
+    tests' edge rows (coefficients that lift to q//2 and q//2 + 1; messages
+    -1000, 1000, -1001, 1001, 2^64, 2^64 + 12345 and 2^65 + 1, each without
+    and with noise; a zero row; multiples and halves of Δ and Δ^(l-1);
+    2^64 - 1), then noisy encodings of random u64 messages in half the rest
+    and uniform residues in the other half. A message v with noise e is the
+    block of -(v Δ^j + e_j) mod q, what <s, c1> - c2 leaves; |e_j| <= Δ/4."""
+    ring, l = params.ring, params.l
+    q, delta, dpow = params.q_total(), params.delta(), params.delta_power_l_minus_1()
+    rng = np.random.default_rng(seed)
+
+    def noise():
+        return rng.integers(-(delta // 4), delta // 4 + 1, size=l).tolist()
+
+    def encoding(v, e):
+        return [(-(v * delta ** j + e[j])) % q for j in range(l)]
+
+    zero = [0] * l
+    rows = [[q // 2] * l, [q // 2 + 1] * l, [q // 2 + j % 2 for j in range(l)],
+            encoding(q // 2, zero), encoding(q // 2 + 1, zero), zero]
+    for v in (-1000, 1000, -1001, 1001, 1 << 64, (1 << 64) + 12345, (1 << 65) + 1,
+              (1 << 64) - 1):
+        rows += [encoding(v % q, zero), encoding(v % q, noise())]
+    for v in (delta, delta - 1, 2 * delta, q - delta, delta // 2, dpow % q, dpow // 2 % q,
+              (dpow // 2 + 1) % q, (q - dpow) % q, (1 << 64) % q):
+        rows.append([(v * (j + 1) + j) % q for j in range(l)])
+    realistic = (d - len(rows)) // 2
+    rows += [encoding(int(v), noise()) for v in rng.integers(0, 1 << 64, realistic,
+                                                             dtype=np.uint64)]
+    res = np.stack([rng.integers(0, m, size=(d, l), dtype=np.uint64) for m in ring.moduli], 1)
+    for r, coeffs in enumerate(rows):
+        res[r] = ring.residues_from_int_coeffs(coeffs)
+    return res
+
+
+def phase_decode_vs_python(dev, card: str, configs: dict) -> dict:
+    """The device decode (``decode_residues``, plain torch on the card)
+    against the Python decode ``decode_scalar_pvw_rns`` on every message of
+    a full batch at each of ``configs`` (label -> (params, d)):
+    :func:`edge_residues`. Then its host-clocked ms (median of 3, the
+    decode and the fetch of the messages) beside the Python decode's, per
+    message, at d and d/4 (flat in d when launch-bound), its aten op count
+    and one decode under ``torch.profiler`` (the card's busy ms and idle
+    share). Any mismatch fails the run."""
+    import torch
+
+    from pvw_tpu_torch.crypto import decryption, device_decode
+    from pvw_tpu_torch.ops import u64
+
+    out = {}
+    for seed, (label, (params, d)) in enumerate(configs.items()):
+        res = edge_residues(params, d, seed)
+        z = u64.u64_tensor(res, dev)
+        plan = device_decode.get_plan(params)
+
+        def decode(rows=z):
+            return u64.u64_numpy(device_decode.decode_residues(plan, rows))
+
+        got = [int(v) for v in decode()]
+        times = {}
+        want = timed(times, "python_ms", lambda: [decryption.decode_scalar_pvw_rns(r, params)
+                                                  for r in res])
+        mismatches = [i for i in range(d) if got[i] != want[i]]
+        runs = {}
+        for name, rows in (("device_ms", z), ("device_quarter_ms", z[:d // 4])):
+            runs[name] = []
+            for _ in range(3):
+                timed(times, name, lambda: decode(rows))
+                runs[name].append(times[name])
+        prof = profiled(decode)
+        rec = {"phase": "decode_vs_python", "config": label, "card": card, "dealers": d,
+               "limbs": params.ring.num_limbs, "l": params.l,
+               "delta_bits": params.delta().bit_length(), "words": plan.W,
+               "compared": "every message", "mismatches": len(mismatches),
+               "first_mismatch": mismatches[0] if mismatches else None,
+               "device_ms": statistics.median(runs["device_ms"]),
+               "device_ms_runs": runs["device_ms"],
+               "device_quarter_ms": statistics.median(runs["device_quarter_ms"]),
+               "python_ms": times["python_ms"], "ops": op_count(decode),
+               "profile": prof}
+        rec["device_ms_per_message"] = rec["device_ms"] / d
+        rec["python_ms_per_message"] = rec["python_ms"] / d
+        rec["quarter_over_full"] = rec["device_quarter_ms"] / rec["device_ms"]
+        out[label] = rec
+        emit(rec)
+        check(not mismatches, f"decode_vs_python: the device decode differs from the Python "
+                              f"decode at {label}, message {rec['first_mismatch']}")
+        del z
+        torch.cuda.empty_cache()
     return out
 
 # --------------------------------------------------------------------------
@@ -846,12 +1027,21 @@ def phase_v3k_timing(dev, card: str) -> dict:
     v3k paths, with their bounds, and at the toy c2 shape with jr = 2:
     every byte against its plain twin, then both timed (CUDA events, median
     of 3) beside the bound (its 32-bit integer operations, or the planes
-    written once, whichever is longer). No PyTorch call computes
-    Threefry-2x32: no library time."""
+    written once, whichever is longer). Then the kernel without its
+    wrapper: its C entry on prepared arguments and the wrapper as a path
+    calls it, each 20 launches back to back between two events, interleaved
+    in 5 rounds (medians with the spread; the raw launch's planes held
+    equal to the wrapper's), and the host time of one call of each (20
+    calls, no synchronize between). No PyTorch call computes Threefry-2x32:
+    no library time."""
+    import ctypes
+
     import torch
 
     from pvw_tpu_torch.ops import fused_modmat as fm, tfry
 
+    fn = fm._noise_fn()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     out = {}
     for name, rows, cols, l, bound in (
             ("toy c1", K_DIM, N_RECEIVERS, ELL, 50),
@@ -867,6 +1057,28 @@ def phase_v3k_timing(dev, card: str) -> dict:
         ms = cuda_ms(lambda: fm.v3k_noise_planes(*args), reps=3)
         plain_ms = cuda_ms(lambda: tfry.v3k_noise_digit_planes(*args), reps=3)
         jr = 1 if bound <= 127 else 2
+        planes = torch.empty((l * jr, rows, cols), dtype=torch.int8, device=dev)
+        raw_args = (V3K_KEY[0], V3K_KEY[1], 0, 0, rows, cols, l, jr, bound, 0, 0, 0,
+                    fm._ptr(planes), stream)
+
+        def raw():
+            check(fn(*raw_args) == 0, "the v3k generator's raw launch failed")
+
+        def wrapper():
+            fm.v3k_noise_planes(*args)
+
+        back_to_back = interleaved_times({"wrapper": wrapper, "raw": raw}, rounds=5, inner=20)
+        check(torch.equal(planes, fm.v3k_noise_planes(*args)),
+              f"the v3k generator's raw launch differs from its wrapper at {name}")
+        host_us = {}
+        for label, call in (("wrapper", wrapper), ("raw", raw)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                call()
+            host_us[label] = (time.perf_counter() - t0) / 20 * 1e6
+            torch.cuda.synchronize()
+        del planes
         values = rows * cols * l
         ops = values * V3K_OPS_PER_VALUE
         ops_ms = ops / INT32_OPS_PER_S * 1e3
@@ -878,7 +1090,14 @@ def phase_v3k_timing(dev, card: str) -> dict:
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                      "values": values, "int32_ops": ops, "bytes": values * jr,
-                     "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+                     "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                     "raw_ms": back_to_back["raw"]["ms"],
+                     "raw_ms_spread": back_to_back["raw"]["ms_spread"],
+                     "wrapper_back_to_back_ms": back_to_back["wrapper"]["ms"],
+                     "wrapper_back_to_back_ms_spread": back_to_back["wrapper"]["ms_spread"],
+                     "wrapper_host_us": host_us["wrapper"], "raw_host_us": host_us["raw"]}
+        out[name]["x_bound"] = ms / out[name]["bound_ms"]
+        out[name]["x_bound_raw"] = out[name]["raw_ms"] / out[name]["bound_ms"]
         emit(out[name])
         torch.cuda.empty_cache()
     return out
@@ -1230,8 +1449,14 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
                                                                 R.fold_in(key, 778)))
             wrap_got = {i: P.decrypt_party_value(wrap_ct, sks[i], i) for i in wrap_parties}
         counts = launches()
+        # the first full party's shares again, by the Python decode
+        settings.decode_mode = "python"
+        i = full_parties[0]
+        python_equal = P.decrypt_party_shares(ct, sks[i], i) == full[i]
     finally:
         del settings.noise_stream, settings.swapped_form, settings.pipeline_fold
+        del settings.decode_mode
+    decryptions = len(threshold_parties) + len(full_parties) + len(wrap_parties)
     shares_exact = all(got[i] == [(dl, int(shares[dl, i])) for dl in valid]
                        for i in threshold_parties) \
         and all(full[i] == [int(v) for v in shares[:, i]] for i in full_parties)
@@ -1252,6 +1477,8 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
            "wrap_scalars": {str(i): int(wrap_sc[i]) for i in wrap_parties},
            "wrap_decoded": {str(i): wrap_got[i] for i in wrap_parties},
            "wrap_ok": wrap_ok if wrap_parties else None,
+           "decryptions": decryptions, "device_decodes": counts[DECODES],
+           "python_decode_equal": python_equal,
            "launches": counts, "encrypt_launches": stage_launches["encrypt"],
            "stage_launches": stage_launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1260,6 +1487,9 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
     check(aborted is not False, f"{threshold - 1} valid dealers did not abort at threshold "
                                 f"{threshold} ({phase})")
     check(wrap_ok, f"the >= 2^63 scalars did not decode with `as i64` semantics ({phase})")
+    check(counts[DECODES] == decryptions, f"{counts[DECODES]} device decodes for "
+                                          f"{decryptions} decryptions in {phase}")
+    check(python_equal, f"the device decode differs from the Python decode in {phase}")
     check(counts[RELAYOUTS] == 0, f"{counts[RELAYOUTS]} bands were relaid to k-packed in "
                                   f"{phase}: kernel 4 writes every band so")
     check(counts[ROW_RELAYOUTS] == 0, f"{counts[ROW_RELAYOUTS]} lhs operands were copied to "
@@ -1623,8 +1853,11 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
     launch counts set to 0 before its encryption and read after, gated, its
     c1 and c2 ``torch.equal`` to the single-device ciphertext of the same
     key and scalars (encrypted first, outside the counts), sampled parties'
-    shares exact, host-clocked encryption and decryption, enc/s and peak
-    device memory. Under v3k: ``sharded_path`` (a (2, 2) mesh over cuda:0
+    shares exact and equal to the single-device decryption by the Python
+    decode, the device decodes of each backend's decryption counted (one
+    per recv row of a mesh, one for the gathered limbs or dealers),
+    host-clocked encryption and decryption, enc/s and peak device memory.
+    Under v3k: ``sharded_path`` (a (2, 2) mesh over cuda:0
     repeated four times), ``forced_masked_path`` ((1, 1), ``_force_masked``),
     ``data_parallel_path`` (4 dealer shards), ``limb_parallel_path`` (17
     limbs in 4 groups) and ``grid_path`` (2 limb groups x a (1, 2) mesh);
@@ -1648,32 +1881,35 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
     sks = {i: P.SecretKey(params, host_coeffs[i]) for i in (0, 1, n // 2, n - 1)}
     v3k = stream == "v3k"
     # name: (encrypt, decrypt(ct, party), parties decrypted, shards, products, masked
-    # launches); a mesh computes c1 on its recv row 0 only, c2 on every shard
+    # launches, device decodes a decryption); a mesh computes c1 on its recv row 0
+    # only, c2 on every shard, and decodes a batch per recv row
     devices = list(devices) if devices is not None else [dev] * 4
     mesh = lambda count, kdim: TP.make_mesh(devices[:count], kdim=kdim)
     backends = {
         "sharded_path" if v3k else "sharded_bake_path": (
             lambda: TP.encrypt_batch_sharded(shares, gpk, key, mesh(4, 2)),
             lambda ct, i: TP.decrypt_party_shares_sharded(ct, sks[i], i, mesh(4, 2)),
-            (0, n - 1), 4, 6, 6 if v3k else 0)}
+            (0, n - 1), 4, 6, 6 if v3k else 0, 2)}
     if v3k:
         backends.update({
             "forced_masked_path": (
                 lambda: TP.encrypt_batch_sharded(shares, gpk, key, mesh(1, 1),
                                                  _force_masked=True),
                 lambda ct, i: TP.decrypt_party_shares_sharded(ct, sks[i], i, mesh(1, 1)),
-                (n // 2,), 1, 2, 2),
+                (n // 2,), 1, 2, 2, 1),
             "data_parallel_path": (
                 lambda: TP.encrypt_batch_data_parallel(shares, gpk, key, devices),
-                lambda ct, i: P.decrypt_party_shares(ct.gather(), sks[i], i), (1,), 4, 8, 0),
+                lambda ct, i: P.decrypt_party_shares(ct.gather(), sks[i], i), (1,), 4, 8, 0,
+                1),
             "limb_parallel_path": (
                 lambda: TP.encrypt_batch_limb_parallel(shares, gpk, key, devices),
                 lambda ct, i: TP.decrypt_party_shares_limb_parallel(ct, sks[i], i), (0,), 4, 8,
-                0),
+                0, 1),
             "grid_path": (
                 lambda: TP.encrypt_batch_grid(shares, gpk, key, devices, limb_groups=2,
                                               kdim=2),
-                lambda ct, i: TP.decrypt_party_shares_grid(ct, sks[i], i), (n - 1,), 4, 8, 8)})
+                lambda ct, i: TP.decrypt_party_shares_grid(ct, sks[i], i), (n - 1,), 4, 8, 8,
+                1)})
     settings.noise_stream = stream
     out = {}
     try:
@@ -1682,8 +1918,17 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
         ref = timed(times, "single_device_encrypt_ms",
                     lambda: P.encrypt_all_party_shares_batched(shares, gpk, key))
         ref1, ref2 = ref.c1.channel(), ref.c2.channel()
+        # every decrypted party's shares from the single-device ciphertext, by
+        # the Python decode
+        settings.decode_mode = "python"
+        try:
+            single = {i: P.decrypt_party_shares(ref, sks[i], i)
+                      for i in sorted({i for b in backends.values() for i in b[2]})}
+        finally:
+            del settings.decode_mode
         del ref
-        for name, (encrypt, decrypt, parties, nshards, products, masked) in backends.items():
+        for name, (encrypt, decrypt, parties, nshards, products, masked,
+                   decodes) in backends.items():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t = {"single_device_encrypt_ms": times["single_device_encrypt_ms"]}
@@ -1695,8 +1940,11 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
             equal = (torch.equal(whole.c1.channel(), ref1)
                      and torch.equal(whole.c2.channel(), ref2))
             del whole
+            reset_launches()
             got = {i: timed(t, f"decrypt_party_{i}_ms", lambda: decrypt(ct, i)) for i in parties}
+            decoded = launches()[DECODES]
             exact = all(got[i] == [int(v) for v in shares[:, i]] for i in parties)
+            python_equal = all(got[i] == single[i] for i in parties)
             out[name] = {"phase": name, "card": card, "devices": [str(d) for d in devices],
                          "config": "BASELINE config 4",
                          "preset": "threshold_256bit", "stream": stream, "dealers": n,
@@ -1704,12 +1952,19 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
                          "enc_per_s": n / (t["encrypt_ms"] / 1e3),
                          "single_device_enc_per_s": n / (t["single_device_encrypt_ms"] / 1e3),
                          "equal_to_single_device": equal, "parties": list(parties),
-                         "shares_exact": exact, "launches": ran, "peak_mem_gb": peak}
+                         "shares_exact": exact, "equal_to_single_device_python_decode":
+                         python_equal, "device_decodes": decoded,
+                         "launches": ran, "peak_mem_gb": peak}
             emit(out[name])
             del ct
             torch.cuda.empty_cache()
             check(equal, f"{name}: the ciphertext differs from the single-device one")
             check(exact, f"{name}: a decrypted share differs from the encrypted one")
+            check(python_equal, f"{name}: a decrypted share differs from the single-device "
+                                "decryption by the Python decode")
+            check(decoded == decodes * len(parties),
+                  f"{name}: {decoded} device decodes for {len(parties)} decryptions "
+                  f"({decodes} each)")
             check(ran[fm.MASKED_KERNEL] == masked,
                   f"{name}: the masked form launched {ran[fm.MASKED_KERNEL]} times, not {masked}")
             check(ran[RELAYOUTS] == 0, f"{name}: {ran[RELAYOUTS]} bands relaid to k-packed")
@@ -2121,6 +2376,10 @@ def main() -> int:
     deep_keys = (ctx["gpk"], ctx["coeffs"])
     del ctx
     torch.cuda.empty_cache()
+    phase_decode_vs_python(dev, card, {
+        "toy chain": (presets.pvss_8192(N_RECEIVERS), N_RECEIVERS),
+        "config 4": (deep, DEEP_N),
+        "reference": (presets.secure_128_reference(REF_N), REF_N)})
     v3k_worst = phase_v3k_vs_plain(dev)
     v3k_timing = phase_v3k_timing(dev, card)
     swapped_worst = phase_swapped_vs_plain(dev)
@@ -2187,7 +2446,9 @@ def main() -> int:
                      "_fused_scaled_noise_matmul (in-kernel v3k generation)",
                      by_path[fm.NOISE_KERNEL],
                      max(v3k_worst, *(t["max_abs_err"] for t in v3k_timing.values())),
-                     v3k_timing["toy c2"], v3k_timing["config-4 c2"], card),
+                     v3k_timing["toy c2"], v3k_timing["config-4 c2"], card,
+                     raw_ms=v3k_timing["toy c2"]["raw_ms"],
+                     wrapper_host_us=v3k_timing["toy c2"]["wrapper_host_us"]),
         kernel_entry(fm.SWAPPED_KERNEL, src + "fused_scaled_noise_matmul.cu",
                      "pvw_tpu/ops/pallas_modmat.py:696",
                      "_fused_scaled_noise_matmul (swapped=True, via matmul_fold_swapped)",

@@ -15,15 +15,14 @@ encryption of 1024 dealers to warm up and one under ``torch.profiler``
 (CPU and CUDA activities). Per case one JSON line: the host wall time of
 the profiled call (the profiler's own overhead included), the summed device
 time of everything the card ran (its kernels, copies and fills, each
-counted once), the idle share 1 - device / wall, and the ten entries with
-the most device time. When the profiler records no device time the line
+counted once) and their count, the idle share 1 - device / wall, and the
+ten entries with the most device time (``chip_smoke.profiled``). When the profiler records no device time the line
 says so (``device_ms`` null).
 """
 
 from __future__ import annotations
 
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -34,33 +33,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def profiled(fn, activities) -> dict:
-    """``fn()`` once under the profiler: wall ms, device ms, idle share and
-    the ten entries with the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import profile
-
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # the card's own events (kernels, copies, fills); the CPU ops that
-    # launched them report the same time again, and the profiler's buffer
-    # request is not the program's work
-    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                 and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
-    device = sum(e.self_device_time_total for e in on_device) / 1e3
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
-    return {"wall_ms": wall, "device_ms": device or None,
-            "idle_share": 1 - device / wall if device else None,
-            "top": [{"name": e.key[:90], "calls": e.count,
-                     "device_ms": e.self_device_time_total / 1e3} for e in top]}
-
-
-def run(dev, activities, card: str, n: int) -> None:
+def run(dev, card: str, n: int) -> None:
     import pvw_tpu_torch as P
     import pvw_tpu_torch.parallel as TP
     from pvw_tpu_torch import random as R
@@ -83,7 +56,7 @@ def run(dev, activities, card: str, n: int) -> None:
             settings.noise_stream = stream
             try:
                 encrypt(R.key(1))
-                out = profiled(lambda: encrypt(R.key(2)), activities)
+                out = cs.profiled(lambda: encrypt(R.key(2)))
             finally:
                 del settings.noise_stream
             cs.emit({"probe": "backend_profile", "case": name, "stream": stream,
@@ -92,13 +65,11 @@ def run(dev, activities, card: str, n: int) -> None:
 
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity
 
     if not torch.cuda.is_available():
         print("backend_profile: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    run(torch.device("cuda"), [ProfilerActivity.CPU, ProfilerActivity.CUDA], cs.card_line(),
-        cs.DEEP_N)
+    run(torch.device("cuda"), cs.card_line(), cs.DEEP_N)
     return 0
 
 

@@ -19,10 +19,16 @@ noise_value_mac      PVW_TPU_NOISE_VALS    Let the fused kernel compose the
                                            noise digit planes into int32
                                            values when the int32 column
                                            headroom allows (True).
-decode_mode          PVW_TPU_DECODE        ``"auto"``/``"python"``: the exact
-                                           Python decode. ``"device"``,
-                                           ``"host"`` and ``"native"`` are
-                                           not ported yet ("auto").
+decode_mode          PVW_TPU_DECODE        ``"auto"`` and ``"device"``: the
+                                           decode on the residues' device
+                                           (``crypto/device_decode.py``);
+                                           ``auto`` takes the Python decode
+                                           where the device decode does not
+                                           cover the parameters, ``device``
+                                           raises there. ``"python"``: the
+                                           exact host decode. ``"host"`` and
+                                           ``"native"`` are not ported yet
+                                           and raise ("auto").
 fused_prescale       PVW_TPU_FUSED_        The JAX package's r-stage engine
                      PRESCALE              choice, parsed as there
                                            (:meth:`use_fused_prescale`) and
@@ -58,7 +64,8 @@ from typing import Callable, Optional
 
 _UNSET = object()
 _FALSY = frozenset({"0", "false", "off", "no"})
-_UNPORTED_DECODE = ("device", "host", "native")
+_DECODE_MODES = ("auto", "device", "python")
+_UNPORTED_DECODE = ("host", "native")
 
 
 def _parse_bool(raw: str) -> bool:
@@ -150,20 +157,22 @@ class Settings:
         return num_digits >= 8
 
     def resolved_decode_mode(self) -> str:
-        """``"python"``; raises NotImplementedError for the decode engines
-        this port does not have yet."""
+        """The decode mode, ``"auto"``, ``"device"`` or ``"python"``;
+        raises NotImplementedError for the JAX package's host and native
+        engines, which this port does not have yet, and ValueError for
+        anything else."""
         mode = str(self.decode_mode).strip().lower()
-        if mode in ("auto", "python"):
-            return "python"
+        if mode in _DECODE_MODES:
+            return mode
         if mode in _UNPORTED_DECODE:
             raise NotImplementedError(
                 f"PVW_TPU_DECODE={self.decode_mode!r}: the {mode} decode "
-                "engine is not ported to pvw_tpu_torch yet; use 'auto' or "
-                "'python'"
+                "engine is not ported to pvw_tpu_torch yet (ROADMAP.md, "
+                "modules to port); use 'auto', 'device' or 'python'"
             )
         raise ValueError(
             f"PVW_TPU_DECODE={self.decode_mode!r} is not a decode mode "
-            "(auto/python)"
+            "(auto/device/python)"
         )
 
 

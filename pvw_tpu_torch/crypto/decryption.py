@@ -1,14 +1,16 @@
-"""PVW decryption: the inner product on the device, the exact decode on the host.
+"""PVW decryption: the inner product and the exact decode.
 
 The counterpart of ``pvw_tpu.crypto.decryption`` (the reference's
-``decryption.rs``), in the JAX package's ``python`` decode mode:
+``decryption.rs``):
 
 1. z = <s, c1> - c2[i] as a channel-major digit contraction over k, then
-   one inverse NTT, batched over dealers;
-2. the exact sequential-rounding decode :func:`decode_scalar_pvw_rns` on
-   CRT-lifted integers, with the reference's conventions (centering only
-   above q//2, sign-split rounding division, Rust's truncated %, the final
-   clamp of small negatives to 0).
+   one inverse NTT, batched over dealers, on the ciphertexts' device;
+2. the exact sequential-rounding decode with the reference's conventions
+   (centering only above q//2, sign-split rounding division, Rust's
+   truncated %, the final clamp of small negatives to 0), routed by
+   :func:`_decode_mode` (``PVW_TPU_DECODE``): on the residues' device
+   (:mod:`.device_decode`; the only host fetch is 8 bytes a message), or
+   :func:`decode_scalar_pvw_rns` on the host.
 """
 
 from __future__ import annotations
@@ -21,18 +23,19 @@ from ..keys.secret_key import SecretKey
 from ..ops import modmat, ntt as ntt_ops, u64 as u64op
 from ..params.parameters import PvwParameters
 from ..utils.intmath import center_mod, rust_div, rust_rem
+from . import device_decode
 from .encryption import PvwCiphertext
 
 
-def _noisy_messages(params: PvwParameters, sk_ntt, c1_ch, c2_ch) -> np.ndarray:
+def _noisy_messages(params: PvwParameters, sk_ntt, c1_ch, c2_ch) -> torch.Tensor:
     """sk_ntt [k, L, l]; c1_ch [L, l, k, d]; c2_ch [L, l, d] (NTT) ->
-    PowerBasis residues of <s, c1> - c2, uint64 [d, L, l]."""
+    PowerBasis residues of <s, c1> - c2, int64 [d, L, l] on c1's device."""
     ring = params.ring
     skc = sk_ntt.permute(1, 2, 0)[:, :, None, :]                  # [L, l, 1, k]
     prod = modmat.matmul_channels(skc, c1_ch, ring)[:, :, 0]       # [L, l, d]
     q = ring.table("q", prod.device)[:, None, None]
     z = u64op.submod(prod, c2_ch, q).permute(2, 0, 1)              # [d, L, l]
-    return u64op.u64_numpy(ntt_ops.ntt_inverse(z, ring))
+    return ntt_ops.ntt_inverse(z, ring)
 
 
 def decode_scalar_pvw_rns(coeff_residues: np.ndarray, params: PvwParameters) -> int:
@@ -83,11 +86,43 @@ def decode_scalar_pvw_rns(coeff_residues: np.ndarray, params: PvwParameters) -> 
     return mf if mf < 1 << 64 else 0
 
 
-def _decode_batch(residues: np.ndarray, params: PvwParameters) -> list[int]:
+def _decode_mode(params: PvwParameters) -> str:
+    """The decode engine for ``params`` under ``PVW_TPU_DECODE``, the
+    counterpart of the JAX package's router for the engines the port has:
+    ``"device"`` for ``auto`` and ``device`` where
+    :func:`~.device_decode.decode_supported` holds, else ``"python"``.
+    ``auto`` sends every batch size to the device (the JAX package sends
+    batches below its crossover to a host engine the port lacks); where the
+    device decode does not cover the parameters, ``auto`` takes the Python
+    decode, counted in ``_decode_mode.python_fallbacks``, and ``device``
+    raises. ``host`` and ``native`` raise (not ported)."""
     from ..config import settings
 
-    settings.resolved_decode_mode()          # raises for unported engines
-    return [decode_scalar_pvw_rns(residues[i], params) for i in range(residues.shape[0])]
+    mode = settings.resolved_decode_mode()
+    if mode == "python":
+        return mode
+    if device_decode.decode_supported(params):
+        return "device"
+    if mode == "device":
+        raise InvalidParameters(
+            "PVW_TPU_DECODE='device': the device decode does not cover this "
+            f"parameter set (delta = {params.delta()}, l = {params.l})")
+    _decode_mode.python_fallbacks += 1
+    return "python"
+
+
+_decode_mode.python_fallbacks = 0
+
+
+def _decode_batch(residues: torch.Tensor, params: PvwParameters) -> list[int]:
+    """Decode the messages of PowerBasis residues int64 [d, L, l] on any
+    device, by :func:`_decode_mode`: on the residues' device, fetching the
+    d messages alone (8 bytes each), or by the Python decode on the host."""
+    if _decode_mode(params) == "device":
+        out = device_decode.decode_residues(device_decode.get_plan(params), residues)
+        return [int(v) for v in u64op.u64_numpy(out)]
+    res = u64op.u64_numpy(residues)
+    return [decode_scalar_pvw_rns(res[i], params) for i in range(res.shape[0])]
 
 
 def decrypt_party_value(ciphertext: PvwCiphertext, secret_key: SecretKey,

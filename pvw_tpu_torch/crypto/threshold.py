@@ -6,9 +6,9 @@ of dealer ciphertexts as valid; the protocol aborts if fewer than
 ``threshold`` are valid; every party decrypts only the valid subset, and
 the dealer indices are kept for reconstruction. The valid dealer columns
 are gathered into one [k, s] block, the inner products run as one
-contraction on the ciphertexts' device, and the exact decode runs on the
-host (the ``python`` decode mode; the device, host and native engines are
-not ported yet and raise).
+contraction on the ciphertexts' device, and the exact decode runs once over
+the whole subset, routed as in :mod:`.decryption` (on that device by
+default, fetching 8 bytes a share).
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ The counterpart of ``pvw_tpu.parallel.grid``. The devices split into
 (:mod:`pvw_tpu_torch.parallel.sharding`) over its block of limbs with
 limb-restricted parameters, and the limb axes concatenate to the
 single-device ciphertext bit for bit. Collectives stay inside each group's
-mesh.
+mesh. Decryption gathers each dealer block's limb residues onto the first
+group's device for that block and decodes there.
 """
 
 from __future__ import annotations
@@ -98,14 +99,19 @@ def decrypt_party_shares_grid(ct: GridShardedCiphertext, secret_key: SecretKey,
                               party_index: int) -> list[int]:
     """Batched decryption over the grid: each limb group runs the
     mesh-sharded inner product (dealers over recv, the contraction over
-    kdim), then the limb residues are concatenated and decoded on the
-    host."""
+    kdim); then each recv row's dealer block gathers its limb residues onto
+    the first group's device for that row and decodes there (the CRT lifts
+    need every limb; ``_decode_batch``'s routing)."""
     params = ct.params
     if not (0 <= party_index < params.n):
         raise InvalidParameters(f"Party index {party_index} exceeds maximum {params.n - 1}")
-    zs = []
+    groups = []
     for (c1, c2), idx, mesh in zip(ct.shards, ct.partition, ct.meshes):
         sk = secret_key.to_polynomials(mesh.devices[0][0]).res[:, _limb_slice(idx)]
-        zs.append(_noisy_sharded_ch(params.restrict_limbs(idx), mesh, sk, c1,
-                                    c2[:, :, party_index]))
-    return _decode_batch(np.concatenate(zs, axis=1), params)
+        groups.append(_noisy_sharded_ch(params.restrict_limbs(idx), mesh, sk, c1,
+                                        c2[:, :, party_index]))
+    out = []
+    for rows in zip(*groups):                      # one dealer block, every limb group
+        dev = rows[0].device
+        out += _decode_batch(torch.cat([z.to(dev) for z in rows], dim=1), params)
+    return out

@@ -8,9 +8,9 @@ over its block of limbs with limb-restricted parameters
 (:meth:`~pvw_tpu_torch.params.PvwParameters.restrict_limbs`: the full-q
 gadget and Δ, the sub-ring's tables) and no collectives; concatenating the
 limb axes gives the single-device ciphertext bit for bit. Decryption runs
-the inner product per limb shard and decodes the concatenated residues on
-the host (the decode's CRT lift needs every limb; the device decode is not
-ported).
+the inner product per limb shard, then concatenates the limb residues on
+the first shard's device and decodes there (the decode's CRT lifts need
+every limb).
 """
 
 from __future__ import annotations
@@ -100,7 +100,8 @@ def decrypt_party_shares_limb_parallel(ct: LimbShardedCiphertext, secret_key: Se
                                        party_index: int) -> list[int]:
     """Batched decryption of a limb-sharded ciphertext: the inner product
     and the inverse NTT per limb shard (no collectives), then the limb
-    residues concatenated and decoded on the host."""
+    residues concatenated on the first shard's device and decoded there
+    (``_decode_batch``'s routing)."""
     params = ct.params
     if not (0 <= party_index < params.n):
         raise InvalidParameters(f"Party index {party_index} exceeds maximum {params.n - 1}")
@@ -108,4 +109,5 @@ def decrypt_party_shares_limb_parallel(ct: LimbShardedCiphertext, secret_key: Se
     for (c1, c2), idx in zip(ct.shards, ct.partition):
         sk = secret_key.to_polynomials(c1.device).res[:, _limb_slice(idx)]
         zs.append(_noisy_messages(params.restrict_limbs(idx), sk, c1, c2[:, :, party_index]))
-    return _decode_batch(np.concatenate(zs, axis=1), params)
+    dev0 = zs[0].device
+    return _decode_batch(torch.cat([z.to(dev0) for z in zs], dim=1), params)

@@ -25,7 +25,9 @@ kernel 1's masked form (6-word seeds, noise and encode only on the global
 rows [lo, hi)), otherwise by adding them to the block before the gather
 ("the bake route", the residues made in plain torch). Bounds >= the
 smallest modulus take the exact host noise, added after the gather.
-Decryption decodes on the host: the device decode is not ported.
+Decryption decodes each recv shard's dealers on that shard's device (the
+decode is per dealer, so it needs no collective), as the JAX package does
+inside its ``shard_map``.
 """
 
 from __future__ import annotations
@@ -309,12 +311,13 @@ def encrypt_batch_sharded(all_scalars, global_pk: GlobalPublicKey, key, mesh: Me
                          Poly.from_channel_major(c2, Representation.Ntt, params.ring), params)
 
 
-def _noisy_sharded_ch(params: PvwParameters, mesh: Mesh, sk, c1_ch, c2_ch) -> np.ndarray:
+def _noisy_sharded_ch(params: PvwParameters, mesh: Mesh, sk, c1_ch, c2_ch) -> list:
     """Sharded decryption stage, channel-major: z_d = <s, c1_d> - c2_d with
     the dealers over recv and the k contraction over kdim (gathered and
     added mod q on the axis' first device), then the inverse NTT. sk NTT
-    residues [k, L, l]; c1_ch [L, l, k, d]; c2_ch [L, l, d] -> PowerBasis
-    residues uint64 [d, L, l] on the host."""
+    residues [k, L, l]; c1_ch [L, l, k, d]; c2_ch [L, l, d] -> each recv
+    row's PowerBasis residues, int64 [d / recv, L, l] on the row's first
+    device, in dealer order."""
     ring, k, d = params.ring, params.k, c1_ch.shape[3]
     nr, kd = mesh.shape["recv"], mesh.shape["kdim"]
     if d % nr or k % kd:
@@ -335,11 +338,11 @@ def _noisy_sharded_ch(params: PvwParameters, mesh: Mesh, sk, c1_ch, c2_ch) -> np
         s = _modsum_gathered(parts, ring, head)
         q = ring.table("q", head)[:, None, None]
         z = u64op.submod(s, c2_ch[:, :, dls].to(head), q).permute(2, 0, 1)   # [dl, L, l]
-        out.append(u64op.u64_numpy(ntt_ops.ntt_inverse(z, ring)))
-    return np.concatenate(out)
+        out.append(ntt_ops.ntt_inverse(z, ring))
+    return out
 
 
-def _noisy_sharded(params: PvwParameters, mesh: Mesh, sk, c1, c2) -> np.ndarray:
+def _noisy_sharded(params: PvwParameters, mesh: Mesh, sk, c1, c2) -> list:
     """:func:`_noisy_sharded_ch` of canonical c1 [k, d, L, l] and c2
     [d, L, l] (the channel-major views of the same tensors)."""
     return _noisy_sharded_ch(params, mesh, sk, c1.permute(2, 3, 0, 1), c2.permute(1, 2, 0))
@@ -349,16 +352,16 @@ def decrypt_party_shares_sharded(ct: PvwCiphertext, secret_key, party_index: int
                                  mesh: Mesh) -> list[int]:
     """Mesh-sharded ``decrypt_party_shares`` of a batched ciphertext: the
     dealers over ``recv``, the k contraction over ``kdim``, channel-major
-    or canonical. The residues are gathered and decoded on the host (the
-    JAX package decodes inside the shards on the device; the device decode
-    is not ported)."""
+    or canonical. Each recv row's dealers decode on the row's first device
+    (``_decode_batch``'s routing: the device decode unless ``python`` is
+    asked for, or ``auto`` meets parameters it does not cover)."""
     params = ct.params
     if len(ct.c1.batch_shape) != 2:
         raise InvalidParameters("expected a batched ciphertext")
     sk = secret_key.to_polynomials(mesh.devices[0][0]).res
     if ct.c1.is_channel_major and ct.c2.is_channel_major:
-        z = _noisy_sharded_ch(params, mesh, sk, ct.c1.channel(),
-                              ct.c2.channel()[:, :, party_index])
+        rows = _noisy_sharded_ch(params, mesh, sk, ct.c1.channel(),
+                                 ct.c2.channel()[:, :, party_index])
     else:
-        z = _noisy_sharded(params, mesh, sk, ct.c1.res, ct.c2.res[party_index])
-    return _decode_batch(z, params)
+        rows = _noisy_sharded(params, mesh, sk, ct.c1.res, ct.c2.res[party_index])
+    return [m for z in rows for m in _decode_batch(z, params)]

@@ -784,7 +784,8 @@ def test_parallel_backends_on_the_card_equal_cpu(cuda_device, stream):
 def test_parallel_backends_over_distinct_cards(stream):
     """Every backend over every visible card, each shard on its own device
     (the defaults: ``make_mesh()`` and ``devices=None``), against the
-    single-device encryption on ``cuda:0``; sharded decryption exact."""
+    single-device encryption on ``cuda:0``; sharded, limb-parallel and grid
+    decryption exact, each decoding on its shards' cards."""
     import pvw_tpu_torch as P
     import pvw_tpu_torch.parallel as TP
     from pvw_tpu_torch import random as R
@@ -808,19 +809,23 @@ def test_parallel_backends_over_distinct_cards(stream):
         k5 = R.fold_in(key, 5)
         mesh = TP.make_mesh()
         assert {d.index for row in mesh.devices for d in row} == set(range(cards))
+        limb = TP.encrypt_batch_limb_parallel(sc, gpk, k5)
         cts = {"single": P.encrypt_batch(sc, gpk, k5),
-               "mesh": TP.encrypt_batch_sharded(sc, gpk, k5, mesh),
-               "limb": TP.encrypt_batch_limb_parallel(sc, gpk, k5).gather()}
-        if cards % 2 == 0:
-            cts["grid"] = TP.encrypt_batch_grid(sc, gpk, k5).gather()
+               "mesh": TP.encrypt_batch_sharded(sc, gpk, k5, mesh), "limb": limb.gather()}
+        grid = TP.encrypt_batch_grid(sc, gpk, k5) if cards % 2 == 0 else None
+        if grid is not None:
+            cts["grid"] = grid.gather()
         if stream == "v3k":
             cts["dealer"] = TP.encrypt_batch_data_parallel(sc, gpk, k5).gather()
         want = (cts["single"].c1.residues_np(), cts["single"].c2.residues_np())
         for name, ct in cts.items():
             np.testing.assert_array_equal(ct.c1.residues_np(), want[0], err_msg=name)
             np.testing.assert_array_equal(ct.c2.residues_np(), want[1], err_msg=name)
-        shares = TP.decrypt_party_shares_sharded(cts["mesh"], parties[3].secret_key, 3, mesh)
-        assert shares == [int(v) for v in sc[:, 3]]
+        sk, want_shares = parties[3].secret_key, [int(v) for v in sc[:, 3]]
+        assert TP.decrypt_party_shares_sharded(cts["mesh"], sk, 3, mesh) == want_shares
+        assert TP.decrypt_party_shares_limb_parallel(limb, sk, 3) == want_shares
+        if grid is not None:
+            assert TP.decrypt_party_shares_grid(grid, sk, 3) == want_shares
     finally:
         del settings.noise_stream
 
@@ -1124,3 +1129,49 @@ def test_dot_structure_kernel_equals_plain_twin(cuda_device, layout, nd, m, kd, 
     assert torch.equal(got, want)
     assert torch.equal(ds.dot_structure(lhs, bx, layout, 32, nd), want)
     assert ds.dot_structure.relayouts == relaid + 2
+
+
+# --------------------------------------------------------------------------
+# the device decode (plain torch, no kernel of its own) on the card
+# --------------------------------------------------------------------------
+
+def decode_params(moduli, l):
+    from pvw_tpu_torch.params.parameters import PvwParameters, PvwParametersBuilder
+
+    b1, b2 = PvwParameters.suggest_error_bounds(4, 16, l, moduli, 0.5)
+    return (PvwParametersBuilder().set_parties(4).set_dimension(16).set_l(l)
+            .set_moduli(moduli).set_secret_variance(0.5).set_error_bounds_u32(b1, b2)
+            .build())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l", [(TOY, 8), (CHAIN_61X17, 16),
+                                      (tuple(generate_ntt_primes(55, 4, 8)), 8)],
+                         ids=["toy", "config4", "reference"])
+def test_device_decode_on_card_equals_python_decode(cuda_device, moduli, l):
+    """``decode_residues`` on the card against ``decode_scalar_pvw_rns``,
+    every message: encodings -(v Δ^j + e_j) of messages at the clamp
+    (±1000, ±1001), past u64 and random, rows lifting to q//2 and q//2 + 1,
+    a zero row, uniform residues; only the [d] messages come back."""
+    from pvw_tpu_torch.crypto import device_decode
+    from pvw_tpu_torch.crypto.decryption import decode_scalar_pvw_rns
+
+    p = decode_params(moduli, l)
+    q, delta = p.q_total(), p.delta()
+    rng = np.random.default_rng(l)
+    rows = [[q // 2] * l, [q // 2 + 1] * l, [0] * l]
+    for v in [-1000, 1000, -1001, 1001, 1 << 64, (1 << 64) - 1] + \
+            [int(x) for x in rng.integers(0, 1 << 63, 20)]:
+        e = rng.integers(-(delta // 4), delta // 4 + 1, size=l).tolist()
+        rows.append([(-((v % q) * delta ** j + e[j])) % q for j in range(l)])
+    res = np.stack([rng.integers(0, m, size=(64, l), dtype=np.uint64) for m in moduli], 1)
+    for r, coeffs in enumerate(rows):
+        res[r] = p.ring.residues_from_int_coeffs(coeffs)
+    before = device_decode.decode_residues.calls
+    out = device_decode.decode_residues(device_decode.get_plan(p),
+                                        u64.u64_tensor(res, cuda_device))
+    assert out.device.type == "cuda" and out.shape == (64,)
+    assert device_decode.decode_residues.calls == before + 1
+    got = [int(v) for v in u64.u64_numpy(out)]
+    assert got == [decode_scalar_pvw_rns(r, p) for r in res]
+    assert got[3:7] == [0, 1000, 0, 1001] and got[7] == 0

@@ -171,7 +171,8 @@ def test_keygen_residue_ntt_path_equals_signed_path(toy):
 
 def test_unported_paths_raise_clearly(toy):
     """A bound above the signed-digit range (the residue-noise path) now
-    encrypts as the JAX package does; the unported decode engines raise."""
+    encrypts as the JAX package does; the device decode decodes; the
+    unported decode engines (host, native) raise."""
     jp, tp, jkey, jcrs, tcrs, jparties, tsks, jgpk, tgpk = toy
     sc = np.arange(jp.n * jp.n, dtype=np.uint64).reshape(jp.n, jp.n)
     big = dict(tp.to_dict(), error_bound_2="40000")
@@ -189,8 +190,11 @@ def test_unported_paths_raise_clearly(toy):
     ct = P.encrypt(sc[0], tgpk, R.key(1))
     try:
         tsettings.decode_mode = "device"
-        with pytest.raises(NotImplementedError, match="not ported"):
-            P.decrypt_party_value(ct, tsks[0], 0)
+        assert P.decrypt_party_value(ct, tsks[0], 0) == 0
+        for mode in ("host", "native"):
+            tsettings.decode_mode = mode
+            with pytest.raises(NotImplementedError, match="not ported"):
+                P.decrypt_party_value(ct, tsks[0], 0)
     finally:
         del tsettings.decode_mode
     assert P.decrypt_party_value(ct, tsks[0], 0) == 0
