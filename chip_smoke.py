@@ -7,10 +7,11 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure raises and exits non-zero. Every
-path is ``phase_dealer_path`` (CRS, batch keygen or an earlier path's keys,
+dealer path is ``phase_dealer_path`` (CRS, batch keygen or an earlier path's keys,
 the encryption operands, n dealers' shares in one batch, decryption with
 every sampled share exact, decoded on the card by the plain-torch device
-decode, one batch a decryption (``device_decode.decode_residues.calls``),
+decode, one batch a decryption (``device_decode.decode_residues.calls``;
+a single message decrypts in the C++ host engine, ``engine_calls.host``),
 and one party's shares decoded again by the Python decode and held
 equal), with the kernels' launch counts set to 0 just
 before it and read just after, per stage (keygen, encryption, the wrap
@@ -27,7 +28,8 @@ to ``torch._int_mm``.
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    the nine kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
-   started together, into ``build/kernels``);
+   started together, into ``build/kernels``), then of the C++ decode engine
+   (``native/pvw_decode.cpp``, g++, into ``build/native``);
 2. kernel_vs_plain: kernel 1, the fused scaled-noise matmul, against its
    plain PyTorch twin at the keygen, c1 and c2 shapes of the main path at
    a dealer batch of 512 (CH=16, kd=1280, nd=5), with jr=1/2 noise planes,
@@ -139,6 +141,19 @@ to ``torch._int_mm``.
     ``presets.secure_128_reference(1024)`` (k = 1024, l = 8, 4 x 55-bit
     limbs, variance 10, bounds (1, 1172385)) under v3k: all dealers
     decrypted for parties 0, 511 and 1023, then reference_breakdown;
+21a. party_path (``phase_party_path``): the party's side at the same preset
+    under v3k: batch keygen, then four parties re-make their keys one at a
+    time with their errors recorded (each row exactly sᵀA + e), 1024 dealers
+    encrypted after (the operand cache remade: the loaded global key
+    encrypts the same bytes), every type to PVWT bytes, loaded on the card
+    and to bytes again (identical; MB and ms a step), party 0 decrypting the
+    loaded ciphertexts by each engine (16 dealers, a 32-dealer threshold
+    subset and one message on the host engine, every dealer on the device
+    decode and on the C++ decode, each gated by the engines' counters and
+    equal to the Python decode), and a small ``pvw-vectors-v1`` case; then
+    crossover: one party's decryption of d dealers on the device route and
+    on the host route, d from 1 to 1024, interleaved, and the measured
+    crossover (also on the toy chain after breakdown, d up to 4096);
 22. pipelined_path: the toy chain at n = 4096 under v3k with
     ``settings.pipeline_fold`` (keygen and both products through kernel 3,
     no generator launch), full decryption for parties 0 and 4095; then
@@ -308,15 +323,21 @@ RELAYOUTS = "band_relayouts"
 ROW_RELAYOUTS = "row_relayouts"
 # batches decoded on the residues' device (crypto/device_decode.py, plain torch)
 DECODES = "decode_residues"
+# batches of the other decode engines (crypto/decryption.engine_calls): the
+# whole decryption in the C++ engine, the C++ decode of device residues, the
+# Python decode
+HOST_DECRYPTS = "host_decrypts"
+NATIVE_DECODES = "native_decodes"
+PYTHON_DECODES = "python_decodes"
 
 
 def _counters() -> dict:
     """(wrapper, attribute) of each kernel's launch count; kernel 1's
     masked and bare launches are also among its own; the probes' kernels
     (the dot-structure kernel per layout); and the module's counts of band
-    and row relayouts; and the device decode's batches."""
+    and row relayouts; and the batches of each decode engine."""
     from pvw_tpu_torch.benchmarks import fold_roofline, probe_dot_structure, probe_twopass
-    from pvw_tpu_torch.crypto import device_decode
+    from pvw_tpu_torch.crypto import decryption, device_decode
     from pvw_tpu_torch.ops import fused_modmat as fm
 
     k1 = fm.fused_scaled_noise_matmul
@@ -335,7 +356,10 @@ def _counters() -> dict:
             **{dot_name(layout): (ds, f"{layout}_launches") for layout in fm.DOT_LAYOUTS},
             RELAYOUTS: (fm, "band_relayouts"),
             ROW_RELAYOUTS: (fm, "row_relayouts"),
-            DECODES: (device_decode.decode_residues, "calls")}
+            DECODES: (device_decode.decode_residues, "calls"),
+            HOST_DECRYPTS: (decryption.engine_calls, "host"),
+            NATIVE_DECODES: (decryption.engine_calls, "native"),
+            PYTHON_DECODES: (decryption.engine_calls, "python")}
 
 
 def dot_name(layout: str) -> str:
@@ -1456,7 +1480,12 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
     finally:
         del settings.noise_stream, settings.swapped_form, settings.pipeline_fold
         del settings.decode_mode
-    decryptions = len(threshold_parties) + len(full_parties) + len(wrap_parties)
+    from pvw_tpu_torch.utils import native_decode
+
+    # the batches (threshold subsets and every dealer) decode on the card; a
+    # single message in the C++ engine where it covers the parameters
+    host_wrap = len(wrap_parties) if native_decode.decrypt_decode_supported(params) else 0
+    decryptions = len(threshold_parties) + len(full_parties) + len(wrap_parties) - host_wrap
     shares_exact = all(got[i] == [(dl, int(shares[dl, i])) for dl in valid]
                        for i in threshold_parties) \
         and all(full[i] == [int(v) for v in shares[:, i]] for i in full_parties)
@@ -1478,6 +1507,7 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
            "wrap_decoded": {str(i): wrap_got[i] for i in wrap_parties},
            "wrap_ok": wrap_ok if wrap_parties else None,
            "decryptions": decryptions, "device_decodes": counts[DECODES],
+           "host_decrypts": counts[HOST_DECRYPTS],
            "python_decode_equal": python_equal,
            "launches": counts, "encrypt_launches": stage_launches["encrypt"],
            "stage_launches": stage_launches,
@@ -1489,6 +1519,10 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
     check(wrap_ok, f"the >= 2^63 scalars did not decode with `as i64` semantics ({phase})")
     check(counts[DECODES] == decryptions, f"{counts[DECODES]} device decodes for "
                                           f"{decryptions} decryptions in {phase}")
+    check(counts[HOST_DECRYPTS] == host_wrap, f"{counts[HOST_DECRYPTS]} host decryptions for "
+                                              f"{host_wrap} single messages in {phase}")
+    check(counts[NATIVE_DECODES] == counts[PYTHON_DECODES] == 0,
+          f"the C++ or the Python decode ran on {phase} before its Python check")
     check(python_equal, f"the device decode differs from the Python decode in {phase}")
     check(counts[RELAYOUTS] == 0, f"{counts[RELAYOUTS]} bands were relaid to k-packed in "
                                   f"{phase}: kernel 4 writes every band so")
@@ -2271,6 +2305,293 @@ def phase_dot_structure(dev, card: str) -> tuple[dict, int, dict]:
     return path, worst, timing
 
 
+# --------------------------------------------------------------------------
+# the party's side: one key at a time, the bytes, the decode engines
+# --------------------------------------------------------------------------
+
+# the parties that re-make their keys one at a time on party_path
+PARTY_REGEN = (0, 1, REF_N // 2 - 1, REF_N - 1)
+# the decryption batches below the crossover on party_path: the first 16
+# dealers, and a threshold subset of 32 (every 32nd dealer) at ceil(2*32/3)
+SMALL_BATCH = 16
+SUBSET = 32
+# the batch sizes of the crossover timing: the reference preset (n = 1024)
+# and the toy chain (n = 4096)
+CROSSOVER_D = (1, 4, 16, 32, 64, 128, 256, 512, 1024)
+CROSSOVER_D_TOY = CROSSOVER_D + (2048, 4096)
+INTEROP_NK = 8
+
+
+def dealer_ciphertexts(ct) -> list:
+    """The d unbatched ciphertexts of a batched one (c1 [k, d], c2 [n, d]),
+    views of its canonical residues."""
+    import pvw_tpu_torch as P
+
+    ring, c1, c2 = ct.params.ring, ct.c1.res, ct.c2.res
+    return [P.PvwCiphertext(P.Poly(c1[:, j], ct.c1.rep, ring), P.Poly(c2[:, j], ct.c2.rep, ring),
+                            ct.params) for j in range(c1.shape[1])]
+
+
+def round_trip(times: dict, sizes: dict, same: dict, name: str, objs: list, load) -> list:
+    """Each of ``objs`` to bytes, loaded back by ``load(blob)`` and to bytes
+    again: the summed host-clocked ms of each step and the MB under
+    ``name``; ``same[name]`` whether every second blob equals its first."""
+    blobs = timed(times, f"{name}_to_bytes_ms", lambda: [o.to_bytes() for o in objs])
+    loaded = timed(times, f"{name}_from_bytes_ms", lambda: [load(b) for b in blobs])
+    again = timed(times, f"{name}_re_to_bytes_ms", lambda: [o.to_bytes() for o in loaded])
+    sizes[f"{name}_mb"] = sum(len(b) for b in blobs) / 1e6
+    same[name] = again == blobs
+    return loaded
+
+
+def phase_party_path(dev, card: str, seed: int) -> tuple[dict, dict]:
+    """The party's side at the reference preset (``secure_128_reference``,
+    n = k = 1024, l = 8, 4 x 55-bit limbs, v3k), through the entry points:
+    CRS and batch keygen of every party, the encryption operands cached,
+    then the parties of ``PARTY_REGEN`` re-make their keys one at a time
+    (``generate_and_add_with_errors``: each row exactly sᵀA + its recorded
+    errors, ``get_public_key`` returning it); 1024 dealers encrypted after
+    the change (kernels 4, 1 and the v3k generator), every share of parties
+    0 and n-1 exact; params, CRS, the global key with its errors, the four
+    parties' public and secret keys and every dealer's ciphertext to bytes,
+    loaded back on the card and to bytes again (identical), the loaded
+    global key encrypting the same ciphertexts (so the operand cache was
+    remade); then party 0 decrypts the loaded ciphertexts: 16 dealers and a
+    threshold subset of 32 under ``auto`` (the host engine, no device
+    decode), one message, every dealer under ``auto`` (the device decode)
+    and ``native`` (the C++ decode), each equal to the Python decode and the
+    shares; and a small ``pvw-vectors-v1`` case (n = k = 8) dumped and
+    loaded on the card. The launch counts over the path and each stage."""
+    import torch
+
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import interop, random as R
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params import presets
+
+    params = presets.secure_128_reference(REF_N)
+    n, k, l = params.n, params.k, params.l
+    key = R.key(seed)
+    rng = np.random.default_rng(seed)
+    shares = rng.integers(0, 1 << 32, size=(n, n), dtype=np.uint64)
+    times, sizes, same, stage_launches, engines = {}, {}, {}, {}, {}
+
+    def counted(name: str, fn):
+        """``fn()``, timed, with the counts that rose in it."""
+        before = launches()
+        out = timed(times, f"{name}_ms", fn)
+        stage_launches[name] = {c: v - before[c] for c, v in launches().items()
+                                if v != before[c]}
+        return out
+
+    def decrypted(name: str, fn, mode: str = "auto"):
+        """``fn()`` under decode ``mode``, timed, with the engines it ran."""
+        settings.decode_mode = mode
+        try:
+            out = counted(name, fn)
+        finally:
+            del settings.decode_mode
+        engines[name] = {c: stage_launches[name].get(c, 0) for c in
+                         (HOST_DECRYPTS, DECODES, NATIVE_DECODES, PYTHON_DECODES)}
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    settings.noise_stream = "v3k"
+    try:
+        reset_launches()
+        crs = timed(times, "crs_ms", lambda: P.PvwCrs.new(params, R.fold_in(key, 0),
+                                                          device=dev))
+        coeffs = P.sample_vec_cbd(R.fold_in(key, 10_000), (n, k, l), params.secret_variance,
+                                  device=dev)
+        gpk = P.GlobalPublicKey(crs)
+        counted("keygen", lambda: gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1)))
+        host_coeffs = coeffs.cpu().numpy()
+        del coeffs
+        planes_before = timed(times, "operands_ms", gpk.encrypt_operands)
+        sks = {i: P.SecretKey(params, host_coeffs[i]) for i in PARTY_REGEN}
+        batch_rows = gpk.matrix.res[list(PARTY_REGEN)].clone()
+        for i in PARTY_REGEN:
+            counted(f"keygen_party_{i}", lambda: gpk.generate_and_add_with_errors(
+                i, sks[i], R.fold_in(key, 20 + i)))
+        rows_exact = all(
+            torch.equal(gpk.matrix.res[i], (crs.multiply_by_secret_key(sks[i])
+                                            + gpk.get_party_errors(i)).res)
+            and torch.equal(gpk.get_public_key(i).key_polynomials.res, gpk.matrix.res[i])
+            for i in PARTY_REGEN)
+        rows_changed = not any(torch.equal(gpk.matrix.res[i], batch_rows[r])
+                               for r, i in enumerate(PARTY_REGEN))
+        ct = counted("encrypt", lambda: P.encrypt_all_party_shares_batched(
+            shares, gpk, R.fold_in(key, 777)))
+        operands_remade = gpk.encrypt_operands()[1] is not planes_before[1]
+        del planes_before
+        full = {i: decrypted(f"decrypt_party_{i}", lambda: P.decrypt_party_shares(ct, sks[i], i))
+                for i in (0, n - 1)}
+        # the bytes
+        dev_load = {"device": dev}
+        lparams = round_trip(times, sizes, same, "params", [params], P.PvwParameters.from_bytes)
+        round_trip(times, sizes, same, "crs", [crs], lambda b: P.PvwCrs.from_bytes(b, **dev_load))
+        (lgpk,) = round_trip(times, sizes, same, "global_public_key", [gpk],
+                             lambda b: P.GlobalPublicKey.from_bytes(b, **dev_load))
+        round_trip(times, sizes, same, "public_keys", [gpk.get_public_key(i) for i in PARTY_REGEN],
+                   lambda b: P.PublicKey.from_bytes(b, **dev_load))
+        lsks = round_trip(times, sizes, same, "secret_keys", list(sks.values()),
+                          P.SecretKey.from_bytes)
+        dealers = dealer_ciphertexts(ct)
+        lcts = round_trip(times, sizes, same, "ciphertexts", dealers,
+                          lambda b: P.PvwCiphertext.from_bytes(b, **dev_load))
+        ct2 = counted("encrypt_loaded_key", lambda: P.encrypt_all_party_shares_batched(
+            shares, lgpk, R.fold_in(key, 777)))
+        loaded_key_same = (torch.equal(ct2.c1.channel(), ct.c1.channel())
+                           and torch.equal(ct2.c2.channel(), ct.c2.channel())
+                           and all(dealer_ciphertexts(ct2)[j].to_bytes() == dealers[j].to_bytes()
+                                   for j in (0, n // 2, n - 1)))
+        del ct2, lgpk, dealers
+        # party 0 decrypts the loaded ciphertexts
+        sk0 = lsks[0]
+        want = [int(v) for v in shares[:, 0]]
+        subset = list(range(0, n, n // SUBSET))
+        got = {
+            "small": decrypted("decrypt_small_auto", lambda: P.decrypt_valid_shares(
+                lcts, range(SMALL_BATCH), SMALL_BATCH, sk0, 0)),
+            "subset": decrypted("decrypt_subset_auto", lambda: P.decrypt_valid_shares(
+                lcts, subset, -(-2 * SUBSET // 3), sk0, 0)),
+            "value": decrypted("decrypt_value_auto",
+                               lambda: P.decrypt_party_value(lcts[5], sk0, 0)),
+            "all_auto": decrypted("decrypt_all_auto", lambda: P.decrypt_party_shares(
+                lcts, sk0, 0)),
+            "all_native": decrypted("decrypt_all_native", lambda: P.decrypt_party_shares(
+                lcts, sk0, 0), "native"),
+        }
+        counts = launches()
+        python = decrypted("decrypt_all_python", lambda: P.decrypt_party_shares(lcts, sk0, 0),
+                           "python")
+        del lcts
+        # a small pvw-vectors-v1 case on the card
+        small = (P.PvwParametersBuilder().set_parties(INTEROP_NK).set_dimension(INTEROP_NK)
+                 .set_l(8).set_moduli(MODULI).set_secret_variance(0.5)
+                 .set_error_bounds_u32(*P.PvwParameters.suggest_error_bounds(
+                     INTEROP_NK, INTEROP_NK, 8, MODULI, 0.5)).build())
+        scrs = P.PvwCrs.new(small, R.fold_in(key, 30), device=dev)
+        sparties = [P.Party.new(i, small, R.fold_in(key, 40 + i), device=dev)
+                    for i in range(small.n)]
+        sgpk = P.GlobalPublicKey(scrs)
+        sgpk.generate_all_party_keys(sparties, R.fold_in(key, 31))
+        msgs = [int(v) for v in rng.integers(0, 1 << 32, small.n)]
+        sct = P.encrypt(msgs, sgpk, R.fold_in(key, 32))
+        case = timed(times, "interop_dump_ms", lambda: json.dumps(interop.dump_case(
+            small, crs=scrs, secret_keys=[p.secret_key for p in sparties], ciphertext=sct,
+            scalars=msgs, plaintexts=msgs)))
+        loaded = timed(times, "interop_load_ms",
+                       lambda: interop.load_case(json.loads(case), device=dev))
+        interop_ok = (torch.equal(loaded.crs.matrix.res, scrs.matrix.res)
+                      and loaded.params == small and loaded.plaintexts == msgs
+                      and [P.decrypt_party_value(loaded.ciphertext, s, i)
+                           for i, s in enumerate(loaded.secret_keys)] == msgs)
+        sizes["interop_case_mb"] = len(case) / 1e6
+    finally:
+        del settings.noise_stream
+    shares_exact = all(full[i] == [int(v) for v in shares[:, i]] for i in full)
+    messages_exact = (all(got[name] == want for name in ("all_auto", "all_native"))
+                      and python == want and got["value"] == int(shares[5, 0])
+                      and got["small"] == [(j, want[j]) for j in range(SMALL_BATCH)]
+                      and got["subset"] == [(j, want[j]) for j in subset])
+    out = {"phase": "party_path", "card": card, "preset": "secure_128_reference",
+           "config": "the reference's 128-bit example (examples/pvw_valid_dec.py:40-48)",
+           "stream": "v3k", "n": n, "k": k, "l": l, "limbs": params.ring.num_limbs,
+           "regenerated_parties": list(PARTY_REGEN), "rows_exact": rows_exact,
+           "rows_changed": rows_changed, "operands_remade": operands_remade,
+           "shares_exact": shares_exact, "bytes_identical": same,
+           "loaded_key_encrypts_same": loaded_key_same, "params_equal": lparams[0] == params,
+           "messages_exact": messages_exact, "engines": engines, "interop_ok": interop_ok,
+           **times, **sizes, "launches": counts, "stage_launches": stage_launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    check(rows_exact, "party_path: a re-made row is not sᵀA + its recorded errors, or "
+                      "get_public_key does not return it")
+    check(rows_changed, "party_path: a re-made row equals its batch keygen row")
+    check(operands_remade, "party_path: the encryption operands were not remade after the "
+                           "rows changed")
+    check(shares_exact, "party_path: a decrypted share differs from the encrypted one")
+    check(all(same.values()), f"party_path: bytes changed on a round trip: {same}")
+    check(lparams[0] == params, "party_path: the loaded parameters differ")
+    check(loaded_key_same, "party_path: the loaded global key encrypts other ciphertexts")
+    check(messages_exact, "party_path: a decrypted message differs from the shares or the "
+                          "Python decode")
+    check(interop_ok, "party_path: the pvw-vectors-v1 case did not round-trip on the card")
+    expect = {"decrypt_small_auto": HOST_DECRYPTS, "decrypt_subset_auto": HOST_DECRYPTS,
+              "decrypt_value_auto": HOST_DECRYPTS, "decrypt_all_auto": DECODES,
+              "decrypt_all_native": NATIVE_DECODES, "decrypt_all_python": PYTHON_DECODES,
+              "decrypt_party_0": DECODES, f"decrypt_party_{n - 1}": DECODES}
+    for name, engine in expect.items():
+        check(engines[name] == {c: int(c == engine) for c in engines[name]},
+              f"party_path: {name} ran {engines[name]}, not {engine} alone")
+    keygen, enc = stage_launches["keygen"], stage_launches["encrypt"]
+    check(keygen.get(fm.KERNEL, 0) >= 1, "party_path: kernel 1 never ran in the batch keygen")
+    check(enc.get(fm.KERNEL, 0) >= 2 and enc.get(fm.PRESCALE_KERNEL, 0) >= 1
+          and enc.get(fm.NOISE_KERNEL, 0) >= 1,
+          f"party_path: the encryption's kernels did not all run: {enc}")
+    check(counts[RELAYOUTS] == 0 and counts[ROW_RELAYOUTS] == 0,
+          "party_path: an operand was relaid")
+    for name in probe_kernels():
+        check(counts[name] == 0, f"the probe kernel {name} launched on party_path")
+    return out, {"params": params, "ct": ct, "sk": sks[0], "party": 0}
+
+
+def phase_crossover(dev, card: str, configs: dict) -> dict:
+    """One party's decryption of its first d dealers (``decrypt_valid_shares``)
+    on the device route (the contraction and the decode on the card) and
+    on the host route (the C++ engine) at each d of each of ``configs``
+    (label -> (params, batched ciphertext, secret key, party, ds)): a
+    warm-up of each, then three rounds, the routes' order alternating and
+    every d in each, each call on the host clock (its messages fetched) and
+    the device route also between two CUDA events; medians, every message
+    of the two routes equal. The measured crossover is the smallest d at
+    which the device route's median is below the host route's."""
+    import torch
+
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch.config import settings
+
+    out = {}
+    for label, (params, ct, sk, party, ds) in configs.items():
+        def run(mode, d):
+            settings.decode_mode = mode
+            try:
+                return P.decrypt_valid_shares(ct, range(d), d, sk, party)
+            finally:
+                del settings.decode_mode
+
+        runs = {(m, d): [] for m in ("device", "host") for d in ds}
+        events = {d: [] for d in ds}
+        equal = all(run("device", d) == run("host", d) for d in ds)
+        for r in range(3):
+            for d in ds:
+                for mode in (("device", "host") if r % 2 == 0 else ("host", "device")):
+                    t, start, end = {}, torch.cuda.Event(True), torch.cuda.Event(True)
+                    start.record()
+                    timed(t, "ms", lambda: run(mode, d))
+                    end.record()
+                    end.synchronize()
+                    runs[(mode, d)].append(t["ms"])
+                    if mode == "device":
+                        events[d].append(start.elapsed_time(end))
+        med = {f"{m}_ms": {str(d): statistics.median(runs[(m, d)]) for d in ds}
+               for m in ("device", "host")}
+        faster = [d for d in ds if med["device_ms"][str(d)] < med["host_ms"][str(d)]]
+        rec = {"phase": "crossover", "config": label, "card": card, "party": party,
+               "limbs": params.ring.num_limbs, "k": params.k, "ds": list(ds), **med,
+               "device_event_ms": {str(d): statistics.median(v) for d, v in events.items()},
+               "runs": {f"{m}_{d}": v for (m, d), v in runs.items()},
+               "routes_equal": equal, "measured_crossover": faster[0] if faster else None,
+               "default_crossover": settings.decode_crossover}
+        out[label] = rec
+        emit(rec)
+        check(equal, f"crossover: the host and device routes decrypt differently at {label}")
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, function: str, by_path: dict,
                  worst: int, timing: dict, config4: dict | None, card: str, **extra) -> dict:
     """One kernel's entry of the kernels line: its launches on each path,
@@ -2334,9 +2655,13 @@ def probe_entries(by_path: dict, twopass, peak, dots, card: str) -> list:
 def main() -> int:
     import torch
 
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
     from pvw_tpu_torch.ops import _build, fused_modmat as fm
     from pvw_tpu_torch.params import presets
     from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils import native_decode
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2348,9 +2673,13 @@ def main() -> int:
                       fm.BANDED_KERNEL, fm.DIGITS_KERNEL, fm.FOLD_ONLY_KERNEL,
                       fm.INT32_PEAK_KERNEL, fm.DOT_KERNEL])
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_decode._lib()
+    native_build_s = time.perf_counter() - t0
     print(card, flush=True)
     emit({"phase": "device", "card": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s})
+          "cuda": torch.version.cuda, "build_s": build_s, "native_build_s": native_build_s,
+          "native_library": str(native_decode.library_path())})
     ring = get_ring(MODULI, ELL)
     worst = phase_kernel_vs_plain(ring, dev)
     timing = phase_timing(ring, N_RECEIVERS, K_DIM, dev, card, "timing")
@@ -2362,7 +2691,14 @@ def main() -> int:
         full_parties=toy_parties, wrap_parties=(0, 1, N_RECEIVERS // 2, N_RECEIVERS - 1),
         config="toy chain")
     phase_breakdown(dev, card, ctx)
-    del ctx
+    settings.noise_stream = "v3k"
+    try:
+        toy_ct = P.encrypt_all_party_shares_batched(ctx["shares"], ctx["gpk"], R.key(13))
+    finally:
+        del settings.noise_stream
+    phase_crossover(dev, card, {"toy chain": (ctx["params"], toy_ct, ctx["sk"], 0,
+                                              CROSSOVER_D_TOY)})
+    del ctx, toy_ct
     torch.cuda.empty_cache()
     prescale_worst = phase_prescale_vs_plain(dev)
     deep_worst = phase_deep_kernel_vs_plain(dev)
@@ -2418,6 +2754,11 @@ def main() -> int:
         config="the reference's 128-bit example (examples/pvw_valid_dec.py:40-48)",
         preset="secure_128_reference")
     phase_breakdown(dev, card, ctx, "reference_breakdown", stream="v3k")
+    del ctx
+    torch.cuda.empty_cache()
+    paths["party_path"], ctx = phase_party_path(dev, card, 12)
+    phase_crossover(dev, card, {"reference": (ctx["params"], ctx["ct"], ctx["sk"], ctx["party"],
+                                              CROSSOVER_D)})
     del ctx
     torch.cuda.empty_cache()
     paths["pipelined_path"], ctx = phase_dealer_path(

@@ -3,17 +3,19 @@ hand-written CUDA kernels for NVIDIA Hopper.
 
 The PyTorch port of ``pvw_tpu`` (JAX/Pallas). Module paths and public names
 mirror it: ``params`` (PvwParameters(Builder), PvwCrs, RingPlan), ``keys``
-(SecretKey, Party, GlobalPublicKey), ``crypto`` (encrypt*, decrypt*,
-threshold decryption, PvwCiphertext), ``sampling``, ``errors`` and ``ops``
-(the digit matmuls, the NTT, the fused kernels). Residues are canonical int64 tensors; every
+(SecretKey, Party, PublicKey, GlobalPublicKey), ``crypto`` (encrypt*,
+decrypt*, threshold decryption, PvwCiphertext), ``sampling``, ``errors``,
+``traits``, ``interop`` (the ``pvw-vectors-v1`` exchange),
+``utils.serialization`` (the PVWT bytes) and ``ops`` (the digit matmuls, the
+NTT, the fused kernels). Residues are canonical int64 tensors; every
 entry point takes ``device=`` (default ``"cuda"``, which raises without a
 card) and threefry keys from :mod:`pvw_tpu_torch.random`.
 """
 
-from . import config, errors, random  # noqa: F401
+from . import config, errors, random, traits  # noqa: F401
 from .params import PvwCrs, PvwParameters, PvwParametersBuilder, RingPlan
 from .poly import Poly, Representation
-from .keys import GlobalPublicKey, Party, SecretKey
+from .keys import GlobalPublicKey, Party, PublicKey, SecretKey
 from .crypto import (
     PvwCiphertext,
     decode_scalar_pvw_rns,
@@ -28,15 +30,16 @@ from .crypto import (
     encrypt_party_shares,
     select_valid_ciphertexts,
 )
-from .errors import PvwError
+from .errors import PvwError, PvwResult
 from .sampling import sample_vec_cbd
+from .traits import Encode, Serialize, Validate
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "GlobalPublicKey", "Party", "Poly", "PvwCiphertext", "PvwCrs", "PvwError",
-    "PvwParameters", "PvwParametersBuilder", "Representation", "RingPlan",
-    "SecretKey", "decode_scalar_pvw_rns", "decrypt_party_shares",
+    "Encode", "GlobalPublicKey", "Party", "Poly", "PublicKey", "PvwCiphertext", "PvwCrs",
+    "PvwError", "PvwParameters", "PvwParametersBuilder", "PvwResult", "Representation",
+    "RingPlan", "SecretKey", "Serialize", "Validate", "decode_scalar_pvw_rns", "decrypt_party_shares",
     "decrypt_party_value", "decrypt_valid_shares", "demo_roundtrip", "encrypt",
     "encrypt_all_party_shares", "encrypt_all_party_shares_batched", "encrypt_batch",
     "encrypt_broadcast", "encrypt_party_shares", "sample_vec_cbd",

@@ -19,16 +19,27 @@ noise_value_mac      PVW_TPU_NOISE_VALS    Let the fused kernel compose the
                                            noise digit planes into int32
                                            values when the int32 column
                                            headroom allows (True).
-decode_mode          PVW_TPU_DECODE        ``"auto"`` and ``"device"``: the
-                                           decode on the residues' device
+decode_mode          PVW_TPU_DECODE        Decode engine, routed as in the JAX
+                                           package (``decryption._decode_mode``):
+                                           ``"auto"`` sends batches below
+                                           ``decode_crossover`` to the host
+                                           engine and the rest to the decode
+                                           on the residues' device
                                            (``crypto/device_decode.py``);
-                                           ``auto`` takes the Python decode
-                                           where the device decode does not
-                                           cover the parameters, ``device``
-                                           raises there. ``"python"``: the
-                                           exact host decode. ``"host"`` and
-                                           ``"native"`` are not ported yet
-                                           and raise ("auto").
+                                           ``"device"``, ``"host"`` (the whole
+                                           decryption in the C++ engine,
+                                           ``utils/native_decode.py``),
+                                           ``"native"`` (the contraction on the
+                                           device, the decode in the C++
+                                           engine), ``"python"`` (the exact
+                                           Python decode) ("auto").
+decode_crossover     PVW_TPU_DECODE_       Batch size below which ``auto``
+                     CROSSOVER             decrypts on the host (64: the JAX
+                                           package's default, which it
+                                           measured on its own device; not a
+                                           measurement on a card).
+no_native            PVW_TPU_NO_NATIVE     Disable the C++ decode engine
+                                           (False).
 fused_prescale       PVW_TPU_FUSED_        The JAX package's r-stage engine
                      PRESCALE              choice, parsed as there
                                            (:meth:`use_fused_prescale`) and
@@ -64,8 +75,7 @@ from typing import Callable, Optional
 
 _UNSET = object()
 _FALSY = frozenset({"0", "false", "off", "no"})
-_DECODE_MODES = ("auto", "device", "python")
-_UNPORTED_DECODE = ("host", "native")
+_DECODE_MODES = ("auto", "device", "host", "native", "python")
 
 
 def _parse_bool(raw: str) -> bool:
@@ -107,6 +117,8 @@ class Settings:
     noise_stream: str = _Knob("PVW_TPU_NOISE", "kernel")
     noise_value_mac: bool = _Knob("PVW_TPU_NOISE_VALS", True, _parse_bool)
     decode_mode: str = _Knob("PVW_TPU_DECODE", "auto")
+    decode_crossover: int = _Knob("PVW_TPU_DECODE_CROSSOVER", 64, int)
+    no_native: bool = _Knob("PVW_TPU_NO_NATIVE", False, _parse_bool)
     fused_prescale: str = _Knob("PVW_TPU_FUSED_PRESCALE", "auto")
     swapped_form: bool = _Knob("PVW_TPU_SWAPPED", False, _parse_bool)
     pipeline_fold: bool = _Knob("PVW_TPU_PIPELINE", False, _parse_bool)
@@ -157,22 +169,14 @@ class Settings:
         return num_digits >= 8
 
     def resolved_decode_mode(self) -> str:
-        """The decode mode, ``"auto"``, ``"device"`` or ``"python"``;
-        raises NotImplementedError for the JAX package's host and native
-        engines, which this port does not have yet, and ValueError for
-        anything else."""
+        """The decode mode, one of ``auto``, ``device``, ``host``,
+        ``native`` and ``python``; ValueError for anything else."""
         mode = str(self.decode_mode).strip().lower()
         if mode in _DECODE_MODES:
             return mode
-        if mode in _UNPORTED_DECODE:
-            raise NotImplementedError(
-                f"PVW_TPU_DECODE={self.decode_mode!r}: the {mode} decode "
-                "engine is not ported to pvw_tpu_torch yet (ROADMAP.md, "
-                "modules to port); use 'auto', 'device' or 'python'"
-            )
         raise ValueError(
             f"PVW_TPU_DECODE={self.decode_mode!r} is not a decode mode "
-            "(auto/device/python)"
+            f"({'/'.join(_DECODE_MODES)})"
         )
 
 

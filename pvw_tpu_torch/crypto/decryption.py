@@ -7,13 +7,20 @@ The counterpart of ``pvw_tpu.crypto.decryption`` (the reference's
    one inverse NTT, batched over dealers, on the ciphertexts' device;
 2. the exact sequential-rounding decode with the reference's conventions
    (centering only above q//2, sign-split rounding division, Rust's
-   truncated %, the final clamp of small negatives to 0), routed by
-   :func:`_decode_mode` (``PVW_TPU_DECODE``): on the residues' device
-   (:mod:`.device_decode`; the only host fetch is 8 bytes a message), or
-   :func:`decode_scalar_pvw_rns` on the host.
+   truncated %, the final clamp of small negatives to 0).
+
+:func:`_decode_mode` (``PVW_TPU_DECODE``) routes as the JAX package does:
+batches below ``settings.decode_crossover`` decrypt wholly on the host in
+the C++ engine (``host``: :func:`_host_decrypt`), the rest decode on the
+residues' device (``device``: :mod:`.device_decode`; the only host fetch
+is 8 bytes a message), in the C++ engine (``native``) or by
+:func:`decode_scalar_pvw_rns` (``python``). :data:`engine_calls` counts
+the decoded batches of each engine.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -22,9 +29,15 @@ from ..errors import DecodingError, InvalidParameters
 from ..keys.secret_key import SecretKey
 from ..ops import modmat, ntt as ntt_ops, u64 as u64op
 from ..params.parameters import PvwParameters
+from ..utils import native_decode
 from ..utils.intmath import center_mod, rust_div, rust_rem
 from . import device_decode
 from .encryption import PvwCiphertext
+
+#: Batches decoded by each engine: ``host`` (the whole decryption in the
+#: C++ engine), ``native`` (the C++ decode of device residues), ``device``
+#: and ``python``.
+engine_calls = SimpleNamespace(host=0, native=0, device=0, python=0)
 
 
 def _noisy_messages(params: PvwParameters, sk_ntt, c1_ch, c2_ch) -> torch.Tensor:
@@ -86,42 +99,68 @@ def decode_scalar_pvw_rns(coeff_residues: np.ndarray, params: PvwParameters) -> 
     return mf if mf < 1 << 64 else 0
 
 
-def _decode_mode(params: PvwParameters) -> str:
-    """The decode engine for ``params`` under ``PVW_TPU_DECODE``, the
-    counterpart of the JAX package's router for the engines the port has:
-    ``"device"`` for ``auto`` and ``device`` where
-    :func:`~.device_decode.decode_supported` holds, else ``"python"``.
-    ``auto`` sends every batch size to the device (the JAX package sends
-    batches below its crossover to a host engine the port lacks); where the
-    device decode does not cover the parameters, ``auto`` takes the Python
-    decode, counted in ``_decode_mode.python_fallbacks``, and ``device``
-    raises. ``host`` and ``native`` raise (not ported)."""
+def _decode_mode(params: PvwParameters, d: int | None = None) -> str:
+    """The decode engine for a batch of ``d`` messages of ``params`` under
+    ``PVW_TPU_DECODE``, as the JAX package routes it: ``auto`` takes
+    ``host`` below the crossover where the host engine covers the
+    parameters, else ``device``; ``host`` where the engine does not cover
+    them (or ``no_native``) becomes ``device``; ``device`` where the device
+    decode does not cover them becomes ``native``. The backends pass no d."""
     from ..config import settings
 
     mode = settings.resolved_decode_mode()
-    if mode == "python":
-        return mode
-    if device_decode.decode_supported(params):
-        return "device"
-    if mode == "device":
-        raise InvalidParameters(
-            "PVW_TPU_DECODE='device': the device decode does not cover this "
-            f"parameter set (delta = {params.delta()}, l = {params.l})")
-    _decode_mode.python_fallbacks += 1
-    return "python"
+    if mode == "auto":
+        if (d is not None and d < settings.decode_crossover
+                and native_decode.decrypt_decode_supported(params)):
+            return "host"
+        mode = "device"
+    if mode == "host" and not native_decode.decrypt_decode_supported(params):
+        mode = "device"
+    if mode == "device" and not device_decode.decode_supported(params):
+        mode = "native"
+    return mode
 
 
 _decode_mode.python_fallbacks = 0
 
 
-def _decode_batch(residues: torch.Tensor, params: PvwParameters) -> list[int]:
+def _host_decrypt(params: PvwParameters, secret_key: SecretKey, c1, c2) -> list[int]:
+    """The whole decryption of d messages on the host (mode ``host``): c1
+    [k, d, L, l] and c2 [d, L, l], canonical int64 residue tensors on any
+    device, laid out there and fetched once. Callers have checked
+    ``native_decode.decrypt_decode_supported``."""
+    def pairs(t):
+        u = u64op.u64_numpy(t.contiguous())
+        return (u >> np.uint64(32)).astype(np.uint32), u.astype(np.uint32)
+
+    out = native_decode.decrypt_decode_pairs_native(
+        secret_key.host_ntt_residues(), *pairs(c1), *pairs(c2), params)
+    engine_calls.host += 1
+    return out
+
+
+def _decode_batch(residues: torch.Tensor, params: PvwParameters,
+                  mode: str | None = None) -> list[int]:
     """Decode the messages of PowerBasis residues int64 [d, L, l] on any
-    device, by :func:`_decode_mode`: on the residues' device, fetching the
-    d messages alone (8 bytes each), or by the Python decode on the host."""
-    if _decode_mode(params) == "device":
+    device by ``mode`` (default :func:`_decode_mode` with no batch size):
+    on the residues' device, fetching the d messages alone (8 bytes each);
+    in the C++ engine (``native``, and ``host`` on the backends, as in the
+    JAX package); or by the Python decode. Where the engine does not cover
+    the parameters (or ``no_native``), ``native`` takes the Python decode,
+    counted in ``_decode_mode.python_fallbacks``."""
+    mode = _decode_mode(params) if mode is None else mode
+    if mode == "device":
         out = device_decode.decode_residues(device_decode.get_plan(params), residues)
+        engine_calls.device += 1
         return [int(v) for v in u64op.u64_numpy(out)]
     res = u64op.u64_numpy(residues)
+    if mode in ("host", "native"):
+        if native_decode.decode_supported(params):
+            out = native_decode.decode_batch_native(res, params)
+            engine_calls.native += 1
+            return out
+        _decode_mode.python_fallbacks += 1
+    engine_calls.python += 1
     return [decode_scalar_pvw_rns(res[i], params) for i in range(res.shape[0])]
 
 
@@ -135,8 +174,17 @@ def decrypt_party_value(ciphertext: PvwCiphertext, secret_key: SecretKey,
         )
     c1 = ciphertext.c1.channel()[..., None]                      # [L, l, k, 1]
     c2 = ciphertext.c2.channel()[:, :, party_index][..., None]   # [L, l, 1]
+    return _decrypt(params, secret_key, c1, c2)[0]
+
+
+def _decrypt(params: PvwParameters, secret_key: SecretKey, c1, c2) -> list[int]:
+    """Decrypt d messages, c1 [L, l, k, d] and c2 [L, l, d] channel-major,
+    routed by :func:`_decode_mode` for the batch size d."""
+    mode = _decode_mode(params, c2.shape[-1])
+    if mode == "host":
+        return _host_decrypt(params, secret_key, c1.permute(2, 3, 0, 1), c2.permute(2, 0, 1))
     sk = secret_key.to_polynomials(c1.device).res
-    return _decode_batch(_noisy_messages(params, sk, c1, c2), params)[0]
+    return _decode_batch(_noisy_messages(params, sk, c1, c2), params, mode)
 
 
 def decrypt_party_shares(all_ciphertexts, secret_key: SecretKey,
@@ -178,5 +226,4 @@ def decrypt_party_shares(all_ciphertexts, secret_key: SecretKey,
         c1 = torch.stack([ct.c1.channel() for ct in all_ciphertexts], dim=-1)
         c2 = torch.stack([ct.c2.channel()[:, :, party_index]
                           for ct in all_ciphertexts], dim=-1)
-    sk = secret_key.to_polynomials(c1.device).res
-    return _decode_batch(_noisy_messages(params, sk, c1, c2), params)
+    return _decrypt(params, secret_key, c1, c2)

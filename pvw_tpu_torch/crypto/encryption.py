@@ -54,6 +54,9 @@ class PvwCiphertext:
         """Number of encrypted values == n (``encryption.rs:27-30``)."""
         return self.c2.batch_shape[0]
 
+    def is_empty(self) -> bool:
+        return self.c1.batch_shape[0] == 0 and self.c2.batch_shape[0] == 0
+
     def validate(self) -> None:
         """``encryption.rs:41-76``."""
         if self.c1.batch_shape[0] != self.params.k:
@@ -75,8 +78,23 @@ class PvwCiphertext:
             return self.c2[party_index]
         return None
 
+    def c1_components(self) -> Poly:
+        return self.c1
+
+    def c2_components(self) -> Poly:
+        return self.c2
+
     def __repr__(self) -> str:
         return f"PvwCiphertext(k={self.c1.batch_shape}, n={self.c2.batch_shape})"
+
+    def to_bytes(self) -> bytes:
+        from ..utils.serialization import ciphertext_to_bytes
+        return ciphertext_to_bytes(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, device="cuda") -> "PvwCiphertext":
+        from ..utils.serialization import ciphertext_from_bytes
+        return ciphertext_from_bytes(data, device=device)
 
 
 def _run(name: str, fn):

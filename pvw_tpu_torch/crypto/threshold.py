@@ -7,8 +7,9 @@ of dealer ciphertexts as valid; the protocol aborts if fewer than
 the dealer indices are kept for reconstruction. The valid dealer columns
 are gathered into one [k, s] block, the inner products run as one
 contraction on the ciphertexts' device, and the exact decode runs once over
-the whole subset, routed as in :mod:`.decryption` (on that device by
-default, fetching 8 bytes a share).
+the whole subset, routed as in :mod:`.decryption` for the subset's size: a
+subset below the crossover decrypts wholly on the host, a larger one
+decodes on that device by default (fetching 8 bytes a share).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..errors import InsufficientValidCiphertexts, InvalidParameters
 from ..keys.secret_key import SecretKey
-from .decryption import _decode_batch, _noisy_messages
+from .decryption import _decrypt
 from .encryption import PvwCiphertext
 
 
@@ -93,6 +94,4 @@ def decrypt_valid_shares(
         c1 = torch.stack([c.c1.channel() for _, c in selected], dim=-1)
         c2 = torch.stack([c.c2.channel()[:, :, party_index] for _, c in selected],
                          dim=-1)
-    sk = secret_key.to_polynomials(c1.device).res
-    shares = _decode_batch(_noisy_messages(params, sk, c1, c2), params)
-    return list(zip(idx_list, shares))
+    return list(zip(idx_list, _decrypt(params, secret_key, c1, c2)))

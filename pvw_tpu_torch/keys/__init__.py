@@ -1,4 +1,4 @@
-from .public_key import GlobalPublicKey, Party
+from .public_key import GlobalPublicKey, Party, PublicKey
 from .secret_key import SecretKey
 
-__all__ = ["GlobalPublicKey", "Party", "SecretKey"]
+__all__ = ["GlobalPublicKey", "Party", "PublicKey", "SecretKey"]

@@ -1,11 +1,16 @@
-"""Parties and the global public-key matrix B.
+"""Parties, one party's public key and the global public-key matrix B.
 
 The counterpart of ``pvw_tpu.keys.public_key`` (the reference's
 ``public_key.rs``). B is one n x k Poly on the CRS's device. Batch key
 generation is one fused scaled-digit matmul, b = sᵀA + e1, with the e1
 NTT inside the kernel (:func:`_batch_keygen_kernel`); bounds above the
 signed-digit range add residue noise after it, and bounds >= the smallest
-modulus exact host-sampled noise (``generate_all_keys`` only).
+modulus exact host-sampled noise (``generate_all_keys`` only). One party's
+key (:class:`PublicKey`, :func:`_single_pk_kernel`) is the plain-torch
+product sᵀA plus ``sample_error_1``'s errors, as the JAX package computes
+it. Every change of B's rows installs a new tensor, so that the encryption
+operands cached on its identity (:meth:`GlobalPublicKey._cached_operands`)
+are remade.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..errors import InvalidParameters
+from ..errors import DimensionMismatch, InvalidParameters
 from ..ops import modmat, ntt as ntt_ops, u64
 from ..ops.fused_modmat import matmul_fold_scaled
 from ..params.crs import PvwCrs
@@ -91,11 +96,81 @@ class Party:
             )
         return cls(index, SecretKey.random(params, key, device=device))
 
+    def generate_public_key(self, crs: PvwCrs, key) -> "PublicKey":
+        """b_i = s_iᵀA + e_i (``public_key.rs:85-92``)."""
+        pk, _errors = PublicKey.generate(self.secret_key, crs, key)
+        return pk
+
     def get_index(self) -> int:
         return self.index
 
     def get_secret_key(self) -> SecretKey:
         return self.secret_key
+
+
+def _single_pk_kernel(params: PvwParameters, a_res, coeffs, key):
+    """One party's b = sᵀA + e: the secret's NTT, the [1, k] x [k, k]
+    product (``modmat.poly_matmul``), and e from ``sample_error_1(key,
+    batch=(k,))`` (the threefry draw below the smallest modulus, the exact
+    host draw above). Returns (b, e), NTT residues [k, L, l] on A's
+    device."""
+    dev = a_res.device
+    ring = params.ring
+    sk = Poly.from_coefficients(coeffs, ring, device=dev).to_ntt()
+    sk_a = modmat.poly_matmul(sk.res[None], a_res, ring)[0]
+    errors = params.sample_error_1(key, batch=(params.k,), device=dev)
+    return modmat.poly_add(sk_a, errors.res, ring), errors.res
+
+
+class PublicKey:
+    """One party's k public-key polynomials (``public_key.rs:29-35``)."""
+
+    def __init__(self, key_polynomials: Poly, params: PvwParameters) -> None:
+        self.key_polynomials = key_polynomials     # Poly batch (k,), NTT
+        self.params = params
+
+    @classmethod
+    def generate(cls, secret_key: SecretKey, crs: PvwCrs, key) -> tuple["PublicKey", Poly]:
+        """b = sᵀA + e with e uniform in [-B1, B1]^l per component
+        (``public_key.rs:111-147``), on the CRS's device. Returns
+        (public_key, error_polys)."""
+        if secret_key.params.k != crs.params.k:
+            raise DimensionMismatch(crs.params.k, secret_key.params.k)
+        params = secret_key.params
+        b, e = _single_pk_kernel(params, crs.matrix.res,
+                                 torch.from_numpy(secret_key.secret_coeffs), key)
+        return (cls(Poly(b, Representation.Ntt, params.ring), params),
+                Poly(e, Representation.Ntt, params.ring))
+
+    def dimension(self) -> int:
+        return self.key_polynomials.batch_shape[0]
+
+    def get_polynomial(self, i: int) -> Optional[Poly]:
+        if 0 <= i < self.dimension():
+            return self.key_polynomials[i]
+        return None
+
+    def polynomials(self) -> Poly:
+        return self.key_polynomials
+
+    def validate(self) -> None:
+        """``public_key.rs:168-187``."""
+        if self.dimension() != self.params.k:
+            raise InvalidParameters(
+                f"Public key dimension {self.dimension()} doesn't match "
+                f"parameter k={self.params.k}"
+            )
+        if self.key_polynomials.ring != self.params.ring:
+            raise InvalidParameters("Public key polynomial context mismatch")
+
+    def to_bytes(self) -> bytes:
+        from ..utils.serialization import public_key_to_bytes
+        return public_key_to_bytes(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, device="cuda") -> "PublicKey":
+        from ..utils.serialization import public_key_from_bytes
+        return public_key_from_bytes(data, device=device)
 
 
 class GlobalPublicKey:
@@ -108,11 +183,55 @@ class GlobalPublicKey:
         self.crs = crs
         self.params = params
         self.num_keys = 0
+        # error_polynomials[party] -> Poly (k,) | None (``public_key.rs:52-53``)
+        self.error_polynomials: list[Optional[Poly]] = []
         self._enc_ops = None
 
     @property
     def device(self):
         return self.crs.device
+
+    # -- one party at a time ---------------------------------------------
+
+    def add_public_key(self, index: int, public_key: PublicKey) -> None:
+        """``public_key.rs:214-250``: row ``index`` of B, into a new tensor.
+        ``num_keys`` tracks max(index) + 1, not a count (the reference's
+        quirk)."""
+        if index >= self.params.n:
+            raise InvalidParameters(
+                f"Party index {index} exceeds maximum {self.params.n - 1}"
+            )
+        public_key.validate()
+        if public_key.params.k != self.params.k:
+            raise InvalidParameters(
+                f"Public key dimension {public_key.params.k} doesn't match "
+                f"global key dimension {self.params.k}"
+            )
+        self._place_rows(public_key.key_polynomials.res.to(self.device)[None], [index])
+
+    def generate_and_add_party(self, party: Party, key) -> None:
+        """``public_key.rs:256-263``."""
+        self.add_public_key(party.index, party.generate_public_key(self.crs, key))
+
+    def generate_and_add(self, index: int, secret_key: SecretKey, key) -> None:
+        """``public_key.rs:269-277``."""
+        pk, _errors = PublicKey.generate(secret_key, self.crs, key)
+        self.add_public_key(index, pk)
+
+    def generate_and_add_with_errors(self, index: int, secret_key: SecretKey, key) -> None:
+        """``public_key.rs:304-320``: also records the error polynomials,
+        for external PVSS proofs."""
+        pk, errors = PublicKey.generate(secret_key, self.crs, key)
+        self.add_public_key(index, pk)
+        while len(self.error_polynomials) <= index:
+            self.error_polynomials.append(None)
+        self.error_polynomials[index] = errors
+
+    def generate_and_add_party_with_errors(self, party: Party, key) -> None:
+        """``public_key.rs:322-328``."""
+        self.generate_and_add_with_errors(party.index, party.secret_key, key)
+
+    # -- batch keygen ------------------------------------------------------
 
     def generate_all_party_keys(self, parties: list[Party], key) -> None:
         """All parties' b_i = s_iᵀA + e_i in one batched product
@@ -189,6 +308,7 @@ class GlobalPublicKey:
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _place_rows(self, b, indices: list[int]) -> None:
+        """Rows ``indices`` of B set to ``b``, in a new tensor."""
         if indices == list(range(self.params.n)):
             res = b.contiguous()
         else:
@@ -228,6 +348,12 @@ class GlobalPublicKey:
         cache slot, so asking for one form drops the other."""
         return self._cached_operands(modmat.lhs_scaled_planes)
 
+    def get_public_key(self, index: int) -> Optional[PublicKey]:
+        """``public_key.rs:283-301``."""
+        if index >= self.num_keys:
+            return None
+        return PublicKey(self.matrix[index], self.params)
+
     def get_polynomial(self, i: int, j: int) -> Optional[Poly]:
         if 0 <= i < self.params.n and 0 <= j < self.params.k:
             return self.matrix[i, j]
@@ -255,6 +381,29 @@ class GlobalPublicKey:
                 f"don't match parameters n={self.params.n}, k={self.params.k}"
             )
 
+    def get_party_polynomials(self, party_index: int) -> Poly:
+        """``public_key.rs:440-459``."""
+        if party_index >= self.num_keys:
+            raise InvalidParameters(f"Party index {party_index} not found")
+        return self.matrix[party_index]
+
+    def get_party_errors(self, party_index: int) -> Optional[Poly]:
+        if 0 <= party_index < len(self.error_polynomials):
+            return self.error_polynomials[party_index]
+        return None
+
+    def get_all_errors(self) -> list[Optional[Poly]]:
+        return self.error_polynomials
+
     def __repr__(self) -> str:
         return (f"GlobalPublicKey(n={self.params.n}, k={self.params.k}, "
                 f"num_keys={self.num_keys}, device={self.device})")
+
+    def to_bytes(self) -> bytes:
+        from ..utils.serialization import global_public_key_to_bytes
+        return global_public_key_to_bytes(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, device="cuda") -> "GlobalPublicKey":
+        from ..utils.serialization import global_public_key_from_bytes
+        return global_public_key_from_bytes(data, device=device)

@@ -236,3 +236,23 @@ def poly_sub(a, b, ring: "RingPlan"):
 
 def poly_neg(a, ring: "RingPlan"):
     return u.negmod(a, _q(ring, a.device))
+
+
+def poly_pointwise_mul(a, b, ring: "RingPlan"):
+    """Elementwise a*b mod q on [..., L, l] residues (the NTT-domain ring
+    product): the nd x nd digit products, their 2nd-1 columns, the fold."""
+    nd = ring.num_digits
+    p = digits(a, nd).to(torch.int32)[..., :, None] * digits(b, nd).to(torch.int32)[..., None, :]
+    cols = torch.stack([sum(p[..., i, c - i] for i in range(max(0, c - nd + 1), min(nd - 1, c) + 1))
+                        for c in range(2 * nd - 1)], dim=-1)        # [..., L, l, 2nd-1]
+    return _fold_leading(cols.movedim(-3, 0), ring).movedim(0, -2)
+
+
+def poly_matmul(a, b, ring: "RingPlan"):
+    """R_q matrix product in the canonical layout: a [m, k, L, l] and b
+    [k, n, L, l], both NTT, -> [m, n, L, l] (the shape of ``crs.rs:152-168``
+    and ``encryption.rs:185-192``), by :func:`matmul_channels`; the JAX
+    package picks its banded form for m >= k, which gives the same
+    residues."""
+    out = matmul_channels(a.permute(2, 3, 0, 1), b.permute(2, 3, 0, 1), ring)
+    return out.permute(2, 3, 0, 1)

@@ -353,8 +353,10 @@ def decrypt_party_shares_sharded(ct: PvwCiphertext, secret_key, party_index: int
     """Mesh-sharded ``decrypt_party_shares`` of a batched ciphertext: the
     dealers over ``recv``, the k contraction over ``kdim``, channel-major
     or canonical. Each recv row's dealers decode on the row's first device
-    (``_decode_batch``'s routing: the device decode unless ``python`` is
-    asked for, or ``auto`` meets parameters it does not cover)."""
+    (``_decode_batch``'s routing with no batch size, as in the JAX
+    package's backends: the device decode by default, the C++ engine under
+    ``host`` and ``native`` or where the device decode does not cover the
+    parameters, the Python decode under ``python``)."""
     params = ct.params
     if len(ct.c1.batch_shape) != 2:
         raise InvalidParameters("expected a batched ciphertext")

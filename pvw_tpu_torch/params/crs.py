@@ -2,16 +2,19 @@
 
 The counterpart of ``pvw_tpu.params.crs`` (the reference's ``crs.rs``):
 one :class:`~pvw_tpu_torch.poly.Poly` of batch shape (k, k) in NTT
-representation, on the device it was made for.
+representation, on the device it was made for. A change of an element
+installs a new tensor, so that the encryption operands cached on the
+matrix's identity (``GlobalPublicKey._cached_operands``) are remade.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
-from ..errors import CrsError, InvalidParameters
+from ..errors import CrsError, DimensionMismatch, IndexOutOfBounds, InvalidParameters
+from ..ops import modmat
 from ..poly import Poly, Representation
 from ..utils.chacha import ChaCha8Rng, uniform_residues_from_seeds
 from ..utils.siphash import tag_seed
@@ -65,11 +68,30 @@ class PvwCrs:
             return None
         return self.matrix[i, j]
 
+    def set_element(self, i: int, j: int, poly: Poly) -> None:
+        """Replace element (i, j) (``get_mut``, ``crs.rs:98-100``), into a
+        new matrix tensor."""
+        if not (0 <= i < self.params.k and 0 <= j < self.params.k):
+            raise InvalidParameters(f"index ({i}, {j}) out of bounds")
+        if poly.ring != self.params.ring:
+            raise InvalidParameters("CRS polynomial context mismatch")
+        res = self.matrix.res.clone()
+        res[i, j] = poly.to_ntt().res.to(res.device)
+        self.matrix = Poly(res, Representation.Ntt, self.params.ring)
+
     def dimensions(self) -> tuple[int, int]:
         return (self.params.k, self.params.k)
 
     def __len__(self) -> int:
         return self.params.k * self.params.k
+
+    def is_empty(self) -> bool:
+        return self.params.k == 0
+
+    def __iter__(self) -> Iterator[Poly]:
+        for i in range(self.params.k):
+            for j in range(self.params.k):
+                yield self.matrix[i, j]
 
     def validate(self) -> None:
         """``crs.rs:108-132``."""
@@ -84,5 +106,49 @@ class PvwCrs:
         if self.matrix.rep != Representation.Ntt:
             raise InvalidParameters("CRS polynomial not in NTT representation")
 
+    # -- products -------------------------------------------------------
+
+    def _check_matrix_extent(self) -> None:
+        """A stored matrix smaller than k x k is the reference's ``get(i, j)``
+        returning ``None`` mid-multiply (``crs.rs:158-161, 192-195``)."""
+        for extent in self.matrix.batch_shape[:2]:
+            if extent < self.params.k:
+                raise IndexOutOfBounds(extent, self.params.k)
+
+    def multiply_by_secret_key(self, secret_key) -> Poly:
+        """sᵀA: result[i] = Σ_j s[j] · A[j][i] (``crs.rs:138-171``), one
+        [1, k] x [k, k] product over every (limb, slot) channel."""
+        sk = secret_key.to_polynomials(self.device)
+        if sk.batch_shape[0] != self.params.k:
+            raise InvalidParameters(
+                f"Secret key length {sk.batch_shape[0]} doesn't match "
+                f"CRS dimension k={self.params.k}"
+            )
+        self._check_matrix_extent()
+        out = modmat.poly_matmul(sk.res[None], self.matrix.res, self.params.ring)
+        return Poly(out[0], Representation.Ntt, self.params.ring)
+
+    def multiply_by_randomness(self, randomness: Poly) -> Poly:
+        """A·r: result[i] = Σ_j A[i][j] · r[j] (``crs.rs:177-205``);
+        ``randomness`` of batch shape (k,) or (k, d) for d encryptions."""
+        shape = randomness.batch_shape
+        if shape[0] != self.params.k:
+            raise DimensionMismatch(self.params.k, shape[0])
+        self._check_matrix_extent()
+        r = randomness.res.to(self.device)
+        out = modmat.poly_matmul(self.matrix.res, r[:, None] if len(shape) == 1 else r,
+                                 self.params.ring)
+        return Poly(out[:, 0] if len(shape) == 1 else out, Representation.Ntt,
+                    self.params.ring)
+
     def __repr__(self) -> str:
         return f"PvwCrs(k={self.params.k}, ring={self.params.ring}, device={self.device})"
+
+    def to_bytes(self) -> bytes:
+        from ..utils.serialization import crs_to_bytes
+        return crs_to_bytes(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, device="cuda") -> "PvwCrs":
+        from ..utils.serialization import crs_from_bytes
+        return crs_from_bytes(data, device=device)

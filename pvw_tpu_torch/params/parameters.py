@@ -19,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..errors import InvalidParameters, SerializationError
+from ..errors import EncodingError, InvalidParameters, SamplingError, SerializationError
 from ..utils.intmath import integer_nth_root
 from .ring import RingPlan, _digits_np, get_ring
 
@@ -81,6 +81,13 @@ class PvwParameters:
         return cls(n, k, l, tuple(moduli), secret_variance,
                    int(error_bound_1), int(error_bound_2))
 
+    @classmethod
+    def new_with_u32_bounds(cls, n, k, l, moduli, secret_variance,
+                            error_bound_1, error_bound_2):
+        """``parameters.rs:231-249``."""
+        return cls.new(n, k, l, moduli, secret_variance,
+                       int(error_bound_1), int(error_bound_2))
+
     def _build_gadget_tables(self) -> None:
         ring = self.ring
         L, l = ring.num_limbs, ring.degree
@@ -123,12 +130,91 @@ class PvwParameters:
     def moduli(self) -> tuple[int, ...]:
         return self.ring.moduli
 
+    def rns_context(self):
+        """The CRT basis (``params.rns_context()``)."""
+        return self.ring.crt
+
+    def ntt_operators(self):
+        """The per-limb NTT plans (``params.ntt_operators()``)."""
+        return self.ring.limbs
+
+    # -- sampling shortcuts (``parameters.rs:252-284``) ------------------
+
+    def sample_secret_polynomial(self, key, device="cuda"):
+        """CBD(variance) coefficients -> NTT poly (``parameters.rs:252``)."""
+        from ..poly import Poly
+        from ..sampling.cbd import sample_vec_cbd
+
+        try:
+            coeffs = sample_vec_cbd(key, (self.l,), self.secret_variance, device=device)
+        except SamplingError as e:
+            raise SamplingError(f"CBD sampling failed: {e.msg}") from e
+        return Poly.from_coefficients(coeffs, self.ring, device=device).to_ntt()
+
+    def _sample_error(self, key, batch: tuple, bound: int, device):
+        """Uniform values in [-bound, bound] of shape batch + (l,) as an NTT
+        poly: the threefry draw of the JAX package for bounds below the
+        smallest modulus, its exact host draw above."""
+        from ..ops import ntt as ntt_ops
+        from ..poly import Poly, Representation
+        from ..sampling.uniform import sample_uniform_residues, sample_uniform_residues_host
+
+        sampler = (sample_uniform_residues if bound < min(self.ring.moduli)
+                   else sample_uniform_residues_host)
+        res = sampler(key, tuple(batch) + (self.l,), bound, self.ring, device)
+        return Poly(ntt_ops.ntt_forward(res, self.ring), Representation.Ntt, self.ring)
+
+    def sample_error_1(self, key, batch: tuple[int, ...] = (), device="cuda"):
+        """Bounded-uniform error 1, NTT rep (``parameters.rs:264-273``):
+        uniform in [-B1, B1], not Gaussian (the reference's quirk)."""
+        return self._sample_error(key, batch, self.error_bound_1, device)
+
+    def sample_error_2(self, key, batch: tuple[int, ...] = (), device="cuda"):
+        """Bounded-uniform error 2, NTT rep (``parameters.rs:275-284``)."""
+        return self._sample_error(key, batch, self.error_bound_2, device)
+
+    # -- gadget / encoding -----------------------------------------------
+
     def gadget_vector(self) -> list[int]:
         """[1, Δ, Δ², ..., Δ^(l-1)] (``parameters.rs:311-324``)."""
         out = [1]
         for _ in range(self.l - 1):
             out.append(out[-1] * self._delta)
         return out
+
+    def gadget_element(self) -> list[int]:
+        """[Δ^(l-1), ..., Δ, 1]: the descending order, which the reference
+        has and never calls (``parameters.rs:326-342``)."""
+        return list(reversed(self.gadget_vector()))
+
+    def gadget_polynomial(self, device="cuda"):
+        """g(X) = Σ Δ^i X^i, NTT rep (``parameters.rs:286-308``)."""
+        return self.bigints_to_poly(self.gadget_vector(), device).to_ntt()
+
+    def encode_scalar(self, scalar: int, device="cuda"):
+        """scalar * g(X), NTT rep (``parameters.rs:344-367``), the u64
+        scalar taken as i64 as the reference's ``as i64`` cast does
+        (``encryption.rs:195``)."""
+        s = int(scalar)
+        if not 0 <= s < 1 << 64:
+            raise EncodingError(f"scalar {s} outside the u64 range")
+        if s >= 1 << 63:
+            s -= 1 << 64
+        return self.bigints_to_poly([s * g for g in self.gadget_vector()], device).to_ntt()
+
+    def scalar_to_polynomial(self, scalar: int, device="cuda"):
+        """The constant polynomial, NTT rep (``parameters.rs:404-416``)."""
+        coeffs = [0] * self.l
+        coeffs[0] = int(scalar)
+        return self.bigints_to_poly(coeffs, device).to_ntt()
+
+    def bigints_to_poly(self, bigints: list[int], device="cuda"):
+        """Integer coefficients of any magnitude -> PowerBasis Poly by RNS
+        reduction (``parameters.rs:420-474``)."""
+        from ..poly import Poly, Representation
+
+        return Poly.from_residues_np(self.ring.residues_from_int_coeffs(bigints), self.ring,
+                                     Representation.PowerBasis, device=device)
 
     # -- correctness -------------------------------------------------------
 
@@ -239,6 +325,15 @@ class PvwParameters:
             f"moduli={[hex(m) for m in self.ring.moduli]})"
         )
 
+    def to_bytes(self) -> bytes:
+        from ..utils.serialization import params_to_bytes
+        return params_to_bytes(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "PvwParameters":
+        from ..utils.serialization import params_from_bytes
+        return params_from_bytes(data)
+
 
 class PvwParametersBuilder:
     """Fluent builder (``parameters.rs:44-201``)."""
@@ -272,6 +367,14 @@ class PvwParametersBuilder:
         self._secret_variance = float(variance)
         return self
 
+    def set_error_bound_1(self, bound: int) -> "PvwParametersBuilder":
+        self._error_bound_1 = int(bound)
+        return self
+
+    def set_error_bound_2(self, bound: int) -> "PvwParametersBuilder":
+        self._error_bound_2 = int(bound)
+        return self
+
     def set_error_bounds(self, b1: int, b2: int) -> "PvwParametersBuilder":
         self._error_bound_1 = int(b1)
         self._error_bound_2 = int(b2)
@@ -295,3 +398,8 @@ class PvwParametersBuilder:
             100 if self._error_bound_1 is None else self._error_bound_1,
             200 if self._error_bound_2 is None else self._error_bound_2,
         )
+
+    def build_arc(self) -> PvwParameters:
+        """``build`` (``parameters.rs:197-200``): Python objects are shared
+        by reference already."""
+        return self.build()

@@ -18,6 +18,7 @@ from .errors import ContextError, PolynomialError
 from .ops import modmat, ntt as ntt_ops, u64 as u64op
 from .params.ring import RingPlan
 from .random import fold_in
+from .utils.chacha import uniform_residues_from_seeds
 from .utils.device import resolve_device
 
 
@@ -100,6 +101,19 @@ class Poly:
                    rep, ring)
 
     @classmethod
+    def random_from_seed(cls, ring: RingPlan, rep: Representation, seed: bytes,
+                         batch: tuple[int, ...] = (), device="cuda") -> "Poly":
+        """Uniform element(s) from a 32-byte seed (``Poly::random_from_seed``,
+        ``crs.rs:60``): ChaCha8 and Lemire rejection on the host; every
+        element of a batch takes the same seed, as in the JAX package."""
+        batch = tuple(batch)
+        n = int(np.prod(batch)) if batch else 1
+        seeds = np.tile(np.frombuffer(seed, np.uint8), (n, 1))
+        vals = uniform_residues_from_seeds(seeds, ring.moduli, ring.degree)
+        return cls(u64op.u64_tensor(vals.reshape(batch + (ring.num_limbs, ring.degree)),
+                                    resolve_device(device)), rep, ring)
+
+    @classmethod
     def from_coefficients(cls, coeffs, ring: RingPlan, device="cuda") -> "Poly":
         """Small signed coefficients [..., l] -> PowerBasis poly."""
         c = torch.as_tensor(coeffs).to(resolve_device(device))
@@ -125,9 +139,26 @@ class Poly:
             return tuple(self._ch.shape[2:])
         return tuple(self._res.shape[:-2])
 
+    def representation(self) -> Representation:
+        """``poly.representation()`` (``crs.rs:124``)."""
+        return self.rep
+
     def residues_np(self) -> np.ndarray:
         """Host uint64 residues [..., L, l] (``pvw_tpu.Poly.residues_np``)."""
         return u64op.u64_numpy(self.res)
+
+    def coefficients_int(self) -> np.ndarray:
+        """CRT lift to canonical integer coefficients in [0, q), an object
+        array [..., l] of Python ints (``Vec<BigUint>::from``); PowerBasis
+        only."""
+        if self.rep != Representation.PowerBasis:
+            raise PolynomialError("coefficients_int requires PowerBasis")
+        res = self.residues_np()
+        flat = res.reshape((-1,) + res.shape[-2:])
+        out = np.empty((flat.shape[0], self.ring.degree), object)
+        for e in range(flat.shape[0]):
+            out[e] = self.ring.lift_to_ints(flat[e])
+        return out.reshape(res.shape[:-2] + (self.ring.degree,))
 
     # -- representation changes ----------------------------------------
 
@@ -164,6 +195,15 @@ class Poly:
     def __neg__(self) -> "Poly":
         return Poly(modmat.poly_neg(self.res, self.ring), self.rep, self.ring)
 
+    def __mul__(self, other: "Poly") -> "Poly":
+        """Ring product, pointwise in the NTT domain (both operands Ntt, as
+        fhe-math's operator requires)."""
+        self._check_compat(other, "mul")
+        if self.rep != Representation.Ntt:
+            raise PolynomialError("mul requires Ntt representation")
+        return Poly(modmat.poly_pointwise_mul(self.res, other.res, self.ring), self.rep,
+                    self.ring)
+
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, Poly):
             return NotImplemented
@@ -179,3 +219,23 @@ class Poly:
     def __repr__(self) -> str:
         return (f"Poly(batch={self.batch_shape}, rep={self.rep.value}, "
                 f"L={self.ring.num_limbs}, l={self.ring.degree}, device={self.device})")
+
+    def to_bytes(self) -> bytes:
+        """The PVWT byte form (:mod:`pvw_tpu_torch.utils.serialization`)."""
+        from .utils.serialization import poly_to_bytes
+        return poly_to_bytes(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, ring=None, device="cuda") -> "Poly":
+        from .utils.serialization import poly_from_bytes
+        return poly_from_bytes(data, ring, device=device)
+
+
+def stack(polys: list[Poly], axis: int = 0) -> Poly:
+    """Stack same-ring, same-rep polys along a new leading batch axis."""
+    if not polys:
+        raise PolynomialError("cannot stack empty list")
+    p0 = polys[0]
+    for p in polys[1:]:
+        p0._check_compat(p, "stack")
+    return Poly(torch.stack([p.res for p in polys], dim=axis), p0.rep, p0.ring)

@@ -1175,3 +1175,73 @@ def test_device_decode_on_card_equals_python_decode(cuda_device, moduli, l):
     got = [int(v) for v in u64.u64_numpy(out)]
     assert got == [decode_scalar_pvw_rns(r, p) for r in res]
     assert got[3:7] == [0, 1000, 0, 1001] and got[7] == 0
+
+
+def small_system_on_card(dev, n=4, k=8):
+    """A toy-chain system on the card: CRS, batch keygen, one key re-made
+    with its errors recorded, and a batch of n dealers."""
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+
+    b1, b2 = P.PvwParameters.suggest_error_bounds(n, k, 8, TOY, 0.5)
+    params = (P.PvwParametersBuilder().set_parties(n).set_dimension(k).set_l(8)
+              .set_moduli(TOY).set_secret_variance(0.5).set_error_bounds_u32(b1, b2).build())
+    key = R.key(21)
+    crs = P.PvwCrs.new(params, R.fold_in(key, 0), device=dev)
+    parties = [P.Party.new(i, params, R.fold_in(key, 100 + i), device=dev) for i in range(n)]
+    gpk = P.GlobalPublicKey(crs)
+    gpk.generate_all_party_keys(parties, R.fold_in(key, 1))
+    gpk.generate_and_add_with_errors(1, parties[1].secret_key, R.fold_in(key, 2))
+    shares = np.arange(n * n, dtype=np.uint64).reshape(n, n) * 977 + 5
+    ct = P.encrypt_all_party_shares_batched(shares, gpk, R.fold_in(key, 3))
+    return P, params, parties, gpk, shares, ct
+
+
+@pytest.mark.cuda
+def test_serialization_round_trip_on_card(cuda_device):
+    """Every type's bytes, loaded back on the card (and on the host), write
+    the same bytes again; the loaded ciphertext and keys decrypt."""
+    P, params, parties, gpk, shares, ct = small_system_on_card(cuda_device)
+    dealer0 = P.PvwCiphertext(P.Poly(ct.c1.res[:, 0], ct.c1.rep, params.ring),
+                              P.Poly(ct.c2.res[:, 0], ct.c2.rep, params.ring), params)
+    for obj in (params, gpk.crs.matrix[0], parties[2].secret_key, gpk.crs,
+                gpk.get_public_key(1), gpk, ct, dealer0):
+        blob = obj.to_bytes()
+        for device in ("cuda", "cpu"):
+            loaded = (type(obj).from_bytes(blob) if isinstance(obj, (P.PvwParameters,
+                                                                      P.SecretKey))
+                      else type(obj).from_bytes(blob, device=device))
+            assert loaded.to_bytes() == blob
+    loaded = P.GlobalPublicKey.from_bytes(gpk.to_bytes())
+    assert loaded.matrix.res.device.type == "cuda" and loaded.crs.device.type == "cuda"
+    assert torch.equal(loaded.get_party_errors(1).res, gpk.get_party_errors(1).res)
+    lct = P.PvwCiphertext.from_bytes(ct.to_bytes())
+    assert lct.c1.res.device.type == "cuda"
+    sk = P.SecretKey.from_bytes(parties[3].secret_key.to_bytes())
+    assert P.decrypt_party_shares(lct, sk, 3) == [int(v) for v in shares[:, 3]]
+
+
+@pytest.mark.cuda
+def test_host_route_from_card_ciphertexts(cuda_device):
+    """Card-resident ciphertexts below the crossover decrypt in the host
+    engine by default (no device decode), equal to the device route."""
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.crypto import decryption, device_decode
+
+    P, params, parties, gpk, shares, ct = small_system_on_card(cuda_device)
+    before = (decryption.engine_calls.host, device_decode.decode_residues.calls)
+    got = P.decrypt_party_shares(ct, parties[2].secret_key, 2)
+    sub = P.decrypt_valid_shares(ct, [0, 3], 2, parties[2].secret_key, 2)
+    one = P.decrypt_party_value(P.encrypt(shares[0], gpk, R.key(4)), parties[1].secret_key, 1)
+    assert (decryption.engine_calls.host, device_decode.decode_residues.calls) == \
+        (before[0] + 3, before[1])
+    settings.decode_mode = "device"
+    try:
+        assert P.decrypt_party_shares(ct, parties[2].secret_key, 2) == got
+        assert device_decode.decode_residues.calls == before[1] + 1
+    finally:
+        del settings.decode_mode
+    assert got == [int(v) for v in shares[:, 2]]
+    assert sub == [(0, int(shares[0, 2])), (3, int(shares[3, 2]))]
+    assert one == int(shares[0, 1])

@@ -31,7 +31,6 @@ import pvw_tpu_torch.parallel as TP
 from pvw_tpu_torch import convert
 from pvw_tpu_torch.config import settings as tsettings
 from pvw_tpu_torch.crypto import decryption as tdec, device_decode as tdd
-from pvw_tpu_torch.errors import InvalidParameters
 from pvw_tpu_torch.ops import mw, u64
 
 CPU = torch.device("cpu")
@@ -353,9 +352,12 @@ def no_host_decode(monkeypatch):
 @pytest.mark.parametrize("mode", ["auto", "device", "python", "host", "native"])
 @pytest.mark.parametrize("entry", ["shares", "value", "threshold"])
 def test_decode_mode_routing(system, mode, entry, monkeypatch):
-    """``auto`` and ``device`` decode on the residues' device (the counter
-    rises once a call, the host decode never runs); ``python`` decodes on
-    the host (the counter stays); ``host`` and ``native`` raise."""
+    """Each mode decodes with its engine, as the JAX package routes it:
+    ``auto`` sends these batches (8, 1 and 4 messages, below the crossover)
+    to the host engine, ``device`` to the device decode (``decode_residues``
+    once a call), ``host`` and ``native`` to the C++ engine (the whole
+    decryption, or the decode of the device's residues), ``python`` to the
+    Python decode; only ``python`` runs the Python decode."""
     sc = system.sc8
     ct = P.encrypt_batch(sc, system.tgpk, system.tkey)
     party = 3
@@ -368,16 +370,15 @@ def test_decode_mode_routing(system, mode, entry, monkeypatch):
     }
     want = {"shares": [int(v) for v in sc[:, party]], "value": int(sc[1, party]),
             "threshold": [int(sc[i, party]) for i in (0, 2, 3, 7)]}
-    before = tdd.decode_residues.calls
+    engine = {"auto": "host"}.get(mode, mode)
+    before = (tdd.decode_residues.calls, dict(vars(tdec.engine_calls)))
     with decode_mode(mode):
-        if mode in ("host", "native"):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                calls[entry]()
-            return
         with no_host_decode(monkeypatch) if mode != "python" else contextlib.nullcontext():
             got = calls[entry]()
     assert got == want[entry]
-    assert tdd.decode_residues.calls - before == (0 if mode == "python" else 1)
+    assert tdd.decode_residues.calls - before[0] == (engine == "device")
+    assert {e: c - before[1][e] for e, c in vars(tdec.engine_calls).items()} == \
+        {e: int(e == engine) for e in before[1]}
 
 
 def unsupported_params():
@@ -388,19 +389,31 @@ def unsupported_params():
 
 
 def test_unsupported_parameters_fall_back_counted_or_raise():
-    """Where ``decode_supported`` is False, ``auto`` takes the Python decode
-    and counts it; an explicit ``device`` raises."""
+    """Where ``decode_supported`` is False, ``auto`` and ``device`` decode
+    with the C++ engine, as the JAX package routes them; without it
+    (``no_native``) the Python decode runs, counted in
+    ``_decode_mode.python_fallbacks``."""
     p = unsupported_params()
     assert p.delta() == 1 and not tdd.decode_supported(p)
     rng = np.random.default_rng(2)
     res = rng.integers(0, 0xFFFFC4001, size=(3, 1, 64), dtype=np.uint64)
     z = u64.u64_tensor(res)
-    before = (tdd.decode_residues.calls, tdec._decode_mode.python_fallbacks)
-    assert tdec._decode_batch(z, p) == [tdec.decode_scalar_pvw_rns(r, p) for r in res]
-    assert (tdd.decode_residues.calls, tdec._decode_mode.python_fallbacks) == \
-        (before[0], before[1] + 1)
-    with decode_mode("device"), pytest.raises(InvalidParameters, match="does not cover"):
-        tdec._decode_batch(z, p)
+    want = [tdec.decode_scalar_pvw_rns(r, p) for r in res]
+    for mode in ("auto", "device"):
+        before = (tdd.decode_residues.calls, tdec._decode_mode.python_fallbacks,
+                  tdec.engine_calls.native)
+        with decode_mode(mode):
+            assert tdec._decode_mode(p) == "native"
+            assert tdec._decode_batch(z, p) == want
+        assert (tdd.decode_residues.calls, tdec._decode_mode.python_fallbacks,
+                tdec.engine_calls.native) == (before[0], before[1], before[2] + 1)
+    tsettings.no_native = True
+    try:
+        before = tdec._decode_mode.python_fallbacks
+        assert tdec._decode_batch(z, p) == want
+        assert tdec._decode_mode.python_fallbacks == before + 1
+    finally:
+        del tsettings.no_native
     with pytest.raises(ValueError, match="does not cover"):
         tdd.decode_residues(tdd.get_plan(p), z)
 

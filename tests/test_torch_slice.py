@@ -170,9 +170,10 @@ def test_keygen_residue_ntt_path_equals_signed_path(toy):
 
 
 def test_unported_paths_raise_clearly(toy):
-    """A bound above the signed-digit range (the residue-noise path) now
-    encrypts as the JAX package does; the device decode decodes; the
-    unported decode engines (host, native) raise."""
+    """A bound above the signed-digit range (the residue-noise path)
+    encrypts as the JAX package does; every decode engine (device, and the
+    C++ engine's host and native modes) decodes the JAX package's
+    messages."""
     jp, tp, jkey, jcrs, tcrs, jparties, tsks, jgpk, tgpk = toy
     sc = np.arange(jp.n * jp.n, dtype=np.uint64).reshape(jp.n, jp.n)
     big = dict(tp.to_dict(), error_bound_2="40000")
@@ -186,17 +187,17 @@ def test_unported_paths_raise_clearly(toy):
     np.testing.assert_array_equal(tct.c1.residues_np(), jct.c1.residues_np())
     np.testing.assert_array_equal(tct.c2.residues_np(), jct.c2.residues_np())
     assert P.decrypt_party_shares(tct, tsks[1], 1) == [int(v) for v in sc[:, 1]]
-    sc = np.zeros((1, jp.n), np.uint64)
-    ct = P.encrypt(sc[0], tgpk, R.key(1))
+    key = jax.random.fold_in(jkey, 12)
+    scalars = np.arange(jp.n, dtype=np.uint64) * 7919
+    ct, jct = P.encrypt(scalars, tgpk, kw(key)), J.encrypt(scalars, jgpk, key)
     try:
-        tsettings.decode_mode = "device"
-        assert P.decrypt_party_value(ct, tsks[0], 0) == 0
-        for mode in ("host", "native"):
-            tsettings.decode_mode = mode
-            with pytest.raises(NotImplementedError, match="not ported"):
-                P.decrypt_party_value(ct, tsks[0], 0)
+        for mode in ("device", "host", "native"):
+            tsettings.decode_mode = jsettings.decode_mode = mode
+            for i in (0, jp.n - 1):
+                want = J.decrypt_party_value(jct, jparties[i].secret_key, i)
+                assert P.decrypt_party_value(ct, tsks[i], i) == want == int(scalars[i])
     finally:
-        del tsettings.decode_mode
+        del tsettings.decode_mode, jsettings.decode_mode
     assert P.decrypt_party_value(ct, tsks[0], 0) == 0
 
 
