@@ -117,7 +117,13 @@ to ``torch._int_mm``.
     and wide band layouts against their plain versions, then timed beside
     the int8 bound, ``torch._int_mm`` and kernel 1 bare);
 17. v3k_path: the toy chain under ``noise_stream="v3k"``, then
-    v3k_breakdown;
+    v3k_breakdown; num_digits_path: the same chain and keys with
+    ``settings.num_digits`` forced to 6, 7 and 8 on a freshly built ring:
+    at each width kernel 4, the v3k generator and kernel 1 (``gen_noise``
+    and the encode, bare and masked on a mesh shard's rows) against their
+    twins at the path's shapes, kernel 1
+    timed at the full c2 shape (nd = 5 too: num_digits_timing), and n
+    dealers encrypted byte for byte as at nd = 5, party 0's shares exact;
 18. v3k_deep_path: config 4 under v3k on the deep path's keys: threshold
     decryption for two parties, full for one;
 19. swapped_path: config 4 under v3k on the same keys with
@@ -154,18 +160,37 @@ to ``torch._int_mm``.
     crossover: one party's decryption of d dealers on the device route and
     on the host route, d from 1 to 1024, interleaved, and the measured
     crossover (also on the toy chain after breakdown, d up to 4096);
+21b. multiprocess_path (``parallel/multiprocess.py``): at the same
+    preset, first the shards' kernels against their twins at the shapes
+    the (2, 2) mesh gives them (multiprocess_vs_plain: kernel 4 at a
+    shard's r; the generator's masked planes and kernel 1's masked form at
+    recv row 0's c1 shards, each kdim block's rows and rows
+    straddling both; kernel 1 bare at a bake-route c2 shard), then the
+    in-process (2, 2) mesh on ``cuda:0`` repeated (``torch.equal`` to the
+    single-device encryption, timed), then the mesh across processes: 4
+    ranks x 1 device on the (2, 2) mesh over gloo (the ranks share the
+    card), 1024 dealers under v3k, spawned as fresh interpreters; every rank
+    prints ``MULTIPROC-OK`` (c1 and its c2 rows equal to its own
+    single-device encryption, its dealers decoded exactly) and its launches
+    and stage times; gates: kernel 4 and kernel 1 bare in every rank,
+    kernel 1 masked and the generator on recv row 0, one device decode a
+    recv row (its ops warmed on zero residues in set-up);
 22. pipelined_path: the toy chain at n = 4096 under v3k with
     ``settings.pipeline_fold`` (keygen and both products through kernel 3,
     no generator launch), full decryption for parties 0 and 4095; then
     pipelined_breakdown;
-23. the kernels line (thirteen entries), then the last line
-    ``{"ok": true, "device": ...}``.
+22a. examples: the four examples of ``pvw_tpu_torch.examples`` at their
+    default sizes, each in its own interpreter, started together: rc 0,
+    kernels 1 and 4 launched in each;
+23. the kernels line (thirteen entries; kernel 1's with its time at each
+    forced width), then the last line ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -316,7 +341,7 @@ def profiled(fn) -> dict:
 
 
 # kernel 1's launches with neither noise, encode nor post (the bake route's)
-BARE = "fused_scaled_noise_matmul (bare)"
+from pvw_tpu_torch.ops.fused_modmat import BARE_KERNEL as BARE  # noqa: E402
 # bands relaid to k-packed and lhs rows copied to a 16-byte pitch on their way
 # into kernels 1 and 3: none on a path
 RELAYOUTS = "band_relayouts"
@@ -332,25 +357,17 @@ PYTHON_DECODES = "python_decodes"
 
 
 def _counters() -> dict:
-    """(wrapper, attribute) of each kernel's launch count; kernel 1's
-    masked and bare launches are also among its own; the probes' kernels
-    (the dot-structure kernel per layout); and the module's counts of band
-    and row relayouts; and the batches of each decode engine."""
+    """(wrapper, attribute) of each kernel's launch count (the kernels of
+    ``ops/fused_modmat``, by its registry: kernel 1's masked and bare
+    launches are also among its own; the probes' kernels, the
+    dot-structure kernel per layout); the module's counts of band and row
+    relayouts; and the batches of each decode engine."""
     from pvw_tpu_torch.benchmarks import fold_roofline, probe_dot_structure, probe_twopass
     from pvw_tpu_torch.crypto import decryption, device_decode
     from pvw_tpu_torch.ops import fused_modmat as fm
 
-    k1 = fm.fused_scaled_noise_matmul
     ds = probe_dot_structure.dot_structure
-    return {fm.KERNEL: (k1, "launches"),
-            fm.PRESCALE_KERNEL: (fm.ntt_prescale_band, "launches"),
-            fm.NOISE_KERNEL: (fm.v3k_noise_planes, "launches"),
-            fm.SWAPPED_KERNEL: (fm.fused_scaled_noise_matmul_swapped, "launches"),
-            fm.PIPELINED_KERNEL: (fm.fused_pipelined_matmul, "launches"),
-            fm.MASKED_KERNEL: (k1, "masked_launches"),
-            fm.BANDED_KERNEL: (fm.banded_matmul, "launches"),
-            fm.DIGITS_KERNEL: (fm.digit_planes_kpacked, "launches"),
-            BARE: (k1, "bare_launches"),
+    return {**fm.launch_counters(),
             fm.FOLD_ONLY_KERNEL: (probe_twopass.fold_only, "launches"),
             fm.INT32_PEAK_KERNEL: (fold_roofline.int32_peak, "launches"),
             **{dot_name(layout): (ds, f"{layout}_launches") for layout in fm.DOT_LAYOUTS},
@@ -2592,6 +2609,330 @@ def phase_crossover(dev, card: str, configs: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the mesh across processes, forced digit widths and the examples
+# --------------------------------------------------------------------------
+
+# the mesh across processes: 4 ranks x 1 device on the (2, 2) mesh
+MULTIPROC_WORLD, MULTIPROC_LOCAL = 4, 1
+FORCED_WIDTHS = (6, 7, 8)
+EXAMPLES = ("pvw", "pvw_valid_dec", "pvw_sharded", "interop_exchange")
+# runs one example in a fresh interpreter, its launches counted from 0
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "import chip_smoke\n"
+    "name = sys.argv[1]\n"
+    "sys.argv = [name]\n"
+    "chip_smoke.reset_launches()\n"
+    "runpy.run_module('pvw_tpu_torch.examples.' + name, run_name='__main__')\n"
+    "print(json.dumps({'example_launches': chip_smoke.launches()}))\n")
+
+
+def mesh_kernels_vs_plain(params, dev) -> dict:
+    """The kernels of ``multiprocess_path``'s shards ((2, 2) mesh at
+    ``params``, d = n dealers, v3k) against their twins at the shapes the
+    shards give them, every output byte: kernel 4 at a shard's r (its kdim
+    block of k/2 rows x d, the CBD bound), the generator's masked planes
+    and kernel 1's masked form (6-word seeds, c1's bound) at a recv-row-0 c1
+    shard (k rows, kdim block k/2, d columns) on each kdim block's rows and
+    on rows straddling both, and kernel 1 bare at a c2 shard of the bake
+    route (n/2 rows, kdim block k/2, d columns). Random operands from a
+    seed. -> the worst difference by kernel."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.ops.ntt import signed_digit_count
+    from pvw_tpu_torch.sampling.cbd import cbd_bound
+
+    ring, k, n, l = params.ring, params.k, params.n, params.l
+    d, kc, nl, b1 = n, k // 2, n // 2, params.error_bound_1
+    gen = torch.Generator(device=dev).manual_seed(15)
+    worst = {fm.PRESCALE_KERNEL: 0, fm.NOISE_KERNEL: 0, fm.MASKED_KERNEL: 0, BARE: 0}
+
+    def held(kernel: str, shape: str, got, want) -> None:
+        err = max_abs_err(got, want)
+        emit({"phase": "multiprocess_vs_plain", "kernel": kernel, "shape": shape,
+              "nd": ring.num_digits, "compared": "every output", "bit_exact": err == 0,
+              "max_abs_err": err})
+        check(err == 0, f"{kernel} differs from its twin at the mesh's {shape}")
+        worst[kernel] = max(worst[kernel], err)
+
+    bound = cbd_bound(params.secret_variance)
+    c = r_coeffs(kc, d, l, bound, gen, dev)
+    held(fm.PRESCALE_KERNEL, f"r k={kc} d={d}", fm.ntt_prescale_band(c, ring, bound),
+         fm.ntt_prescale_band_plain(c, ring, bound))
+    del c
+    lhs_dig, band, *_ = operands(ring, k, kc, d, 1, None, gen, dev)
+    for lo, hi in ((0, kc), (kc, k), (k // 4, 3 * k // 4)):
+        rows = f"c1 m={k} kc={kc} n={d}, rows [{lo}, {hi})"
+        planes = fm.v3k_noise_planes_plain(*V3K_KEY, 0, k, d, l, b1, 0, dev, mask=(lo, hi))
+        held(fm.NOISE_KERNEL, rows,
+             fm.v3k_noise_planes(*V3K_KEY, 0, k, d, l, b1, 0, dev, mask=(lo, hi)), planes)
+        g = ((*V3K_KEY, 0, lo, hi, 0), signed_digit_count(b1), b1, "tfry")
+        held(fm.MASKED_KERNEL, rows,
+             fm.matmul_fold_scaled(None, band, ring, lhs_dig=lhs_dig, gen_noise=g,
+                                   noise_bound=b1),
+             fold_plain_by_limb(ring, band, lhs_dig, planes, mask=(0, lo, hi)))
+        del planes
+    lhs_dig, band, *_ = operands(ring, nl, kc, d, 1, None, gen, dev)
+    held(BARE, f"c2 m={nl} kc={kc} n={d}", fm.matmul_fold_scaled(None, band, ring,
+                                                                  lhs_dig=lhs_dig),
+         fold_plain_by_limb(ring, band, lhs_dig))
+    del lhs_dig, band
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_multiprocess(card: str, devices=None) -> tuple[dict, dict]:
+    """``parallel.multiprocess`` at the reference preset
+    (``secure_128_reference(REF_N)``): 4 ranks x 1 device, the (2, 2) mesh,
+    so that the kdim gather crosses processes, REF_N dealers under v3k,
+    spawned as fresh interpreters on the kernels and engine this process
+    built (gloo on one card, NCCL on a card a rank). Each rank checks c1
+    and its owned c2 rows against its own single-device encryption byte for
+    byte and decodes its owned dealers exactly (the launcher raises
+    otherwise). Gates, per rank: kernel 4 and kernel 1 bare (c2's bake
+    route); on recv row 0, kernel 1 masked and the v3k generator (c1); one
+    device decode on each recv row's head. First, the shards' kernels
+    against their twins (:func:`mesh_kernels_vs_plain`) and, for
+    comparison, the same system's in-process (2, 2) mesh over ``devices``
+    (default ``cuda:0`` four times), ``torch.equal`` to the single-device
+    encryption. Returns the path's launches, summed over ranks, and the
+    kernels' worst differences from their twins."""
+    import torch
+
+    from pvw_tpu_torch import encrypt_batch
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.parallel import encrypt_batch_sharded, make_mesh
+    from pvw_tpu_torch.parallel import multiprocess as mp
+    from pvw_tpu_torch.params import presets
+
+    devices = devices or [torch.device("cuda", 0)] * MULTIPROC_WORLD
+    dev = devices[0]
+    params = presets.secure_128_reference(REF_N)
+    worst = mesh_kernels_vs_plain(params, dev)
+    times = {}
+    gpk, _, vectors, enc_key = timed(times, "system_ms",
+                                     lambda: mp.build_system(params, REF_N, dev))
+    mesh = make_mesh(devices, kdim=2)
+    settings.noise_stream = "v3k"
+    try:
+        single = timed(times, "single_device_ms", lambda: encrypt_batch(vectors, gpk, enc_key))
+        encrypt_batch_sharded(vectors, gpk, enc_key, mesh)
+        inproc = timed(times, "in_process_mesh_ms",
+                       lambda: encrypt_batch_sharded(vectors, gpk, enc_key, mesh))
+    finally:
+        del settings.noise_stream
+    same = (torch.equal(inproc.c1.channel(), single.c1.channel())
+            and torch.equal(inproc.c2.channel(), single.c2.channel()))
+    check(same, "the in-process (2, 2) mesh differs from the single-device encryption")
+    del gpk, single, inproc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = mp.dryrun_multiprocess(MULTIPROC_WORLD, MULTIPROC_LOCAL, timeout_s=600, attempts=2,
+                                 device="cuda", params=params, dealers=REF_N, stream="v3k")
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ranks = out.ranks
+    check(len(ranks) == MULTIPROC_WORLD, f"{len(ranks)} ranks reported of {MULTIPROC_WORLD}")
+    total = {name: 0 for name in launches()}
+    for r in ranks:
+        ran = r["launches"]
+        head = r["msgs_checked"] > 0
+        check(ran[fm.PRESCALE_KERNEL] > 0, f"rank {r['rank']}: kernel 4 never ran")
+        check(ran[fm.KERNEL] > 0 and ran[BARE] > 0, f"rank {r['rank']}: kernel 1 bare never ran")
+        if any(row == 0 for row, _ in r["shards"]):
+            check(ran[fm.MASKED_KERNEL] > 0 and ran[fm.NOISE_KERNEL] > 0,
+                  f"rank {r['rank']} (recv row 0): kernel 1 masked or the generator never ran")
+        check(r["decodes"] == (1 if head else 0),
+              f"rank {r['rank']}: {r['decodes']} device decodes")
+        for name, count in ran.items():
+            total[name] += count
+        total[DECODES] += r["decodes"]
+    check(sum(r["msgs_checked"] for r in ranks) == ranks[0]["dealers"],
+          "not every dealer was decoded by its recv row's head")
+    check(any(r["cross_process_rows"] for r in ranks), "no kdim gather crossed processes")
+    # the ranks start their products together (a barrier): the encryption
+    # ends with the slowest rank's gather
+    encrypt_ms = max(r["times_ms"]["sharded_products_ms"] + r["times_ms"]["gather_modsum_ms"]
+                     for r in ranks)
+    emit({"phase": "multiprocess_path", "card": card, "summary": out.summary,
+          "preset": "secure_128_reference", "world": MULTIPROC_WORLD,
+          "local_devices": MULTIPROC_LOCAL, "mesh": ranks[0]["mesh"],
+          "backend": ranks[0]["backend"], "transport": ranks[0]["transport"],
+          "stream": ranks[0]["stream"], "dealers": ranks[0]["dealers"], "wall_ms": wall_ms,
+          "encrypt_ms": encrypt_ms, "in_process_devices": [str(d) for d in devices], **times,
+          "ranks": [{k: r[k] for k in ("rank", "device", "shards", "cross_process_rows",
+                                       "rows_checked", "msgs_checked", "launches", "decodes",
+                                       "times_ms", "peak_gb")} for r in ranks],
+          "max_abs_err": worst, "launches": total})
+    return {"launches": total}, worst
+
+
+def phase_num_digits(dev, card: str, ctx) -> tuple[dict, dict]:
+    """The toy chain under v3k (``ctx`` of ``v3k_path``: its parameters,
+    keys, shares and party 0's secret key) with ``settings.num_digits``
+    forced to 6, 7 and 8 on a freshly built ring: at each width kernel 4,
+    the v3k generator and kernel 1 (with ``gen_noise`` and the encode, and
+    at the full c2 shape with noise planes) against their twins, every
+    byte, kernel 1 timed (nd = 5 too, in the same run), then n dealers
+    encrypted on the width's ring (the keys carried over as residues),
+    byte for byte the nd = 5 ciphertext, and party 0's shares decrypted.
+    The path's launches (the encryptions and decryptions, nd = 5's
+    included) are counted; the comparisons' are not."""
+    import torch
+
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import convert, random as R
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm, tfry
+    from pvw_tpu_torch.ops.ntt import signed_digit_count
+    from pvw_tpu_torch.params import presets
+    from pvw_tpu_torch.params.ring import get_ring
+
+    params, gpk, shares, sk = ctx["params"], ctx["gpk"], ctx["shares"], ctx["sk"]
+    n = params.n
+    key = R.key(14)
+    total = {name: 0 for name in launches()}
+    widths, timing = {}, {}
+    masked_worst = 0
+
+    def path(g, s) -> tuple:
+        """n dealers under v3k on the key ``g`` (its ring's width) and party
+        0's decryption with ``s``, the launches added to ``total``."""
+        before = launches()
+        settings.noise_stream = "v3k"
+        try:
+            ct = P.encrypt_all_party_shares_batched(shares, g, key)
+            got = P.decrypt_party_shares(ct, s, 0)
+        finally:
+            del settings.noise_stream
+        torch.cuda.synchronize()
+        ran = {k: c - before[k] for k, c in launches().items()}
+        for k, c in ran.items():
+            total[k] += c
+        return ct, got == [int(v) for v in shares[:, 0]], ran
+
+    base, ok, _ = path(gpk, sk)
+    check(ok, "party 0's shares at nd = 5")
+    base_c1, base_c2 = base.c1.channel(), base.c2.channel()
+    crs_res, gpk_res = gpk.crs.matrix.residues_np(), gpk.matrix.residues_np()
+    timing[5] = phase_timing(params.ring, N_RECEIVERS, K_DIM, dev, card, "num_digits_timing")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    try:
+        for nd in FORCED_WIDTHS:
+            settings.num_digits = nd
+            get_ring.cache_clear()
+            pf = presets.pvss_8192(n)
+            ring = pf.ring
+            check(ring.num_digits == nd, f"the ring was built at nd = {ring.num_digits}, not {nd}")
+            worst = 0
+            # kernel 4 at the path's r shape (k x n dealers, the CBD bound)
+            c = r_coeffs(K_DIM, n, ELL, 1, gen, dev)
+            worst = max(worst, max_abs_err(fm.ntt_prescale_band(c, ring, 1),
+                                           fm.ntt_prescale_band_plain(c, ring, 1)))
+            del c
+            # the generator at the c2 shape (n x n dealers), then kernel 1 with
+            # gen_noise and the encode there
+            bound = pf.error_bound_2
+            worst = max(worst, max_abs_err(
+                fm.v3k_noise_planes(*V3K_KEY, 0, n, n, ELL, bound, 0, dev),
+                tfry.v3k_noise_digit_planes(*V3K_KEY, 0, n, n, ELL, bound, 0, dev)))
+            lhs_dig, band, _, _, enc = operands(ring, n, K_DIM, n, 1, "enc32", gen, dev)
+            got = fm.matmul_fold_scaled(None, band, ring, lhs_dig=lhs_dig, encode=enc,
+                                        encode32=True, noise_bound=bound,
+                                        gen_noise=((*V3K_KEY, 0, 0), signed_digit_count(bound),
+                                                   bound, "tfry"))
+            planes = tfry.v3k_noise_digit_planes(*V3K_KEY, 0, n, n, ELL, bound, 0, dev)
+            worst = max(worst, max_abs_err(got, fold_plain_by_limb(ring, band, lhs_dig, planes,
+                                                                   enc)))
+            # the masked form (a (2, 2) mesh shard's rows [n/4, 3n/4)) there
+            lo, hi = n // 4, 3 * n // 4
+            got = fm.matmul_fold_scaled(None, band, ring, lhs_dig=lhs_dig, encode=enc,
+                                        encode32=True, noise_bound=bound,
+                                        gen_noise=((*V3K_KEY, 0, lo, hi, 0),
+                                                   signed_digit_count(bound), bound, "tfry"))
+            planes = fm.v3k_noise_planes_plain(*V3K_KEY, 0, n, n, ELL, bound, 0, dev,
+                                               mask=(lo, hi))
+            masked = max_abs_err(got, fold_plain_by_limb(ring, band, lhs_dig, planes, enc,
+                                                         mask=(0, lo, hi)))
+            masked_worst = max(masked_worst, masked)
+            worst = max(worst, masked)
+            del lhs_dig, band, enc, got, planes
+            torch.cuda.empty_cache()
+            check(worst == 0, f"a kernel differs from its twin at nd = {nd}")
+            timing[nd] = phase_timing(ring, N_RECEIVERS, K_DIM, dev, card, "num_digits_timing")
+            # the path on this width's ring, the keys carried over as residues
+            gf = convert.global_pk_from_residues(
+                gpk_res, convert.crs_from_residues(crs_res, pf, device=dev))
+            sf = P.SecretKey(pf, sk.secret_coeffs)
+            ct, ok, ran = path(gf, sf)
+            same = (ct.params.ring.num_digits == nd and torch.equal(ct.c1.channel(), base_c1)
+                    and torch.equal(ct.c2.channel(), base_c2))
+            widths[nd] = {"max_abs_err": worst, "masked_max_abs_err": masked,
+                          "bit_identical_to_nd5": same,
+                          "shares_exact": ok, "kernel1_ms": timing[nd]["ms"],
+                          "launches": {k: v for k, v in ran.items() if v}}
+            check(same, f"the ciphertext at nd = {nd} differs from the nd = 5 bytes")
+            check(ok, f"party 0's shares at nd = {nd}")
+            for name in (fm.KERNEL, fm.NOISE_KERNEL, fm.PRESCALE_KERNEL):
+                check(ran[name] > 0, f"{name} never ran on the path at nd = {nd}")
+            check(ran[RELAYOUTS] == ran[ROW_RELAYOUTS] == 0, f"operands relaid at nd = {nd}")
+            del gf, sf, ct
+            torch.cuda.empty_cache()
+    finally:
+        del settings.num_digits
+        get_ring.cache_clear()
+    emit({"phase": "num_digits_path", "card": card, "preset": "pvss_8192", "n": n,
+          "stream": "v3k", "minimal_nd": params.ring.num_digits, "widths": widths,
+          "kernel1_ms_by_nd": {nd: t["ms"] for nd, t in timing.items()},
+          "launches": total})
+    return {"launches": total}, timing, masked_worst
+
+
+def phase_examples(card: str) -> dict:
+    """The four examples of ``pvw_tpu_torch.examples``, each in a fresh
+    interpreter on the card at its default size (``pvw_valid_dec`` at k =
+    1024, ``pvw_sharded`` over ``cuda:0`` repeated when one card is
+    visible), started together: each must exit 0, and each launches
+    kernels 1 and 4. Returns the launches summed over the four."""
+    import torch
+
+    from pvw_tpu_torch.ops import fused_modmat as fm
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen([sys.executable, "-c", EXAMPLE_RUNNER, name], cwd=root,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name in EXAMPLES}
+    try:
+        outs = {name: p.communicate(timeout=600)[0] for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    total = {name: 0 for name in launches()}
+    report = {}
+    for name, p in procs.items():
+        lines = outs[name].strip().splitlines()
+        check(p.returncode == 0, f"example {name} exited {p.returncode}:\n{outs[name][-3000:]}")
+        ran = json.loads(lines[-1])["example_launches"]
+        report[name] = {"rc": p.returncode, "last_line": lines[-2],
+                        "launches": {k: v for k, v in ran.items() if v}}
+        for k, v in ran.items():
+            total[k] += v
+        check(ran[fm.KERNEL] > 0 and ran[fm.PRESCALE_KERNEL] > 0,
+              f"example {name} did not launch kernels 1 and 4")
+    emit({"phase": "examples", "card": card, "wall_ms": wall_ms, "examples": report,
+          "launches": total})
+    return {"launches": total}
+
+
 def kernel_entry(name: str, source: str, replaces: str, function: str, by_path: dict,
                  worst: int, timing: dict, config4: dict | None, card: str, **extra) -> dict:
     """One kernel's entry of the kernels line: its launches on each path,
@@ -2732,6 +3073,7 @@ def main() -> int:
         "v3k_path", presets.pvss_8192(N_RECEIVERS), dev, card, 5, "v3k",
         full_parties=toy_parties, config="toy chain")
     phase_breakdown(dev, card, ctx, "v3k_breakdown", stream="v3k")
+    paths["num_digits_path"], nd_timing, nd_masked_worst = phase_num_digits(dev, card, ctx)
     del ctx
     torch.cuda.empty_cache()
     paths["v3k_deep_path"], _ = phase_dealer_path(
@@ -2761,11 +3103,13 @@ def main() -> int:
                                               CROSSOVER_D)})
     del ctx
     torch.cuda.empty_cache()
+    paths["multiprocess_path"], mesh_worst = phase_multiprocess(card)
     paths["pipelined_path"], ctx = phase_dealer_path(
         "pipelined_path", presets.pvss_8192(N_RECEIVERS), dev, card, 9, "v3k",
         full_parties=(0, N_RECEIVERS - 1), route="pipelined", config="toy chain")
     phase_breakdown(dev, card, ctx, "pipelined_breakdown", stream="v3k", route="pipelined")
     del ctx
+    paths["examples"] = phase_examples(card)
     by_path = {name: {path: out["launches"][name] for path, out in paths.items()}
                for name in launches()}
     dm, dp = deep_timing["matmul"], deep_timing["prescale"]
@@ -2777,16 +3121,24 @@ def main() -> int:
                      by_path[fm.KERNEL],
                      max(worst, timing["max_abs_err"], deep_worst, dm["max_abs_err"],
                          v3k_worst, pi["toy c2"]["max_abs_err"],
-                         pi["config-4 c2"]["max_abs_err"]), timing, dm, card),
+                         pi["config-4 c2"]["max_abs_err"], mesh_worst[BARE],
+                         *(t["max_abs_err"] for t in nd_timing.values())), timing, dm, card,
+                     by_num_digits={nd: {k: t[k] for k in ("ms", "ms_spread", "bound_ms",
+                                                           "x_bound", "plain_ms", "library_ms",
+                                                           "x_library", "shape")}
+                                    for nd, t in nd_timing.items()}),
         kernel_entry(fm.PRESCALE_KERNEL, src + "ntt_prescale_band.cu",
                      "pvw_tpu/ops/pallas_modmat.py:1687", "ntt_prescale_band",
-                     by_path[fm.PRESCALE_KERNEL], prescale_worst, deep_timing["prescale_toy"],
+                     by_path[fm.PRESCALE_KERNEL],
+                     max(prescale_worst, mesh_worst[fm.PRESCALE_KERNEL]),
+                     deep_timing["prescale_toy"],
                      dp, card, raw_ms=deep_timing["prescale_toy"]["raw_ms"]),
         kernel_entry(fm.NOISE_KERNEL, src + "v3k_noise_planes.cu",
                      "pvw_tpu/ops/pallas_modmat.py:232",
                      "_fused_scaled_noise_matmul (in-kernel v3k generation)",
                      by_path[fm.NOISE_KERNEL],
-                     max(v3k_worst, *(t["max_abs_err"] for t in v3k_timing.values())),
+                     max(v3k_worst, mesh_worst[fm.NOISE_KERNEL],
+                         *(t["max_abs_err"] for t in v3k_timing.values())),
                      v3k_timing["toy c2"], v3k_timing["config-4 c2"], card,
                      raw_ms=v3k_timing["toy c2"]["raw_ms"],
                      wrapper_host_us=v3k_timing["toy c2"]["wrapper_host_us"]),
@@ -2806,7 +3158,7 @@ def main() -> int:
                      "pvw_tpu/ops/pallas_modmat.py:193",
                      "_fused_scaled_noise_matmul (masked=True, 6-word seeds; its planes from "
                      "v3k_noise_planes.cu's mask)", by_path[fm.MASKED_KERNEL],
-                     max(masked_worst["masked"],
+                     max(masked_worst["masked"], mesh_worst[fm.MASKED_KERNEL], nd_masked_worst,
                          *(t["max_abs_err"] for t in masked_timing["masked"].values())),
                      masked_timing["masked"]["toy c2"], masked_timing["masked"]["config-4 c2"],
                      card, post={label: t | {"max_abs_err": max(masked_worst["post"],

@@ -3,7 +3,7 @@
 
 Run from the root of the repository on a machine with four NVIDIA H100s:
 
-    python3 probes/multicard_backends.py [--one-card] [--runs R]
+    python3 probes/multicard_backends.py [--one-card] [--runs R] [--multiprocess]
 
 Builds the kernels, makes BASELINE config 4 (``presets.threshold_256bit(1024)``)
 with random keys from a seed on cuda:0, then runs ``chip_smoke.phase_backends``
@@ -18,6 +18,14 @@ not concurrent scaling. Exits non-zero on a failed gate or with fewer than
 four cards. ``--one-card`` puts every shard on cuda:0, as ``chip_smoke.py``
 does, and ``--runs R`` repeats the backends R times on the same keys: the
 spread of their host-clocked times between runs of one call.
+
+``--multiprocess`` runs the multi-process leg alone
+(``chip_smoke.phase_multiprocess``): the reference's 128-bit preset
+(``secure_128_reference(1024)``, 1024 dealers, v3k) on the (2, 2) mesh
+across four processes, rank r on cuda:r over NCCL (one rank a card), beside
+the same system's in-process (2, 2) mesh over cuda:0-3 and its
+single-device encryption; with ``--one-card`` the four ranks share cuda:0
+over gloo and the in-process mesh repeats cuda:0.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--one-card", action="store_true")
     ap.add_argument("--runs", type=int, default=1)
+    ap.add_argument("--multiprocess", action="store_true")
     args = ap.parse_args(argv)
     cards = 1 if args.one_card else 4
     if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
@@ -51,6 +60,13 @@ def main(argv) -> int:
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL])
     card = cs.card_line()
     print(card, flush=True)
+    devices = [torch.device("cuda", 0 if args.one_card else i) for i in range(4)]
+    if args.multiprocess:
+        for _ in range(args.runs):
+            cs.phase_multiprocess(card, devices)
+        cs.emit({"probe": "multicard_backends", "leg": "multiprocess", "ok": True,
+                 "cards": torch.cuda.device_count()})
+        return 0
     dev = torch.device("cuda", 0)
     n = cs.DEEP_N
     params = presets.threshold_256bit(n)
@@ -62,7 +78,6 @@ def main(argv) -> int:
     gpk.generate_all_keys_device(coeffs, R.fold_in(key, 1))
     keys = (gpk, coeffs.cpu().numpy())
     del coeffs
-    devices = [torch.device("cuda", 0 if args.one_card else i) for i in range(4)]
     for _ in range(args.runs):
         for stream, seed in (("v3k", 10), ("kernel", 11)):
             cs.phase_backends(dev, card, params, keys, stream, seed, devices=devices)

@@ -6,13 +6,16 @@ mirror it: ``params`` (PvwParameters(Builder), PvwCrs, RingPlan), ``keys``
 (SecretKey, Party, PublicKey, GlobalPublicKey), ``crypto`` (encrypt*,
 decrypt*, threshold decryption, PvwCiphertext), ``sampling``, ``errors``,
 ``traits``, ``interop`` (the ``pvw-vectors-v1`` exchange),
-``utils.serialization`` (the PVWT bytes) and ``ops`` (the digit matmuls, the
-NTT, the fused kernels). Residues are canonical int64 tensors; every
+``utils.serialization`` (the PVWT bytes), ``ops`` (the digit matmuls, the
+NTT, the fused kernels), ``parallel`` (the multi-device backends and the
+mesh across processes) and ``examples`` (``python -m
+pvw_tpu_torch.examples.<name> --device cpu|cuda``). Residues are canonical int64 tensors; every
 entry point takes ``device=`` (default ``"cuda"``, which raises without a
 card) and threefry keys from :mod:`pvw_tpu_torch.random`.
 """
 
-from . import config, errors, random, traits  # noqa: F401
+from . import config, crypto, errors, keys, params, random, sampling, traits  # noqa: F401
+from .config import settings  # noqa: F401  (runtime knobs)
 from .params import PvwCrs, PvwParameters, PvwParametersBuilder, RingPlan
 from .poly import Poly, Representation
 from .keys import GlobalPublicKey, Party, PublicKey, SecretKey
@@ -31,7 +34,12 @@ from .crypto import (
     select_valid_ciphertexts,
 )
 from .errors import PvwError, PvwResult
-from .sampling import sample_vec_cbd
+from .sampling import (  # root re-exports, lib.rs:22-28
+    sample_bigint_normal_vec,
+    sample_discrete_gaussian_vec,
+    sample_uniform_coefficients,
+    sample_vec_cbd,
+)
 from .traits import Encode, Serialize, Validate
 
 __version__ = "0.1.0"
@@ -42,9 +50,30 @@ __all__ = [
     "RingPlan", "SecretKey", "Serialize", "Validate", "decode_scalar_pvw_rns", "decrypt_party_shares",
     "decrypt_party_value", "decrypt_valid_shares", "demo_roundtrip", "encrypt",
     "encrypt_all_party_shares", "encrypt_all_party_shares_batched", "encrypt_batch",
-    "encrypt_broadcast", "encrypt_party_shares", "sample_vec_cbd",
-    "select_valid_ciphertexts",
+    "encrypt_broadcast", "encrypt_party_shares", "prelude", "sample_bigint_normal_vec",
+    "sample_discrete_gaussian_vec", "sample_uniform_coefficients", "sample_vec_cbd",
+    "select_valid_ciphertexts", "settings",
 ]
+
+
+# ``prelude`` (``src/lib.rs:31-49``): a flat namespace for easy importing
+class prelude:
+    from .keys import GlobalPublicKey, Party, PublicKey, SecretKey
+    from .params import PvwCrs, PvwParameters, PvwParametersBuilder
+    from .errors import PvwError, PvwResult
+    from .crypto import (
+        PvwCiphertext,
+        decrypt_party_shares,
+        decrypt_party_value,
+        encrypt,
+    )
+    from .sampling import (
+        sample_bigint_normal_vec,
+        sample_discrete_gaussian_vec,
+        sample_uniform_coefficients,
+        sample_vec_cbd,
+    )
+    from .traits import Encode, Serialize, Validate
 
 
 def demo_roundtrip(verbose: bool = True, device="cuda") -> bool:

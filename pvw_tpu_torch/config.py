@@ -1,5 +1,5 @@
-"""Runtime knobs of the port: the subset of ``pvw_tpu.config`` this slice
-reads, under the same environment variables.
+"""Runtime knobs of the port: the knobs of ``pvw_tpu.config`` that have a
+meaning on a CUDA card, under the same environment variables.
 
 ===================  ====================  ==================================
 Attribute            Env var               Meaning (default)
@@ -61,10 +61,26 @@ pipeline_fold        PVW_TPU_PIPELINE      Run the fused products with noise
                                            channel c under the contraction of
                                            channel c + 1, v3k noise drawn in
                                            it) (False).
+num_digits           PVW_NUM_DIGITS        Force the int8 digit width of the
+                                           ring's decomposition, read when a
+                                           ``RingPlan`` is built: a width in
+                                           [minimal, 8]; any exact width gives
+                                           the same residues (default: the
+                                           minimal exact width of the chain).
+trace                PVW_TPU_TRACE         Emit one JSON line a span of
+                                           ``utils.profiling.span`` to stderr
+                                           (False).
 ===================  ====================  ==================================
 
 Precedence per knob: programmatic assignment > environment variable >
 default. Booleans: ``0``, ``false``, ``off``, ``no`` are falsy.
+
+The JAX package's Mosaic knobs are left out: ``tile_m``/``tile_n`` and
+``vmem_limit_mb`` size Pallas tiles and the TPU's scoped VMEM, ``no_pallas``
+routes around Pallas, ``dots_first`` orders the MXU dots inside a Pallas
+body, and ``jax_cache_dir`` is JAX's compilation cache. The CUDA kernels
+fix their tiles and shared memory at build time, and every route here is
+the one kernel or its plain twin, so none of them would select anything.
 """
 
 from __future__ import annotations
@@ -122,9 +138,23 @@ class Settings:
     fused_prescale: str = _Knob("PVW_TPU_FUSED_PRESCALE", "auto")
     swapped_form: bool = _Knob("PVW_TPU_SWAPPED", False, _parse_bool)
     pipeline_fold: bool = _Knob("PVW_TPU_PIPELINE", False, _parse_bool)
+    num_digits: Optional[int] = _Knob("PVW_NUM_DIGITS", None, int)
+    trace: bool = _Knob("PVW_TPU_TRACE", False, _parse_bool)
 
     def __init__(self) -> None:
         self._overrides: dict = {}
+
+    def reset(self) -> None:
+        """Drop every programmatic override (env vars apply again)."""
+        self._overrides.clear()
+
+    def describe(self) -> dict:
+        """Current resolved value of every knob."""
+        return {
+            name: getattr(self, name)
+            for name, attr in type(self).__dict__.items()
+            if isinstance(attr, _Knob)
+        }
 
     def kernel_noise_stream(self) -> Optional[str]:
         """``"v4"`` for ``"kernel"``/``"v4"``, ``"v3k"`` for the
@@ -178,6 +208,10 @@ class Settings:
             f"PVW_TPU_DECODE={self.decode_mode!r} is not a decode mode "
             f"({'/'.join(_DECODE_MODES)})"
         )
+
+    def __repr__(self) -> str:
+        body = ", ".join(f"{k}={v!r}" for k, v in self.describe().items())
+        return f"Settings({body})"
 
 
 settings = Settings()

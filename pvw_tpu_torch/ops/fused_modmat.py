@@ -95,6 +95,7 @@ if TYPE_CHECKING:
 KERNEL = "fused_scaled_noise_matmul"
 SWAPPED_KERNEL = "fused_scaled_noise_matmul_swapped"     # in KERNEL's source
 MASKED_KERNEL = "fused_scaled_noise_matmul_masked"       # KERNEL's masked launches
+BARE_KERNEL = "fused_scaled_noise_matmul (bare)"         # KERNEL's: no noise, encode, post
 BANDED_KERNEL = "banded_matmul"
 DIGITS_KERNEL = "digit_planes"                           # kernel 2's operand layout
 BANDED_TABLE_WIDTH = 10
@@ -1077,3 +1078,18 @@ def ntt_prescale_band(coeffs, ring: "RingPlan", max_abs: int):
 
 
 ntt_prescale_band.launches = 0
+
+
+def launch_counters() -> dict:
+    """(wrapper, attribute) of the launch count of each kernel of this
+    module, by kernel name; kernel 1's masked and bare launches are also
+    among its own. The probes' kernels count on their own wrappers."""
+    k1 = fused_scaled_noise_matmul
+    return {KERNEL: (k1, "launches"), MASKED_KERNEL: (k1, "masked_launches"),
+            BARE_KERNEL: (k1, "bare_launches"),
+            SWAPPED_KERNEL: (fused_scaled_noise_matmul_swapped, "launches"),
+            PIPELINED_KERNEL: (fused_pipelined_matmul, "launches"),
+            NOISE_KERNEL: (v3k_noise_planes, "launches"),
+            PRESCALE_KERNEL: (ntt_prescale_band, "launches"),
+            BANDED_KERNEL: (banded_matmul, "launches"),
+            DIGITS_KERNEL: (digit_planes_kpacked, "launches")}

@@ -6,11 +6,13 @@
   collectives;
 - :mod:`.grid`: limb groups x the (recv, kdim) mesh;
 - :mod:`.data_parallel`: the dealer (batch) axis split across devices, no
-  collectives, bit-identical to the single-device encryption under v3k.
+  collectives, bit-identical to the single-device encryption under v3k;
+- :mod:`.multiprocess`: the (recv, kdim) mesh across processes on
+  ``torch.distributed`` (gloo on the CPU and where ranks share a card, NCCL
+  with a card a rank), every rank checking its shards byte for byte.
 
-Each runs its shards one after another in one process, on each shard's
-device; devices may repeat. Not ported yet: ``multiprocess`` (the mesh
-across processes).
+All but ``multiprocess`` run their shards one after another in one
+process, on each shard's device; devices may repeat.
 """
 from .sharding import (
     Mesh,

@@ -219,6 +219,43 @@ def _shard_products(params: PvwParameters, a_dig, b_dig, sc, key, my_r: int, my_
     return c1p, c2p
 
 
+def _shard_operands(a_dig, b_dig, sc, my_r: int, my_k: int, nl: int, kc: int, nd: int,
+                    device):
+    """Shard (my_r, my_k)'s operands on ``device``: A's k-column block (on
+    recv row 0 only, else None), B's receiver rows and k-column block, and
+    the scalars of its receivers."""
+    cols = slice(my_k * kc * nd, (my_k + 1) * kc * nd)
+    rows = slice(my_r * nl, (my_r + 1) * nl)
+    return (a_dig[:, :, :, cols].to(device).contiguous() if my_r == 0 else None,
+            b_dig[:, :, rows, cols].to(device).contiguous(), sc[:, rows].to(device))
+
+
+def _finish_row(params: PvwParameters, key, my_r: int, nl: int, d: int, kd: int,
+                c1_parts, c2_parts: list, head, host_e1, host_e2, stream: str | None):
+    """Recv row ``my_r``'s gathered partials (kdim order) added mod q on
+    ``head``, with the noise that joins after the gather (host noise for
+    bounds >= min q; residue noise at kdim = 1): c1 [L, l, k, d] on row 0
+    (else None) and the row's c2 [L, l, nl, d]."""
+    ring, k = params.ring, params.k
+    q = ring.table("q", head).reshape(-1, 1, 1, 1)
+    _, k_e1, k_e2 = split(key.to(head), 3)
+    b1, b2 = params.error_bound_1, params.error_bound_2
+    c1 = None
+    if my_r == 0:
+        c1 = _modsum_gathered(c1_parts, ring, head)
+        if host_e1 is not None:
+            c1 = u64op.addmod(c1, host_e1.to(head), q)
+        elif kd == 1 and not ntt_ops.signed_digit_count(b1):
+            c1 = u64op.addmod(c1, _noise_ntt(params, k_e1, 0, k, d, b1, stream, head), q)
+    c2 = _modsum_gathered(c2_parts, ring, head)[:, :, :nl]
+    glob0 = my_r * nl
+    if host_e2 is not None:
+        c2 = u64op.addmod(c2, host_e2[:, :, glob0:glob0 + nl].to(head), q)
+    elif kd == 1 and not ntt_ops.signed_digit_count(b2):
+        c2 = u64op.addmod(c2, _noise_ntt(params, k_e2, glob0, nl, d, b2, stream, head), q)
+    return c1, c2
+
+
 def _encrypt_kernel_sharded(params: PvwParameters, mesh: Mesh, a_dig, b_dig, sc, key,
                             host_e1=None, host_e2=None, force_masked: bool = False,
                             stream: str | None = "v4", encode32: bool = False):
@@ -238,39 +275,21 @@ def _encrypt_kernel_sharded(params: PvwParameters, mesh: Mesh, a_dig, b_dig, sc,
     nr, kd = mesh.shape["recv"], mesh.shape["kdim"]
     nl, kc = n // nr, k // kd
     dev0 = mesh.devices[0][0]
-    residue_noise = [kd == 1 and not ntt_ops.signed_digit_count(b)
-                     for b in (params.error_bound_1, params.error_bound_2)]
     c1 = None
     c2_rows = []
     for my_r in range(nr):
         c1_parts, c2_parts = [], []
         for my_k in range(kd):
             dev = mesh.devices[my_r][my_k]
-            cols = slice(my_k * kc * nd, (my_k + 1) * kc * nd)
             p1, p2 = _shard_products(
-                params, a_dig[:, :, :, cols].to(dev).contiguous() if my_r == 0 else None,
-                b_dig[:, :, my_r * nl:(my_r + 1) * nl, cols].to(dev).contiguous(),
-                sc[:, my_r * nl:(my_r + 1) * nl].to(dev), key, my_r, my_k, kd, nl,
-                host_e1, host_e2, force_masked, stream, encode32, dev)
+                params, *_shard_operands(a_dig, b_dig, sc, my_r, my_k, nl, kc, nd, dev), key,
+                my_r, my_k, kd, nl, host_e1, host_e2, force_masked, stream, encode32, dev)
             c1_parts.append(p1)
             c2_parts.append(p2)
-        head = mesh.devices[my_r][0]
-        q = ring.table("q", head).reshape(-1, 1, 1, 1)
-        _, k_e1, k_e2 = split(key.to(head), 3)
+        row_c1, c2 = _finish_row(params, key, my_r, nl, d, kd, c1_parts, c2_parts,
+                                 mesh.devices[my_r][0], host_e1, host_e2, stream)
         if my_r == 0:
-            c1 = _modsum_gathered(c1_parts, ring, head)
-            if host_e1 is not None:
-                c1 = u64op.addmod(c1, host_e1.to(head), q)
-            elif residue_noise[0]:
-                c1 = u64op.addmod(c1, _noise_ntt(params, k_e1, 0, k, d, params.error_bound_1,
-                                                 stream, head), q)
-        c2 = _modsum_gathered(c2_parts, ring, head)[:, :, :nl]
-        glob0 = my_r * nl
-        if host_e2 is not None:
-            c2 = u64op.addmod(c2, host_e2[:, :, glob0:glob0 + nl].to(head), q)
-        elif residue_noise[1]:
-            c2 = u64op.addmod(c2, _noise_ntt(params, k_e2, glob0, nl, d, params.error_bound_2,
-                                             stream, head), q)
+            c1 = row_c1
         c2_rows.append(c2.to(dev0))
         del c1_parts, c2_parts
     return c1.to(dev0), torch.cat(c2_rows, dim=2)
@@ -311,6 +330,24 @@ def encrypt_batch_sharded(all_scalars, global_pk: GlobalPublicKey, key, mesh: Me
                          Poly.from_channel_major(c2, Representation.Ntt, params.ring), params)
 
 
+def _decrypt_partial(ring, sk, c1_ch, ks: slice, dls: slice, device):
+    """One shard's partial <s, c1_d> over its k block ``ks`` for its
+    dealers ``dls``: sk NTT residues [k, L, l], c1_ch [L, l, k, d] ->
+    [L, l, dl] on ``device``."""
+    skc = sk[ks].to(device).permute(1, 2, 0)[:, :, None, :]               # [L, l, 1, kc]
+    return modmat.matmul_channels(skc, c1_ch[:, :, ks, dls].to(device), ring)[:, :, 0]
+
+
+def _decrypt_finish(ring, parts: list, c2_rows, head):
+    """A recv row's gathered partials (kdim order) added mod q on ``head``,
+    minus its dealers' c2 [L, l, dl], through the inverse NTT: PowerBasis
+    residues int64 [dl, L, l]."""
+    s = _modsum_gathered(parts, ring, head)
+    q = ring.table("q", head)[:, None, None]
+    z = u64op.submod(s, c2_rows.to(head), q).permute(2, 0, 1)             # [dl, L, l]
+    return ntt_ops.ntt_inverse(z, ring)
+
+
 def _noisy_sharded_ch(params: PvwParameters, mesh: Mesh, sk, c1_ch, c2_ch) -> list:
     """Sharded decryption stage, channel-major: z_d = <s, c1_d> - c2_d with
     the dealers over recv and the k contraction over kdim (gathered and
@@ -327,18 +364,9 @@ def _noisy_sharded_ch(params: PvwParameters, mesh: Mesh, sk, c1_ch, c2_ch) -> li
     out = []
     for my_r in range(nr):
         dls = slice(my_r * dl, (my_r + 1) * dl)
-        parts = []
-        for my_k in range(kd):
-            dev = mesh.devices[my_r][my_k]
-            ks = slice(my_k * kc, (my_k + 1) * kc)
-            skc = sk[ks].to(dev).permute(1, 2, 0)[:, :, None, :]           # [L, l, 1, kc]
-            parts.append(modmat.matmul_channels(skc, c1_ch[:, :, ks, dls].to(dev),
-                                                ring)[:, :, 0])            # [L, l, dl]
-        head = mesh.devices[my_r][0]
-        s = _modsum_gathered(parts, ring, head)
-        q = ring.table("q", head)[:, None, None]
-        z = u64op.submod(s, c2_ch[:, :, dls].to(head), q).permute(2, 0, 1)   # [dl, L, l]
-        out.append(ntt_ops.ntt_inverse(z, ring))
+        parts = [_decrypt_partial(ring, sk, c1_ch, slice(my_k * kc, (my_k + 1) * kc), dls,
+                                  mesh.devices[my_r][my_k]) for my_k in range(kd)]
+        out.append(_decrypt_finish(ring, parts, c2_ch[:, :, dls], mesh.devices[my_r][0]))
     return out
 
 

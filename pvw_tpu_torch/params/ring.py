@@ -17,6 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..config import settings
 from ..errors import InvalidParameters
 from ..ops import u64 as u64op
 from ..utils.intmath import CrtBasis, primitive_root_of_unity, validate_ntt_modulus
@@ -105,8 +106,18 @@ class RingPlan:
         self.q_total = self.crt.q
         self._np_cache: dict = {}
         self._tensor_cache: dict = {}
-        # one digit width for every limb: the minimal exact one
+        # one digit width for every limb: the minimal exact one, or the
+        # width PVW_NUM_DIGITS forces (any exact width gives the same
+        # residues; it selects the kernels' digit count)
         self.num_digits = max(u64op.digits_for_max(q - 1) for q in moduli)
+        forced = settings.num_digits
+        if forced:
+            if forced < self.num_digits or forced > u64op.NUM_DIGITS:
+                raise InvalidParameters(
+                    f"PVW_NUM_DIGITS={forced} outside "
+                    f"[{self.num_digits}, {u64op.NUM_DIGITS}]"
+                )
+            self.num_digits = forced
         self.num_columns = 2 * self.num_digits - 1
         self.limbs: list[LimbPlan] = [self._build_limb(q) for q in moduli]
 
@@ -289,5 +300,7 @@ class RingPlan:
 
 @lru_cache(maxsize=32)
 def get_ring(moduli: tuple[int, ...], degree: int) -> RingPlan:
-    """Memoized RingPlan constructor (plans are pure functions of inputs)."""
+    """Memoized RingPlan constructor, keyed on (moduli, degree) as the JAX
+    package's is: ``settings.num_digits`` applies to a plan built after it
+    is set (``get_ring.cache_clear()`` makes the next call build anew)."""
     return RingPlan(tuple(moduli), degree)

@@ -88,6 +88,20 @@ def sample_uniform_residues(key, shape, bound: int, ring: RingPlan,
     return _embed_centered(v, bound, ring)
 
 
+def sample_uniform_coefficients(bound: int, count: int, rng=None) -> list[int]:
+    """Uniform integers in [-bound, bound] as Python ints, the reference's
+    public ``sample_uniform_coefficients`` (``uniform.rs:5-22``). ``rng``:
+    an object with ``randint`` such as ``random.Random`` (default: a
+    system-seeded ``random.SystemRandom``)."""
+    import random as _random
+
+    bound = int(bound)
+    if bound < 0:
+        raise SamplingError("bound must be non-negative")
+    r = rng if rng is not None else _random.SystemRandom()
+    return [r.randint(-bound, bound) for _ in range(count)]
+
+
 def sample_uniform_residues_rows(key, row_offset: int, num_rows: int, shape_tail,
                                  bound: int, ring: RingPlan, device="cuda") -> torch.Tensor:
     """Row-keyed uniform values in [-bound, bound] ("stream v2") as
