@@ -67,9 +67,12 @@ num_digits           PVW_NUM_DIGITS        Force the int8 digit width of the
                                            [minimal, 8]; any exact width gives
                                            the same residues (default: the
                                            minimal exact width of the chain).
-trace                PVW_TPU_TRACE         Emit one JSON line a span of
-                                           ``utils.profiling.span`` to stderr
-                                           (False).
+trace                PVW_TPU_TRACE         Record the spans of
+                                           ``utils.profiling.span`` (read at
+                                           each span) and write one JSON
+                                           line a span to stderr at
+                                           ``utils.profiling.flush()`` or at
+                                           exit (False).
 ===================  ====================  ==================================
 
 Precedence per knob: programmatic assignment > environment variable >
@@ -103,6 +106,11 @@ class _Knob:
 
     def __init__(self, env: str, default, parse: Callable = str) -> None:
         self.env = env
+        # the trace knob is read at every span, and os.environ.get raises
+        # and catches two KeyErrors for an unset variable (~1.4 us): a knob
+        # reads os.environ's own table, which every assignment through
+        # os.environ keeps current
+        self.key = os.environ.encodekey(env)
         self.default = default
         self.parse = parse
 
@@ -115,10 +123,10 @@ class _Knob:
         override = obj._overrides.get(self.name, _UNSET)
         if override is not _UNSET:
             return override
-        raw = os.environ.get(self.env)
-        if raw is None or raw == "":
+        raw = os.environ._data.get(self.key)
+        if not raw:
             return self.default
-        return self.parse(raw)
+        return self.parse(os.environ.decodevalue(raw))
 
     def __set__(self, obj, value) -> None:
         obj._overrides[self.name] = value

@@ -31,6 +31,7 @@ from ..ops import modmat, ntt as ntt_ops, u64 as u64op
 from ..params.parameters import PvwParameters
 from ..utils import native_decode
 from ..utils.intmath import center_mod, rust_div, rust_rem
+from ..utils.profiling import span
 from . import device_decode
 from .encryption import PvwCiphertext
 
@@ -166,32 +167,43 @@ def _decode_batch(residues: torch.Tensor, params: PvwParameters,
 
 def decrypt_party_value(ciphertext: PvwCiphertext, secret_key: SecretKey,
                         party_index: int) -> int:
-    """Decrypt component ``party_index`` (``decryption.rs:249-278``)."""
-    params = ciphertext.params
-    if not (0 <= party_index < params.n):
-        raise InvalidParameters(
-            f"Party index {party_index} exceeds maximum {params.n - 1}"
-        )
-    c1 = ciphertext.c1.channel()[..., None]                      # [L, l, k, 1]
-    c2 = ciphertext.c2.channel()[:, :, party_index][..., None]   # [L, l, 1]
-    return _decrypt(params, secret_key, c1, c2)[0]
+    """Decrypt component ``party_index`` (``decryption.rs:249-278``): the
+    span ``pvw.decrypt``, as :func:`decrypt_party_shares`."""
+    with span("pvw.decrypt"):
+        params = ciphertext.params
+        with span("pvw.decrypt.select"):
+            if not (0 <= party_index < params.n):
+                raise InvalidParameters(
+                    f"Party index {party_index} exceeds maximum {params.n - 1}"
+                )
+            c1 = ciphertext.c1.channel()[..., None]                      # [L, l, k, 1]
+            c2 = ciphertext.c2.channel()[:, :, party_index][..., None]   # [L, l, 1]
+        return _decrypt(params, secret_key, c1, c2)[0]
 
 
 def _decrypt(params: PvwParameters, secret_key: SecretKey, c1, c2) -> list[int]:
     """Decrypt d messages, c1 [L, l, k, d] and c2 [L, l, d] channel-major,
-    routed by :func:`_decode_mode` for the batch size d."""
+    routed by :func:`_decode_mode` for the batch size d. Its stages are the
+    spans ``pvw.decrypt.secret_key`` (the key's polynomials on c1's
+    device), ``.contraction`` (:func:`_noisy_messages`) and ``.decode``
+    (:func:`_decode_batch`, the answers on the host; the whole decryption
+    in the ``host`` mode), which counts the engine."""
     mode = _decode_mode(params, c2.shape[-1])
     if mode == "host":
-        return _host_decrypt(params, secret_key, c1.permute(2, 3, 0, 1), c2.permute(2, 0, 1))
-    sk = secret_key.to_polynomials(c1.device).res
-    return _decode_batch(_noisy_messages(params, sk, c1, c2), params, mode)
+        with span("pvw.decrypt.decode", engine=mode):
+            return _host_decrypt(params, secret_key, c1.permute(2, 3, 0, 1),
+                                 c2.permute(2, 0, 1))
+    with span("pvw.decrypt.secret_key"):
+        sk = secret_key.to_polynomials(c1.device).res
+    with span("pvw.decrypt.contraction"):
+        z = _noisy_messages(params, sk, c1, c2)
+    with span("pvw.decrypt.decode", engine=mode):
+        return _decode_batch(z, params, mode)
 
 
-def decrypt_party_shares(all_ciphertexts, secret_key: SecretKey,
-                         party_index: int) -> list[int]:
-    """This party's share from every dealer ciphertext
-    (``decryption.rs:281-325``): a list of n PvwCiphertexts, or one batched
-    PvwCiphertext (c1 [k, d], c2 [n, d] with d = n)."""
+def _party_columns(all_ciphertexts, party_index: int):
+    """(params, c1 [L, l, k, n], c2 [L, l, n]): every dealer's columns for
+    this party, channel-major, after the checks."""
     if isinstance(all_ciphertexts, PvwCiphertext):
         ct = all_ciphertexts
         params = ct.params
@@ -204,26 +216,37 @@ def decrypt_party_shares(all_ciphertexts, secret_key: SecretKey,
             raise InvalidParameters(
                 f"Party index {party_index} exceeds maximum {params.n - 1}"
             )
-        c1 = ct.c1.channel()                                     # [L, l, k, d]
-        c2 = ct.c2.channel()[:, :, party_index]                  # [L, l, d]
-    else:
-        if len(all_ciphertexts) == 0:
-            raise InvalidParameters("No ciphertexts provided")
-        params = all_ciphertexts[0].params
-        if len(all_ciphertexts) != params.n:
-            raise InvalidParameters(
-                f"Expected {params.n} ciphertexts, got {len(all_ciphertexts)}"
-            )
-        if not (0 <= party_index < params.n):
-            raise InvalidParameters(
-                f"Party index {party_index} exceeds maximum {params.n - 1}"
-            )
-        for i, ct in enumerate(all_ciphertexts):
-            try:
-                ct.validate()
-            except InvalidParameters as e:
-                raise InvalidParameters(f"Ciphertext {i} invalid: {e}") from e
-        c1 = torch.stack([ct.c1.channel() for ct in all_ciphertexts], dim=-1)
-        c2 = torch.stack([ct.c2.channel()[:, :, party_index]
-                          for ct in all_ciphertexts], dim=-1)
-    return _decrypt(params, secret_key, c1, c2)
+        return params, ct.c1.channel(), ct.c2.channel()[:, :, party_index]
+    if len(all_ciphertexts) == 0:
+        raise InvalidParameters("No ciphertexts provided")
+    params = all_ciphertexts[0].params
+    if len(all_ciphertexts) != params.n:
+        raise InvalidParameters(
+            f"Expected {params.n} ciphertexts, got {len(all_ciphertexts)}"
+        )
+    if not (0 <= party_index < params.n):
+        raise InvalidParameters(
+            f"Party index {party_index} exceeds maximum {params.n - 1}"
+        )
+    for i, ct in enumerate(all_ciphertexts):
+        try:
+            ct.validate()
+        except InvalidParameters as e:
+            raise InvalidParameters(f"Ciphertext {i} invalid: {e}") from e
+    c1 = torch.stack([ct.c1.channel() for ct in all_ciphertexts], dim=-1)
+    c2 = torch.stack([ct.c2.channel()[:, :, party_index]
+                      for ct in all_ciphertexts], dim=-1)
+    return params, c1, c2
+
+
+def decrypt_party_shares(all_ciphertexts, secret_key: SecretKey,
+                         party_index: int) -> list[int]:
+    """This party's share from every dealer ciphertext
+    (``decryption.rs:281-325``): a list of n PvwCiphertexts, or one batched
+    PvwCiphertext (c1 [k, d], c2 [n, d] with d = n). The call is the span
+    ``pvw.decrypt``; the checks and the gather ``pvw.decrypt.select``, then
+    :func:`_decrypt`'s."""
+    with span("pvw.decrypt"):
+        with span("pvw.decrypt.select"):
+            params, c1, c2 = _party_columns(all_ciphertexts, party_index)
+        return _decrypt(params, secret_key, c1, c2)

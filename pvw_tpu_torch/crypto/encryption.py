@@ -39,6 +39,7 @@ from ..poly import Poly, Representation
 from ..random import split
 from ..sampling.cbd import cbd_bound, sample_vec_cbd_rows
 from ..sampling.uniform import sample_uniform_residues_host, sample_uniform_residues_rows
+from ..utils.profiling import span
 
 
 class PvwCiphertext:
@@ -98,8 +99,10 @@ class PvwCiphertext:
 
 
 def _run(name: str, fn):
-    """The default stage hook: run the stage."""
-    return fn()
+    """The default stage hook: run the stage in the span
+    ``pvw.encrypt.<name>``."""
+    with span(f"pvw.encrypt.{name}"):
+        return fn()
 
 
 def _r_operand(params: PvwParameters, k_r, d: int, stream: str | None, col_off: int,
@@ -179,6 +182,15 @@ def _product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, bound: int,
     return stage("addmod", lambda: u64op.addmod(c, host_e, q))
 
 
+def _encode_table(params: PvwParameters, dev) -> torch.Tensor:
+    """The encode table on ``dev``. Its copy from pageable memory syncs the
+    stream, so the host waits there for c1's product: the copy is the span
+    ``pvw.encrypt.encode_table.upload``, apart from the table's host work."""
+    tab = encode_tab(params.gadget_ntt, params.gadget_ntt_shoup, params.gadget_wrap)
+    with span("pvw.encrypt.encode_table.upload"):
+        return u64op.u64_tensor(tab, dev)
+
+
 def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
                     encode32: bool = False, host_e1=None, host_e2=None,
                     stream: str | None = "v4", col_off: int = 0, stage=_run):
@@ -191,7 +203,8 @@ def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
     smallest modulus, or None; ``stream``: "v4", "v3k" or None (v3), from
     ``settings.kernel_noise_stream()``; ``stage(name, fn)``: runs each step
     (:func:`_r_operand`, then :func:`_product` for c1 and c2, their names
-    suffixed ``_c1``/``_c2``), a hook for timing them. Returns
+    suffixed ``_c1``/``_c2``, and "encode_table" between them), a hook for
+    timing them. Returns
     channel-major c1 [L, l, k, d] and c2 [L, l, n, d]."""
     k_r, k_e1, k_e2 = split(key, 3)
     dev = sc.device
@@ -200,8 +213,7 @@ def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
     c1 = _product(params, r_op, a_dig, k_e1, params.k, params.error_bound_1, stream,
                   host_e1, col_off=col_off,
                   stage=lambda name, fn: stage(f"{name}_c1", fn))
-    etab = u64op.u64_tensor(encode_tab(params.gadget_ntt, params.gadget_ntt_shoup,
-                                       params.gadget_wrap), dev)
+    etab = stage("encode_table", lambda: _encode_table(params, dev))
     c2 = _product(params, r_op, b_dig, k_e2, params.n, params.error_bound_2, stream,
                   host_e2, (sc.t().contiguous(), etab), encode32, col_off,
                   stage=lambda name, fn: stage(f"{name}_c2", fn))
@@ -266,11 +278,9 @@ def _swapped_form_ok(params: PvwParameters, d: int) -> bool:
             and bool(ntt_ops.signed_digit_count(params.error_bound_2)))
 
 
-def encrypt_batch(all_scalars, global_pk: GlobalPublicKey, key) -> PvwCiphertext:
-    """Encrypt d scalar vectors ([d, n] u64) in one call: c1 [k, d],
-    c2 [n, d], on the key matrix's device."""
-    from ..config import settings
-
+def _checked_scalars(all_scalars, global_pk: GlobalPublicKey):
+    """The scalars as uint64 [d, n], checked against the key and the
+    parameters, and whether all are < 2^32."""
     params = global_pk.params
     arr = np.asarray(all_scalars, np.uint64)
     if arr.ndim != 2 or arr.shape[1] != params.n:
@@ -288,20 +298,35 @@ def encrypt_batch(all_scalars, global_pk: GlobalPublicKey, key) -> PvwCiphertext
             "may fail"
         )
     # one max over the scalars: no shifted copy of a 4096 x 4096 array
-    encode32 = int(arr.max(initial=0)) < 1 << 32
-    sc = u64op.u64_tensor(arr, global_pk.device)
-    # bounds >= min(q_i): exact host sampling (the reference's BigInt path
-    # accepts any bound, encryption.rs:161-173)
-    host_e1, host_e2 = _host_noise_pairs(params, key, arr.shape[0], sc.device)
-    if host_e1 is None and host_e2 is None and _swapped_form_ok(params, arr.shape[0]):
-        a_dig, b_dig = global_pk.encrypt_operands_swapped()
-    else:
-        a_dig, b_dig = global_pk.encrypt_operands()
-    c1, c2 = _encrypt_kernel(params, a_dig, b_dig, sc, key, encode32, host_e1, host_e2,
-                             settings.kernel_noise_stream())
-    return PvwCiphertext(Poly.from_channel_major(c1, Representation.Ntt, params.ring),
-                         Poly.from_channel_major(c2, Representation.Ntt, params.ring),
-                         params)
+    return arr, int(arr.max(initial=0)) < 1 << 32
+
+
+def encrypt_batch(all_scalars, global_pk: GlobalPublicKey, key) -> PvwCiphertext:
+    """Encrypt d scalar vectors ([d, n] u64) in one call: c1 [k, d],
+    c2 [n, d], on the key matrix's device. The call is the span
+    ``pvw.encrypt``; its stages ``pvw.encrypt.checks``, ``.upload``, the
+    kernel's stages (:func:`_run`) and ``.wrap``."""
+    from ..config import settings
+
+    with span("pvw.encrypt"):
+        params = global_pk.params
+        with span("pvw.encrypt.checks"):
+            arr, encode32 = _checked_scalars(all_scalars, global_pk)
+        with span("pvw.encrypt.upload", dealers=arr.shape[0], bytes=arr.nbytes):
+            sc = u64op.u64_tensor(arr, global_pk.device)
+        # bounds >= min(q_i): exact host sampling (the reference's BigInt path
+        # accepts any bound, encryption.rs:161-173)
+        host_e1, host_e2 = _host_noise_pairs(params, key, arr.shape[0], sc.device)
+        if host_e1 is None and host_e2 is None and _swapped_form_ok(params, arr.shape[0]):
+            a_dig, b_dig = global_pk.encrypt_operands_swapped()
+        else:
+            a_dig, b_dig = global_pk.encrypt_operands()
+        c1, c2 = _encrypt_kernel(params, a_dig, b_dig, sc, key, encode32, host_e1, host_e2,
+                                 settings.kernel_noise_stream())
+        with span("pvw.encrypt.wrap"):
+            return PvwCiphertext(Poly.from_channel_major(c1, Representation.Ntt, params.ring),
+                                 Poly.from_channel_major(c2, Representation.Ntt, params.ring),
+                                 params)
 
 
 def _squeeze_batch(ct: PvwCiphertext) -> PvwCiphertext:

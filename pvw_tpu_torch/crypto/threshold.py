@@ -20,6 +20,7 @@ import torch
 
 from ..errors import InsufficientValidCiphertexts, InvalidParameters
 from ..keys.secret_key import SecretKey
+from ..utils.profiling import span
 from .decryption import _decrypt
 from .encryption import PvwCiphertext
 
@@ -56,23 +57,9 @@ def _check_party(params, party_index: int) -> None:
         )
 
 
-def decrypt_valid_shares(
-    all_ciphertexts: Union[PvwCiphertext, Sequence[PvwCiphertext]],
-    valid_dealer_indices: Sequence[int],
-    threshold: int,
-    secret_key: SecretKey,
-    party_index: int,
-) -> list[tuple[int, int]]:
-    """Decrypt this party's share from each VALID dealer ciphertext
-    (``pvw_valid_dec.rs:192-209``). Returns (dealer_index, share) pairs in
-    the order given; raises :class:`InsufficientValidCiphertexts` below
-    threshold.
-
-    Accepts a list of n PvwCiphertexts or one batched PvwCiphertext from
-    ``encrypt_all_party_shares_batched``; either way the subset decrypts
-    as one contraction.
-    """
-    idx_list = list(valid_dealer_indices)
+def _valid_columns(all_ciphertexts, idx_list: list, threshold: int, party_index: int):
+    """(params, c1 [L, l, k, s], c2 [L, l, s]): the valid dealers' columns,
+    channel-major, after the checks."""
     if isinstance(all_ciphertexts, PvwCiphertext):
         ct = all_ciphertexts
         params = ct.params
@@ -87,11 +74,35 @@ def decrypt_valid_shares(
         sel = torch.as_tensor(idx_list, dtype=torch.long, device=c1.device)
         c1 = c1.index_select(3, sel)
         c2 = ct.c2.channel()[:, :, party_index].index_select(2, sel)   # [L, l, s]
-    else:
-        selected = select_valid_ciphertexts(all_ciphertexts, idx_list, threshold)
-        params = selected[0][1].params
-        _check_party(params, party_index)
-        c1 = torch.stack([c.c1.channel() for _, c in selected], dim=-1)
-        c2 = torch.stack([c.c2.channel()[:, :, party_index] for _, c in selected],
-                         dim=-1)
-    return list(zip(idx_list, _decrypt(params, secret_key, c1, c2)))
+        return params, c1, c2
+    selected = select_valid_ciphertexts(all_ciphertexts, idx_list, threshold)
+    params = selected[0][1].params
+    _check_party(params, party_index)
+    c1 = torch.stack([c.c1.channel() for _, c in selected], dim=-1)
+    c2 = torch.stack([c.c2.channel()[:, :, party_index] for _, c in selected], dim=-1)
+    return params, c1, c2
+
+
+def decrypt_valid_shares(
+    all_ciphertexts: Union[PvwCiphertext, Sequence[PvwCiphertext]],
+    valid_dealer_indices: Sequence[int],
+    threshold: int,
+    secret_key: SecretKey,
+    party_index: int,
+) -> list[tuple[int, int]]:
+    """Decrypt this party's share from each VALID dealer ciphertext
+    (``pvw_valid_dec.rs:192-209``). Returns (dealer_index, share) pairs in
+    the order given; raises :class:`InsufficientValidCiphertexts` below
+    threshold.
+
+    Accepts a list of n PvwCiphertexts or one batched PvwCiphertext from
+    ``encrypt_all_party_shares_batched``; either way the subset decrypts
+    as one contraction. The call is the span ``pvw.decrypt``; the checks
+    and the gather ``pvw.decrypt.select``, then :func:`.decryption._decrypt`'s.
+    """
+    idx_list = list(valid_dealer_indices)
+    with span("pvw.decrypt", valid=len(idx_list)):
+        with span("pvw.decrypt.select"):
+            params, c1, c2 = _valid_columns(all_ciphertexts, idx_list, threshold,
+                                            party_index)
+        return list(zip(idx_list, _decrypt(params, secret_key, c1, c2)))
