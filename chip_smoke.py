@@ -27,7 +27,7 @@ CUDA events with its spread [min, max], beside the bound, the plain twin,
 to ``torch._int_mm``.
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   the nine kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
+   the ten kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
    started together, into ``build/kernels``), then of the C++ decode engine
    (``native/pvw_decode.cpp``, g++, into ``build/native``);
 2. kernel_vs_plain: kernel 1, the fused scaled-noise matmul, against its
@@ -76,6 +76,14 @@ to ``torch._int_mm``.
     every byte against its twin, then timed beside its bound and twin, and
     without its wrapper (its C entry, 20 launches back to back between two
     events) beside the wrapper's host time a call;
+11a. residue_noise_vs_plain: the residue-noise generator (bounds above the
+    signed-digit range: stream-v2 draws, the centred embed and the forward
+    NTT, channel-major for kernel 1's ``post=``) against its twin, every
+    residue, at the reference's and config 4's c2 shapes, 128-bit draws
+    with wrapping rows, a keygen chunk and l = 32; residue_noise_timing:
+    at both c2 shapes through its wrapper and raw, beside its bound and
+    twin; every dealer path gates its launches (one a product with residue
+    noise, none elsewhere);
 12. swapped_vs_plain: kernel 1's swapped form against its twin at reduced
     shapes (nd = 5 and 8, jr = 1 and 2, value and digit rows, bare, both
     encodes, m and n off its tile);
@@ -182,7 +190,7 @@ to ``torch._int_mm``.
 22a. examples: the four examples of ``pvw_tpu_torch.examples`` at their
     default sizes, each in its own interpreter, started together: rc 0,
     kernels 1 and 4 launched in each;
-23. the kernels line (thirteen entries; kernel 1's with its time at each
+23. the kernels line (fourteen entries; kernel 1's with its time at each
     forced width), then the last line ``{"ok": true, "device": ...}``.
 """
 
@@ -922,6 +930,22 @@ def interleaved_times(calls: dict, rounds: int, inner: int = 10) -> dict:
             for name, t in times.items()}
 
 
+def host_us_a_call(calls: dict) -> dict:
+    """name -> the host microseconds of one call of ``calls[name]``: 20
+    calls with no synchronize between, the card idle before them."""
+    import torch
+
+    out = {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        out[name] = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def prescale_timing(ring, k: int, d: int, seed: int, dev, card: str) -> dict:
     """The r-stage kernel and its plain twin at one r shape (jr = 1), each
     against the bound: the wrapper as a path calls it and the raw launch
@@ -1111,14 +1135,7 @@ def phase_v3k_timing(dev, card: str) -> dict:
         back_to_back = interleaved_times({"wrapper": wrapper, "raw": raw}, rounds=5, inner=20)
         check(torch.equal(planes, fm.v3k_noise_planes(*args)),
               f"the v3k generator's raw launch differs from its wrapper at {name}")
-        host_us = {}
-        for label, call in (("wrapper", wrapper), ("raw", raw)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                call()
-            host_us[label] = (time.perf_counter() - t0) / 20 * 1e6
-            torch.cuda.synchronize()
+        host_us = host_us_a_call({"wrapper": wrapper, "raw": raw})
         del planes
         values = rows * cols * l
         ops = values * V3K_OPS_PER_VALUE
@@ -1142,6 +1159,124 @@ def phase_v3k_timing(dev, card: str) -> dict:
         emit(out[name])
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# the residue-noise generator: bounds above the signed-digit range
+# --------------------------------------------------------------------------
+
+def residue_ops(rows: int, cols: int, l: int, limbs: int, words: int) -> float:
+    """32-bit operations of the residue-noise generator: per (row, column)
+    the row key and ``words`` * l draw words (Threefry-2x32-20, 72 each as
+    in V3K_OPS_PER_VALUE, and a xor each), each value's reduction (8 at
+    three words, 16 at four) and centring (2); per limb, each value's
+    residue (3) and the l x l dense NTT, a term a native 64-bit Shoup
+    product (the high word of a 64 x 64 product: 4 wide multiply-adds and
+    2 carries; two low products, 3 each; the subtraction and the
+    conditional one, 4) and an addmod (4): 20."""
+    per = ((words * l + 1) * 72 + words * l + l * ((8 if words == 3 else 16) + 2)
+           + limbs * (3 * l + 20 * l * l))
+    return rows * cols * per
+
+
+def phase_residue_noise(dev, card: str) -> tuple[int, dict]:
+    """The residue-noise generator (``fused_modmat.residue_noise_ch``)
+    against its plain twin, every residue: the reference's c2 at full width
+    (96-bit draws), config 4's c2 shape with the same bound, 128-bit draws
+    with a row offset that wraps, a keygen chunk's (parties, k) call and a
+    shard's rows at l = 32; then, at the reference's c2 shape and config 4's,
+    timed through its wrapper (CUDA events, median of 5 with the spread)
+    beside its twin and its bound (the 32-bit operations of
+    :func:`residue_ops` at ``INT32_OPS_PER_S`` or the residues written once
+    at ``HBM_BYTES_PER_S``, whichever is longer), and without its wrapper:
+    its C entry and the wrapper, each 20 launches back to back between two
+    events, interleaved in 5 rounds (the raw launch's residues held equal
+    to the wrapper's), and the host time of one call of each. No PyTorch
+    call computes Threefry-2x32: no library time."""
+    import ctypes
+
+    import torch
+
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.params import presets
+    from pvw_tpu_torch.params.ring import get_ring
+    from pvw_tpu_torch.utils.intmath import generate_ntt_primes
+
+    ref = get_ring(presets.MODULI_55BIT4, 8)
+    deep = get_ring(generate_ntt_primes(*DEEP_PRIMES, DEEP_ELL), DEEP_ELL)
+    toy = get_ring(MODULI, ELL)
+    wide = get_ring(generate_ntt_primes(61, 2, 64), 32)
+    kk = R.fold_in(R.key(14), 2)
+    c2_bound = presets.secure_128_reference(8).error_bound_2
+    worst = 0
+    for name, ring, rows, cols, bound, row_off in (
+            ("reference c2", ref, REF_N, REF_N, c2_bound, 0),
+            ("config-4 c2", deep, DEEP_N, DEEP_N, c2_bound, 0),
+            ("128-bit draws, wrapping rows", toy, 1000, 300, (1 << 31) + 5, (1 << 32) - 5),
+            ("keygen chunk (parties x k)", ref, 256, REF_K, c2_bound, 512),
+            ("a shard's rows at l = 32", wide, 130, 257, 50000, 77)):
+        want = fm.residue_noise_ch_plain(kk, row_off, rows, cols, bound, ring, dev)
+        got = fm.residue_noise_ch(kk, row_off, rows, cols, bound, ring, dev)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        emit({"phase": "residue_noise_vs_plain", "kernel": fm.RESIDUE_NOISE_KERNEL,
+              "shape": name, "rows": rows, "cols": cols, "l": ring.degree,
+              "limbs": ring.num_limbs, "bound": bound, "row_off": row_off,
+              "words": 3 if 2 * bound + 1 < 1 << 30 else 4, "compared": "every residue",
+              "bit_exact": err == 0, "max_abs_err": err})
+        check(err == 0, f"the residue-noise generator differs from its twin at {name}")
+        del want, got
+        torch.cuda.empty_cache()
+
+    fn = fm._residue_noise_fn()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    k0, k1 = (int(w) for w in kk)
+    out = {}
+    for name, ring, rows, cols in (("reference c2", ref, REF_N, REF_N),
+                                   ("config-4 c2", deep, DEEP_N, DEEP_N)):
+        args = (kk, 0, rows, cols, c2_bound, ring, dev)
+        res = fm.residue_noise_ch(*args)
+        raw_args = (k0, k1, 0, rows, cols, ring.degree, ring.num_limbs, c2_bound,
+                    fm._ptr(ring.table("q", dev)), fm._ptr(fm._residue_noise_tables(ring, dev)),
+                    fm._ptr(res), stream)
+
+        def raw():
+            check(fn(*raw_args) == 0, "the residue-noise generator's raw launch failed")
+
+        def wrapper():
+            fm.residue_noise_ch(*args)
+
+        wrapped = kernel_times(wrapper)
+        plain_ms = cuda_ms(lambda: fm.residue_noise_ch_plain(*args), reps=3)
+        back_to_back = interleaved_times({"wrapper": wrapper, "raw": raw}, rounds=5, inner=20)
+        check(torch.equal(res, fm.residue_noise_ch(*args)),
+              f"the residue-noise generator's raw launch differs from its wrapper at {name}")
+        host_us = host_us_a_call({"wrapper": wrapper, "raw": raw})
+        del res
+        ops = residue_ops(rows, cols, ring.degree, ring.num_limbs, 3)
+        nbytes = 8 * ring.num_limbs * ring.degree * rows * cols
+        ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {"phase": "residue_noise_timing", "kernel": fm.RESIDUE_NOISE_KERNEL,
+               "shape": f"{name} rows={rows} cols={cols} l={ring.degree} "
+                        f"L={ring.num_limbs} W=3",
+               "bound": c2_bound, "card": card, "compared": "every residue",
+               **wrapped, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "int32_ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+               "raw_ms": back_to_back["raw"]["ms"],
+               "raw_ms_spread": back_to_back["raw"]["ms_spread"],
+               "wrapper_back_to_back_ms": back_to_back["wrapper"]["ms"],
+               "wrapper_back_to_back_ms_spread": back_to_back["wrapper"]["ms_spread"],
+               "wrapper_host_us": host_us["wrapper"], "raw_host_us": host_us["raw"]}
+        rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+        rec["x_bound_raw"] = rec["raw_ms"] / rec["bound_ms"]
+        out[name] = rec
+        emit(rec)
+        torch.cuda.empty_cache()
+    return worst, out
 
 
 # --------------------------------------------------------------------------
@@ -1553,10 +1688,16 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
                "pipelined": fm.PIPELINED_KERNEL}
     generated = sum(1 for b in (params.error_bound_1, params.error_bound_2)
                     if signed_digit_count(b))
+    # products whose bound takes the residue-noise generator
+    residue = [not signed_digit_count(b) and b < min(params.ring.moduli)
+               for b in (params.error_bound_1, params.error_bound_2)]
     for stage in ("encrypt", "wrap_encrypt"):
         if stage not in stage_launches:
             continue
         ran = stage_launches[stage]
+        check(ran[fm.RESIDUE_NOISE_KERNEL] == sum(residue),
+              f"the residue-noise generator ran {ran[fm.RESIDUE_NOISE_KERNEL]} times in the "
+              f"{stage} stage of {phase}, which has {sum(residue)} products with residue noise")
         check(ran[product[route]] >= 2, f"{product[route]} ran {ran[product[route]]} times "
                                         f"in the {stage} stage of {phase}")
         for other in (set(product.values()) - {product[route]}) | {fm.MASKED_KERNEL,
@@ -1583,6 +1724,9 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
         keygen = fm.PIPELINED_KERNEL if route == "pipelined" else fm.KERNEL
         check(stage_launches["keygen"][keygen] >= 1, f"{keygen} never ran in the keygen of "
                                                      f"{phase}")
+        drew = stage_launches["keygen"][fm.RESIDUE_NOISE_KERNEL]
+        check(drew >= 1 if residue[0] else drew == 0,
+              f"the residue-noise generator ran {drew} times in the keygen of {phase}")
     return out, {"params": params, "gpk": gpk, "shares": shares,
                  "sk": sks[full_parties[0]], "coeffs": host_coeffs}
 
@@ -3012,7 +3156,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL,
                       fm.BANDED_KERNEL, fm.DIGITS_KERNEL, fm.FOLD_ONLY_KERNEL,
-                      fm.INT32_PEAK_KERNEL, fm.DOT_KERNEL])
+                      fm.INT32_PEAK_KERNEL, fm.DOT_KERNEL, fm.RESIDUE_NOISE_KERNEL])
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native_decode._lib()
@@ -3059,6 +3203,7 @@ def main() -> int:
         "reference": (presets.secure_128_reference(REF_N), REF_N)})
     v3k_worst = phase_v3k_vs_plain(dev)
     v3k_timing = phase_v3k_timing(dev, card)
+    residue_worst, residue_timing = phase_residue_noise(dev, card)
     swapped_worst = phase_swapped_vs_plain(dev)
     pipelined_worst = phase_pipelined_vs_plain(dev)
     opt_timing = phase_opt_in_timing(dev, card)
@@ -3142,6 +3287,15 @@ def main() -> int:
                      v3k_timing["toy c2"], v3k_timing["config-4 c2"], card,
                      raw_ms=v3k_timing["toy c2"]["raw_ms"],
                      wrapper_host_us=v3k_timing["toy c2"]["wrapper_host_us"]),
+        kernel_entry(fm.RESIDUE_NOISE_KERNEL, src + "residue_noise.cu",
+                     "none: XLA code (pvw_tpu/sampling/uniform.py:141, pvw_tpu/ops/ntt.py:80)",
+                     "sample_uniform_residues_rows + ntt_forward (new)",
+                     by_path[fm.RESIDUE_NOISE_KERNEL],
+                     residue_worst,
+                     residue_timing["reference c2"], residue_timing["config-4 c2"], card,
+                     raw_ms=residue_timing["reference c2"]["raw_ms"],
+                     wrapper_host_us=residue_timing["reference c2"]["wrapper_host_us"],
+                     ptxas=_build.ptxas_report(fm.RESIDUE_NOISE_KERNEL)),
         kernel_entry(fm.SWAPPED_KERNEL, src + "fused_scaled_noise_matmul.cu",
                      "pvw_tpu/ops/pallas_modmat.py:696",
                      "_fused_scaled_noise_matmul (swapped=True, via matmul_fold_swapped)",

@@ -16,8 +16,9 @@ the JAX package on the CPU. Stream routing follows the JAX package:
 ``"kernel"``/``"v4"`` and ``"v3"`` draw v3 noise planes (v4's hardware
 PRNG exists only on a TPU), ``"v3k"`` generates v3k planes (``gen_noise``;
 the v3k kernel on a card) and draws the cbd-k r stream. Bounds above the
-signed-digit range (> 32639) add row-keyed residue noise after the fused
-matmul, and bounds >= the smallest modulus exact host-sampled noise.
+signed-digit range (> 32639) add row-keyed residue noise in the fused
+matmul's epilogue (``post=``), and bounds >= the smallest modulus exact
+host-sampled noise after it.
 """
 
 from __future__ import annotations
@@ -32,13 +33,13 @@ from ..keys.public_key import GlobalPublicKey
 from ..ops import modmat, ntt as ntt_ops, u64 as u64op
 from ..ops.fused_modmat import (encode_tab, gen_noise_planes, kernel_noise_available,
                                 matmul_fold_scaled, matmul_fold_swapped,
-                                ntt_prescale_band, pipeline_takes)
+                                ntt_prescale_band, pipeline_takes, residue_noise_ch)
 from ..ops.tfry import key_words as tfry_key_words
 from ..params.parameters import PvwParameters
 from ..poly import Poly, Representation
 from ..random import split
 from ..sampling.cbd import cbd_bound, sample_vec_cbd_rows
-from ..sampling.uniform import sample_uniform_residues_host, sample_uniform_residues_rows
+from ..sampling.uniform import sample_uniform_residues_host
 from ..utils.profiling import span
 
 
@@ -146,23 +147,25 @@ def _product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, bound: int,
     matmul, which reads its planes, or drawn inside the pipelined kernel
     where it runs, :func:`~pvw_tpu_torch.ops.fused_modmat.pipeline_takes`),
     under v4 and v3 it draws v3 planes; larger bounds run the fused matmul
-    without noise rows and add residue noise (row-keyed, stream v2) or
-    ``host_e`` after it. A 5-D ``lhs_dig`` (scaled planes) takes the
-    swapped form, :func:`matmul_fold_swapped`, with ``r_op`` the plain
-    digits of r. ``stage(name, fn)`` runs each step: "noise_gen" or
-    "noise", "kernel", then "noise_residues" and "addmod" where the noise
-    comes after."""
+    without noise rows: the residue noise (row-keyed, stream v2,
+    :func:`residue_noise_ch`, one kernel on a card) drawn first and added in
+    kernel 1's epilogue as ``post=``, or, in the swapped form (which has no
+    ``post=``) and for ``host_e``, added after it. A 5-D ``lhs_dig``
+    (scaled planes) takes the swapped form, :func:`matmul_fold_swapped`,
+    with ``r_op`` the plain digits of r. ``stage(name, fn)`` runs each step:
+    "noise_gen" or "noise", or "noise_residues", then "kernel", then
+    "addmod" where the noise is added after the product."""
     ring, l = params.ring, params.l
     d, dev = r_op.shape[-1], r_op.device
 
-    def kernel(planes, noise_bound, gen_noise=None):
+    def kernel(planes, noise_bound, gen_noise=None, post=None):
         if lhs_dig.ndim == 5:
             return stage("kernel", lambda: matmul_fold_swapped(
                 lhs_dig, r_op, ring, noise=planes, encode=encode, encode32=encode32,
                 noise_bound=noise_bound))
         return stage("kernel", lambda: matmul_fold_scaled(
             None, r_op, ring, noise=planes, encode=encode, lhs_dig=lhs_dig,
-            encode32=encode32, gen_noise=gen_noise, noise_bound=noise_bound))
+            encode32=encode32, gen_noise=gen_noise, noise_bound=noise_bound, post=post))
 
     g = None if host_e is not None else _gen_noise(kk, bound, stream, col_off, dev)
     if g is not None and lhs_dig.ndim == 4 and pipeline_takes(dev):
@@ -173,11 +176,12 @@ def _product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, bound: int,
     if host_e is None and ntt_ops.signed_digit_count(bound):
         return kernel(stage("noise", lambda: ntt_ops.noise_digit_planes(
             kk, 0, rows, d, l, bound, dev)), bound)
-    c = kernel(None, None)
     if host_e is None:
-        host_e = stage("noise_residues", lambda: ntt_ops.ntt_forward(
-            sample_uniform_residues_rows(kk, 0, rows, (d, l), bound, ring, dev),
-            ring).permute(2, 3, 0, 1))
+        host_e = stage("noise_residues",
+                       lambda: residue_noise_ch(kk, 0, rows, d, bound, ring, dev))
+        if lhs_dig.ndim == 4:
+            return kernel(None, None, post=host_e)
+    c = kernel(None, None)
     q = ring.table("q", dev).reshape(-1, 1, 1, 1)
     return stage("addmod", lambda: u64op.addmod(c, host_e, q))
 

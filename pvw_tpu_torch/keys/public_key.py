@@ -21,12 +21,12 @@ import numpy as np
 import torch
 
 from ..errors import DimensionMismatch, InvalidParameters
-from ..ops import modmat, ntt as ntt_ops, u64
-from ..ops.fused_modmat import matmul_fold_scaled
+from ..ops import modmat, ntt as ntt_ops
+from ..ops.fused_modmat import matmul_fold_scaled, residue_noise_ch
 from ..params.crs import PvwCrs
 from ..params.parameters import PvwParameters
 from ..poly import Poly, Representation
-from ..sampling.uniform import sample_uniform_residues_host, sample_uniform_residues_rows
+from ..sampling.uniform import sample_uniform_residues_host
 from .secret_key import SecretKey
 
 
@@ -37,7 +37,8 @@ def _batch_keygen_kernel(params: PvwParameters, a_res, coeffs, key,
     [row_offset, row_offset + p); a_res: A [k, k, L, l] (NTT). Returns
     [p, k, L, l]. e1 rows are keyed by global party index (stream v2), so
     any chunking gives the same values: signed digit planes in the fused
-    matmul for bounds <= 32639, else residue noise added after it.
+    matmul for bounds <= 32639, else residue noise added in its epilogue
+    (``post=``).
     ``key`` None gives sᵀA alone (the host keygen path adds its noise)."""
     ring = params.ring
     p, k, l = coeffs.shape
@@ -49,13 +50,12 @@ def _batch_keygen_kernel(params: PvwParameters, a_res, coeffs, key,
                                     ring).permute(2, 3, 0, 1)
     a_scaled = modmat.prescale_digits_band(a_res.permute(2, 3, 0, 1), ring)
     b1 = params.error_bound_1
-    noise = None if key is None else ntt_ops.noise_digit_planes(key, row_offset, p, k, l,
-                                                                b1, dev)
-    out = matmul_fold_scaled(sk_ch, a_scaled, ring, noise=noise, noise_bound=b1)
-    if noise is None and key is not None:
-        e1 = sample_uniform_residues_rows(key, row_offset, p, (k, l), b1, ring, dev)
-        out = u64.addmod(out, ntt_ops.ntt_forward(e1, ring).permute(2, 3, 0, 1),
-                         ring.table("q", dev).reshape(-1, 1, 1, 1))
+    noise = post = None
+    if key is not None and ntt_ops.signed_digit_count(b1):
+        noise = ntt_ops.noise_digit_planes(key, row_offset, p, k, l, b1, dev)
+    elif key is not None:
+        post = residue_noise_ch(key, row_offset, p, k, b1, ring, dev)
+    out = matmul_fold_scaled(sk_ch, a_scaled, ring, noise=noise, noise_bound=b1, post=post)
     return out.permute(2, 3, 0, 1)                      # [p, k, L, l]
 
 

@@ -22,6 +22,12 @@ once per product ahead of the fused matmul, which reads the planes as its
 noise input; its plain twin is :func:`~pvw_tpu_torch.ops.tfry.
 v3k_noise_digit_planes`.
 
+:func:`residue_noise_ch` draws the noise of a product whose bound has no
+signed digits (row-keyed "stream v2" residues and their forward NTT,
+which the JAX package leaves to XLA) in the layout of kernel 1's ``post=``:
+on a card one kernel (``csrc/residue_noise.cu``), on the CPU its plain twin
+:func:`residue_noise_ch_plain`.
+
 :func:`ntt_prescale_band` is the counterpart of
 ``pvw_tpu.ops.pallas_modmat.ntt_prescale_band``: small signed coefficients
 -> signed NTT -> scaled-digit band in one pass, the r-stage of encryption
@@ -82,12 +88,13 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from ..errors import SamplingError
 from . import u64 as u
 from ._build import load
 from .modmat import (_column_sums, _fold_leading, digits, exact_int_matmul, k_rows, k_rows_ok,
                      matmul_channels, operand_strides, prescale_digits_band, scaled_cols)
-from .ntt import ntt_forward_signed_ch, signed_digit_count
-from .tfry import reduce96, v3k_noise_digit_planes
+from .ntt import ntt_forward, ntt_forward_signed_ch, signed_digit_count
+from .tfry import key_words, reduce96, v3k_noise_digit_planes
 
 if TYPE_CHECKING:
     from ..params.ring import RingPlan
@@ -101,6 +108,8 @@ DIGITS_KERNEL = "digit_planes"                           # kernel 2's operand la
 BANDED_TABLE_WIDTH = 10
 PIPELINED_KERNEL = "fused_pipelined_matmul"
 NOISE_KERNEL = "v3k_noise_planes"
+RESIDUE_NOISE_KERNEL = "residue_noise"
+RESIDUE_NOISE_DEGREES = (8, 16, 32, 64)
 TABLE_WIDTH = 8
 PRESCALE_KERNEL = "ntt_prescale_band"
 PRESCALE_TABLE_WIDTH = 22
@@ -614,6 +623,79 @@ def pipeline_takes(device, bare: bool = False, masked: bool = False,
 
 
 # --------------------------------------------------------------------------
+# stream-v2 residue noise (bounds above the signed-digit range)
+# --------------------------------------------------------------------------
+
+def _residue_noise_fn():
+    fn = load(RESIDUE_NOISE_KERNEL).pvw_residue_noise
+    fn.argtypes = [ctypes.c_uint32] * 3 + [ctypes.c_int] * 4 + [ctypes.c_uint64] \
+        + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _residue_noise_tables(ring: "RingPlan", device):
+    """The forward NTT's twiddles with their Shoup companions, int64
+    [L, l, l, 2]: entry (i, j, t) = (psi_i^(t*(2j+1)) mod q_i,
+    floor(that * 2^64 / q_i)), cached per (ring, device)."""
+    def make(dev):
+        tw = np.stack([np.stack([lp.ntt_fwd, np.array(
+            [[(int(w) << 64) // lp.q for w in row] for row in lp.ntt_fwd], np.uint64)], -1)
+            for lp in ring.limbs])
+        return u.u64_tensor(tw, dev)
+
+    return ring.cached(("residue_noise_tables",), device, make)
+
+
+def residue_noise_ch_plain(kk, row_off: int, rows: int, cols: int, bound: int,
+                           ring: "RingPlan", device="cpu"):
+    """Plain PyTorch version of :func:`residue_noise_ch`: the row-keyed
+    residues of :func:`~pvw_tpu_torch.sampling.uniform.
+    sample_uniform_residues_rows`, their forward NTT, channel-major."""
+    from ..sampling.uniform import sample_uniform_residues_rows
+
+    e = sample_uniform_residues_rows(kk, row_off, rows, (cols, ring.degree), bound, ring,
+                                     device)
+    return ntt_forward(e, ring).permute(2, 3, 0, 1)
+
+
+def residue_noise_ch(kk, row_off: int, rows: int, cols: int, bound: int, ring: "RingPlan",
+                     device="cuda"):
+    """Row-keyed uniform noise in [-bound, bound] ("stream v2", row i from
+    ``fold_in(kk, row_off + i)``) as NTT residues, channel-major int64
+    [L, l, rows, cols]: the noise of a product whose bound has no signed
+    digits, in the layout of kernel 1's ``post=``. Requires 0 < bound <
+    min(q_i). A CUDA device launches ``csrc/residue_noise.cu`` on the
+    current stream (counted in ``residue_noise_ch.launches``; ring degrees
+    :data:`RESIDUE_NOISE_DEGREES`); the CPU takes the plain twin
+    :func:`residue_noise_ch_plain`; anything else raises."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return residue_noise_ch_plain(kk, row_off, rows, cols, bound, ring, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"residue_noise_ch: unsupported device {dev}")
+    bound = int(bound)
+    if not 0 < bound < min(ring.moduli):
+        raise SamplingError(f"residue noise needs 0 < bound < min(q_i), got {bound}")
+    L, l = ring.num_limbs, ring.degree
+    if l not in RESIDUE_NOISE_DEGREES:
+        raise ValueError(f"residue_noise_ch: the kernel takes ring degrees "
+                         f"{RESIDUE_NOISE_DEGREES}, got {l}")
+    out = torch.empty((L, l, rows, cols), dtype=torch.int64, device=dev)
+    if not out.numel():
+        return out
+    k0, k1 = key_words(kk)
+    _launch(RESIDUE_NOISE_KERNEL, _residue_noise_fn(), dev, k0 & u.M32, k1 & u.M32,
+            int(row_off) & u.M32, rows, cols, l, L, bound, _ptr(ring.table("q", dev)),
+            _ptr(_residue_noise_tables(ring, dev)), _ptr(out))
+    residue_noise_ch.launches += 1
+    return out
+
+
+residue_noise_ch.launches = 0
+
+
+# --------------------------------------------------------------------------
 # the public wrappers
 # --------------------------------------------------------------------------
 
@@ -1090,6 +1172,7 @@ def launch_counters() -> dict:
             SWAPPED_KERNEL: (fused_scaled_noise_matmul_swapped, "launches"),
             PIPELINED_KERNEL: (fused_pipelined_matmul, "launches"),
             NOISE_KERNEL: (v3k_noise_planes, "launches"),
+            RESIDUE_NOISE_KERNEL: (residue_noise_ch, "launches"),
             PRESCALE_KERNEL: (ntt_prescale_band, "launches"),
             BANDED_KERNEL: (banded_matmul, "launches"),
             DIGITS_KERNEL: (digit_planes_kpacked, "launches")}

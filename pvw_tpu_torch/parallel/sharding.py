@@ -43,12 +43,12 @@ from ..errors import InvalidParameters
 from ..keys.public_key import GlobalPublicKey
 from ..ops import modmat, ntt as ntt_ops, tfry, u64 as u64op
 from ..ops.fused_modmat import (encode_tab, kernel_noise_available, matmul_fold_scaled,
-                                ntt_prescale_band)
+                                ntt_prescale_band, residue_noise_ch)
 from ..params.parameters import PvwParameters
 from ..poly import Poly, Representation
 from ..random import split
 from ..sampling.cbd import cbd_bound, sample_vec_cbd_rows
-from ..sampling.uniform import sample_uniform_residues_rows, sample_uniform_signed_rows
+from ..sampling.uniform import sample_uniform_signed_rows
 
 
 class Mesh:
@@ -123,8 +123,8 @@ def _noise_ntt(params: PvwParameters, kk, row_off: int, rows: int, d: int, bound
                stream: str | None, device):
     """Row-keyed noise of global rows [row_off, row_off + rows) as NTT
     residues, channel-major [L, l, rows, d]: the values the single-device
-    draw places there (v3k values, v3 signed rows, or residue rows for
-    bounds above the signed-digit range)."""
+    draw places there (v3k values, v3 signed rows, or
+    :func:`residue_noise_ch` for bounds above the signed-digit range)."""
     ring, l = params.ring, params.l
     if ntt_ops.signed_digit_count(bound):
         if stream == "v3k":
@@ -133,8 +133,7 @@ def _noise_ntt(params: PvwParameters, kk, row_off: int, rows: int, d: int, bound
         else:
             ec = sample_uniform_signed_rows(kk, row_off, rows, (d, l), bound, device)
         return ntt_ops.ntt_forward_signed_ch(ec, ring, bound)
-    e = sample_uniform_residues_rows(kk, row_off, rows, (d, l), bound, ring, device)
-    return ntt_ops.ntt_forward(e, ring).permute(2, 3, 0, 1)
+    return residue_noise_ch(kk, row_off, rows, d, bound, ring, device)
 
 
 def _bake_rows(part, block, row0: int, rows: int, ring):

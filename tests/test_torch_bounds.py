@@ -17,6 +17,7 @@ import torch
 
 import pvw_tpu as J
 from pvw_tpu.config import settings as jsettings
+from pvw_tpu.ops import ntt as jntt
 from pvw_tpu.params import presets as jpresets
 from pvw_tpu.params.ring import RingPlan as JRing
 from pvw_tpu.sampling import uniform as juni
@@ -24,6 +25,8 @@ import pvw_tpu_torch as P
 from pvw_tpu_torch import convert
 from pvw_tpu_torch.config import settings as tsettings
 from pvw_tpu_torch.errors import InvalidParameters
+from pvw_tpu_torch.ops import fused_modmat as tfm, ntt as tntt
+from pvw_tpu_torch.params import presets as tpresets
 from pvw_tpu_torch.params.ring import RingPlan as TRing
 from pvw_tpu_torch.sampling import uniform as tuni
 
@@ -47,6 +50,29 @@ def test_residue_rows_sampler_equals_jax(bound):
     got = tuni.sample_uniform_residues_rows(kw(jkey), 3, 4, (5, 8), bound, TRing(TOY, 8),
                                             device="cpu")
     np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
+
+
+@pytest.mark.parametrize("moduli,bound,row_off", [
+    (tpresets.MODULI_55BIT4, 1172385, 0), (TOY, 40000, (1 << 31) - 2),
+    (TOY, (1 << 31) + 5, 7)])
+def test_residue_noise_entry_equals_the_composition_and_jax(moduli, bound, row_off):
+    """``residue_noise_ch`` on the CPU, channel-major [L, l, rows, cols]: the
+    rows sampler and the forward NTT it replaces on every caller, and the
+    JAX package's residue rows through its forward NTT (96-bit draws at c2's
+    bound of the reference preset, 128-bit above a range of 2^30, rows past
+    2^31, which JAX's int32 counters wrap)."""
+    jkey = jax.random.key(23)
+    got = tfm.residue_noise_ch(kw(jkey), row_off, 4, 6, bound, TRing(moduli, 8), "cpu")
+    assert got.shape == (len(moduli), 8, 4, 6)
+    old = tntt.ntt_forward(tuni.sample_uniform_residues_rows(
+        kw(jkey), row_off, 4, (6, 8), bound, TRing(moduli, 8), device="cpu"),
+        TRing(moduli, 8)).permute(2, 3, 0, 1)
+    assert torch.equal(got, old)
+    jring = JRing(moduli, 8)
+    want = residues(jntt.ntt_forward(juni.sample_uniform_residues_rows(
+        jkey, row_off, 4, (6, 8), bound, jring), jring))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  np.moveaxis(want, (0, 1), (2, 3)))
 
 
 @pytest.mark.parametrize("bound", [1 << 40, (1 << 70) + 3])

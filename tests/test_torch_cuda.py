@@ -16,6 +16,7 @@ import torch
 
 from pvw_tpu_torch.ops import fused_modmat as fm
 from pvw_tpu_torch.ops import modmat, ntt, u64
+from pvw_tpu_torch.params.presets import MODULI_55BIT4   # the reference's 128-bit chain
 from pvw_tpu_torch.params.ring import RingPlan
 from pvw_tpu_torch.utils.intmath import generate_ntt_primes
 
@@ -272,6 +273,90 @@ def test_v3k_generator_equals_plain_twin(cuda_device, l, bound, rows, cols, row_
     torch.cuda.synchronize()
     assert fm.v3k_noise_planes.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,l,bound,rows,cols,row_off", [
+    (MODULI_55BIT4, 8, 1172385, 70, 130, 0),         # the reference's c2: 96-bit draws
+    (TOY, 8, (1 << 31) + 5, 33, 257, 5),              # 128-bit draws
+    (BIG, 8, 40000, 9, 300, (1 << 32) - 2),           # row counters that wrap mod 2^32
+    (MODULI_55BIT4, 8, 1172385, 5, 1024, 3),          # keygen's (parties, k) call
+    (CHAIN_61X17, 16, 1 << 40, 17, 129, 1000),        # a shard's rows at l = 16
+    (CHAIN_61X2_L64, 32, 50000, 3, 65, 0), (CHAIN_61X2_L64, 64, 1 << 50, 2, 40, 7)])
+def test_residue_noise_kernel_equals_plain_twin(cuda_device, moduli, l, bound, rows, cols,
+                                                row_off):
+    """The residue-noise generator against its twin, every residue: both
+    draw widths, row offsets as the shards and keygen's party chunks give
+    them, columns off its 128-column block, every ring degree it takes."""
+    from pvw_tpu_torch import random as R
+
+    ring = RingPlan(moduli, l)
+    kk = R.fold_in(R.key(31), 2)
+    want = fm.residue_noise_ch(kk, row_off, rows, cols, bound, ring, "cpu")
+    before = fm.residue_noise_ch.launches
+    got = fm.residue_noise_ch(kk, row_off, rows, cols, bound, ring, cuda_device)
+    torch.cuda.synchronize()
+    assert fm.residue_noise_ch.launches == before + 1
+    assert got.shape == (ring.num_limbs, l, rows, cols) and got.is_contiguous()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_residue_noise_refuses_what_it_lacks(cuda_device):
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.errors import SamplingError
+
+    kk = R.key(3)
+    for bound in (0, min(TOY)):
+        with pytest.raises(SamplingError):
+            fm.residue_noise_ch(kk, 0, 2, 2, bound, RingPlan(TOY, 8), cuda_device)
+    with pytest.raises(ValueError, match="ring degrees"):
+        fm.residue_noise_ch(kk, 0, 2, 2, 40000, RingPlan(generate_ntt_primes(40, 1, 128), 128),
+                            cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moduli,bounds", [(MODULI_55BIT4, (1, 1172385)),
+                                           (TOY, (40000, 50000))])
+def test_residue_bounds_on_the_card_pass_the_noise_as_post(cuda_device, moduli, bounds):
+    """Bounds above the signed-digit range on the card: keygen and each such
+    product draw their noise with one generator launch and hand it to
+    kernel 1 as ``post=``, with no addmod after; keys and ciphertexts equal
+    the CPU's, under both streams."""
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+
+    params = P.PvwParameters(5, 16, 8, moduli, 10.0, *bounds)
+    sc = np.array([[1, 2, 1 << 63, 4, 5], [0, 7, 8, 9, 1 << 40]], np.uint64)
+    residue = sum(1 for b in bounds if b > 32639)
+    for stream in ("kernel", "v3k"):
+        settings.noise_stream = stream
+        try:
+            out = {}
+            for dev in ("cpu", cuda_device):
+                key = R.key(17)
+                crs = P.PvwCrs.new(params, R.fold_in(key, 1), device=dev)
+                parties = [P.Party.new(i, params, R.fold_in(key, 10 + i), device=dev)
+                           for i in range(5)]
+                gpk = P.GlobalPublicKey(crs)
+                before = fm.residue_noise_ch.launches
+                gpk.generate_all_party_keys(parties, R.fold_in(key, 2))
+                keygen = fm.residue_noise_ch.launches - before
+                before = (fm.residue_noise_ch.launches, fm.fused_scaled_noise_matmul.launches,
+                          fm.fused_scaled_noise_matmul.bare_launches)
+                ct = P.encrypt_batch(sc, gpk, R.fold_in(key, 3))
+                after = (fm.residue_noise_ch.launches, fm.fused_scaled_noise_matmul.launches,
+                         fm.fused_scaled_noise_matmul.bare_launches)
+                if dev != "cpu":
+                    assert keygen == (1 if bounds[0] > 32639 else 0)
+                    assert [a - b for a, b in zip(after, before)] == [residue, 2, 0]
+                out[str(dev)] = (gpk.matrix.residues_np(), ct.c1.residues_np(),
+                                 ct.c2.residues_np())
+        finally:
+            del settings.noise_stream
+        for a, b in zip(out["cpu"], out[str(cuda_device)]):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda
@@ -974,8 +1059,9 @@ def test_wgmma_pipelined_edges_equal_plain_twin(cuda_device, nd, m, kd, n, noise
 @pytest.mark.cuda
 def test_wgmma_kernels_on_another_card(cuda_device):
     """The tensor maps are encoded and the kernels launched with the
-    operands' card current: kernels 1 (banded, swapped), 3 and 2 on
-    cuda:1."""
+    operands' card current: kernels 1 (banded, swapped, and fed ``post=`` by
+    the residue-noise generator), 3 and 2 on cuda:1."""
+    from pvw_tpu_torch import random as R
     from pvw_tpu_torch.config import settings
 
     if torch.cuda.device_count() < 2:
@@ -996,9 +1082,15 @@ def test_wgmma_kernels_on_another_card(cuda_device):
     finally:
         del settings.pipeline_fold
     banded = fm.matmul_fold_auto(a, b, ring)
+    post = fm.residue_noise_ch(R.key(8), 3, 65, 100, 1172385, ring, dev)
+    with_post = fm.matmul_fold_scaled(None, band, ring, encode=enc, lhs_dig=lhs_dig, post=post)
     torch.cuda.synchronize(dev)
     assert all(g.device == dev and torch.equal(g, want) for g in got)
     assert banded.device == dev and torch.equal(banded, modmat.matmul_channels(a, b, ring))
+    assert post.device == dev and torch.equal(
+        post.cpu(), fm.residue_noise_ch(R.key(8), 3, 65, 100, 1172385, ring, "cpu"))
+    assert with_post.device == dev and torch.equal(with_post, fm.matmul_fold_scaled_plain(
+        None, band, ring, encode=enc, lhs_dig=lhs_dig, post=post))
 
 
 # --------------------------------------------------------------------------
