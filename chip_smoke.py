@@ -9,8 +9,9 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 Phases, one JSON line each; any failure raises and exits non-zero. Every
 dealer path is ``phase_dealer_path`` (CRS, batch keygen or an earlier path's keys,
 the encryption operands, n dealers' shares in one batch, decryption with
-every sampled share exact, decoded on the card by the plain-torch device
-decode, one batch a decryption (``device_decode.decode_residues.calls``;
+every sampled share exact, decoded on the card by the device decode's
+kernel, one launch a decryption (``device_decode.decode_residues.calls``
+and ``.launches``;
 a single message decrypts in the C++ host engine, ``engine_calls.host``),
 and one party's shares decoded again by the Python decode and held
 equal), with the kernels' launch counts set to 0 just
@@ -61,13 +62,17 @@ to ``torch._int_mm``.
    decryption of the 921 dealers whose index is not a multiple of 10 at
    threshold 683 for four parties, the abort one dealer below it, full
    decryption for two; then deep_breakdown;
-9a. decode_vs_python: the device decode on the card against the Python
-   decode ``decode_scalar_pvw_rns``, every message of a full batch (the CPU
-   tests' edge rows, noisy encodings of random u64 messages, uniform
-   residues) at the toy chain (4096), config 4 (1024, a 65-bit Δ) and the
-   reference preset (1024); both timed per message, the device decode also
-   at a quarter of the batch, its aten op count and one decode under
-   ``torch.profiler``;
+9a. decode_vs_python: the device decode on the card (its kernel,
+   ``csrc/pvw_decode.cu``) against the Python decode
+   ``decode_scalar_pvw_rns`` and against its plain twin
+   ``decode_residues_plain`` on the same card tensor, every message of a
+   full batch (the CPU tests' edge rows, noisy encodings of random u64
+   messages, uniform residues) at the toy chain (4096), config 4 (1024, a
+   65-bit Δ) and the reference preset (1024); all three timed per message,
+   the device decode also at a quarter of the batch, its aten op count and
+   one decode under ``torch.profiler``; decode_timing: the kernel at both
+   threshold cells' batches (921 messages of config 4 and of the
+   reference), through its wrapper and raw, beside its bound and twin;
 10. v3k_vs_plain: the v3k noise generator against its twin, every byte, at
     the toy, config-4 and reference c1/c2 shapes (l = 8, 16, 32; jr = 1
     and 2; offsets; widths off its column tile); kernel 1 with ``gen_noise``
@@ -354,8 +359,15 @@ from pvw_tpu_torch.ops.fused_modmat import BARE_KERNEL as BARE  # noqa: E402
 # into kernels 1 and 3: none on a path
 RELAYOUTS = "band_relayouts"
 ROW_RELAYOUTS = "row_relayouts"
-# batches decoded on the residues' device (crypto/device_decode.py, plain torch)
+# batches decoded on the residues' device (crypto/device_decode.py, its kernel
+# csrc/pvw_decode.cu on a card: one launch a batch, counted in the registry)
+from pvw_tpu_torch.crypto.device_decode import KERNEL as DECODE_KERNEL  # noqa: E402
 DECODES = "decode_residues"
+# the IMAD rate that fold_roofline measures on an H100 80GB HBM3 at 700 W:
+# the device decode's bound (its work is 32 x 32 -> 64-bit multiply-adds)
+IMAD_PER_S = 1.598e13
+# the threshold cells' batch: one party's shares of 921 valid dealers
+THRESHOLD_BATCH = 921
 # batches of the other decode engines (crypto/decryption.engine_calls): the
 # whole decryption in the C++ engine, the C++ decode of device residues, the
 # Python decode
@@ -695,21 +707,24 @@ def edge_residues(params, d: int, seed: int) -> np.ndarray:
     return res
 
 
-def phase_decode_vs_python(dev, card: str, configs: dict) -> dict:
-    """The device decode (``decode_residues``, plain torch on the card)
-    against the Python decode ``decode_scalar_pvw_rns`` on every message of
-    a full batch at each of ``configs`` (label -> (params, d)):
+def phase_decode_vs_python(dev, card: str, configs: dict) -> tuple[int, dict]:
+    """The device decode (``decode_residues``: its kernel on the card)
+    against the Python decode ``decode_scalar_pvw_rns`` and against its
+    plain twin ``decode_residues_plain`` on the same card tensor, on every
+    message of a full batch at each of ``configs`` (label -> (params, d)):
     :func:`edge_residues`. Then its host-clocked ms (median of 3, the
-    decode and the fetch of the messages) beside the Python decode's, per
-    message, at d and d/4 (flat in d when launch-bound), its aten op count
-    and one decode under ``torch.profiler`` (the card's busy ms and idle
-    share). Any mismatch fails the run."""
+    decode and the fetch of the messages) beside the twin's and the Python
+    decode's, per message, at d and d/4, its aten op count and one decode
+    under ``torch.profiler`` (the card's busy ms and idle share); then
+    :func:`decode_timing`. Any mismatch fails the run. Returns the kernel's
+    mismatches with its twin (0) and the timings."""
     import torch
 
     from pvw_tpu_torch.crypto import decryption, device_decode
     from pvw_tpu_torch.ops import u64
+    from pvw_tpu_torch.params import presets
 
-    out = {}
+    worst = 0
     for seed, (label, (params, d)) in enumerate(configs.items()):
         res = edge_residues(params, d, seed)
         z = u64.u64_tensor(res, dev)
@@ -718,16 +733,27 @@ def phase_decode_vs_python(dev, card: str, configs: dict) -> dict:
         def decode(rows=z):
             return u64.u64_numpy(device_decode.decode_residues(plan, rows))
 
+        def plain(rows=z):
+            return u64.u64_numpy(device_decode.decode_residues_plain(plan, rows))
+
+        launched = device_decode.decode_residues.launches
         got = [int(v) for v in decode()]
+        check(device_decode.decode_residues.launches == launched + 1,
+              f"decode_vs_python: {label}'s decode did not launch its kernel once")
+        twin = [int(v) for v in plain()]
         times = {}
         want = timed(times, "python_ms", lambda: [decryption.decode_scalar_pvw_rns(r, params)
                                                   for r in res])
         mismatches = [i for i in range(d) if got[i] != want[i]]
+        twin_mismatches = [i for i in range(d) if got[i] != twin[i]]
+        worst = max(worst, len(twin_mismatches))
         runs = {}
-        for name, rows in (("device_ms", z), ("device_quarter_ms", z[:d // 4])):
+        for name, fn, rows in (("device_ms", decode, z), ("device_quarter_ms", decode,
+                                                          z[:d // 4]),
+                               ("plain_ms", plain, z)):
             runs[name] = []
             for _ in range(3):
-                timed(times, name, lambda: decode(rows))
+                timed(times, name, lambda: fn(rows))
                 runs[name].append(times[name])
         prof = profiled(decode)
         rec = {"phase": "decode_vs_python", "config": label, "card": card, "dealers": d,
@@ -735,19 +761,111 @@ def phase_decode_vs_python(dev, card: str, configs: dict) -> dict:
                "delta_bits": params.delta().bit_length(), "words": plan.W,
                "compared": "every message", "mismatches": len(mismatches),
                "first_mismatch": mismatches[0] if mismatches else None,
+               "plain_twin_mismatches": len(twin_mismatches),
                "device_ms": statistics.median(runs["device_ms"]),
                "device_ms_runs": runs["device_ms"],
                "device_quarter_ms": statistics.median(runs["device_quarter_ms"]),
+               "plain_ms": statistics.median(runs["plain_ms"]),
                "python_ms": times["python_ms"], "ops": op_count(decode),
                "profile": prof}
         rec["device_ms_per_message"] = rec["device_ms"] / d
+        rec["plain_ms_per_message"] = rec["plain_ms"] / d
         rec["python_ms_per_message"] = rec["python_ms"] / d
         rec["quarter_over_full"] = rec["device_quarter_ms"] / rec["device_ms"]
-        out[label] = rec
         emit(rec)
         check(not mismatches, f"decode_vs_python: the device decode differs from the Python "
                               f"decode at {label}, message {rec['first_mismatch']}")
+        check(not twin_mismatches, f"decode_vs_python: the decode kernel differs from its "
+                                   f"plain twin at {label}, message {twin_mismatches[:1]}")
         del z
+        torch.cuda.empty_cache()
+    timing = decode_timing(dev, card, {
+        "config 4": presets.threshold_256bit(DEEP_N),
+        "reference": presets.secure_128_reference(REF_N)})
+    return worst, timing
+
+
+def decode_madds(plan, d: int) -> int:
+    """32 x 32 -> 64-bit multiply-adds of the decode of d messages (each an
+    IMAD; a native 64-bit Shoup product counts 10: the high word of a 64 x
+    64 product 4, two low products 3 each; a 32-bit one 5): per message the
+    l + 1 lifts (a Shoup product a limb, 2 L NWq column terms), the
+    remainder mod Δ^(l-1) (fw nR terms of N R, nq nD of t D), the l - 1
+    rounding divisions by 2Δ, the l - 1 words-to-RNS conversions (a 32-bit
+    Shoup product a word and limb) and the 3l - 4 RNS steps of the chain
+    (a Shoup product a limb)."""
+    L, ell, _, nwq, m_fw, m_nr, m_nd, m_nq, v_fw, v_nr, v_nd, v_nq = plan.kernel_dims()
+    per = ((ell + 1) * (10 * L + 2 * L * nwq) + m_fw * m_nr + m_nq * m_nd
+           + (ell - 1) * (v_fw * v_nr + v_nq * v_nd) + 5 * L * (m_nd + (ell - 2) * v_nq)
+           + 10 * L * (3 * ell - 4))
+    return d * per
+
+
+def decode_timing(dev, card: str, configs: dict) -> dict:
+    """The decode kernel at each of ``configs`` (label -> params) on a
+    threshold cell's batch (:data:`THRESHOLD_BATCH` messages of
+    :func:`edge_residues`): through its wrapper (CUDA events, median of 5
+    with the spread), and without it: its C entry and the wrapper, each 20
+    launches back to back between two events, interleaved in 5 rounds (the
+    raw launch's messages held equal to the wrapper's), the host time of a
+    call of each; beside its plain twin (median of 3) and its bound, the
+    multiply-adds of :func:`decode_madds` at :data:`IMAD_PER_S` or the
+    residues read and the messages written once at ``HBM_BYTES_PER_S``,
+    whichever is longer. No PyTorch call decodes: no library time."""
+    import ctypes
+
+    import torch
+
+    from pvw_tpu_torch.crypto import device_decode
+    from pvw_tpu_torch.ops import _build, fused_modmat as fm, u64
+
+    fn = device_decode._decode_fn()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    out = {}
+    for seed, (label, params) in enumerate(configs.items()):
+        d = THRESHOLD_BATCH
+        plan = device_decode.get_plan(params)
+        z = u64.u64_tensor(edge_residues(params, d, 40 + seed), dev)
+        msgs = device_decode.decode_residues(plan, z)
+        tab = plan.kernel_tables(dev)
+        dims = (ctypes.c_int * 12)(*plan.kernel_dims())
+        raw_out = torch.empty_like(msgs)
+        raw_args = (fm._ptr(z), d, dims, fm._ptr(tab), tab.numel(), fm._ptr(raw_out), stream)
+
+        def raw():
+            check(fn(*raw_args) == 0, "the decode kernel's raw launch failed")
+
+        def wrapper():
+            device_decode.decode_residues(plan, z)
+
+        wrapped = kernel_times(wrapper)
+        plain_ms = cuda_ms(lambda: device_decode.decode_residues_plain(plan, z), reps=3)
+        back_to_back = interleaved_times({"wrapper": wrapper, "raw": raw}, rounds=5, inner=20)
+        check(torch.equal(raw_out, msgs),
+              f"the decode kernel's raw launch differs from its wrapper at {label}")
+        check(torch.equal(msgs, device_decode.decode_residues_plain(plan, z)),
+              f"the decode kernel differs from its plain twin at {label}'s timing batch")
+        host_us = host_us_a_call({"wrapper": wrapper, "raw": raw})
+        madds = decode_madds(plan, d)
+        nbytes = 8 * d * (plan.L * plan.ell + 1)
+        ops_ms, bytes_ms = madds / IMAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {"phase": "decode_timing", "kernel": DECODE_KERNEL,
+               "shape": f"{label} d={d} L={plan.L} l={plan.ell} W={plan.W}", "card": card,
+               "compared": "every message", **wrapped, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "madds": madds, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+               "raw_ms": back_to_back["raw"]["ms"],
+               "raw_ms_spread": back_to_back["raw"]["ms_spread"],
+               "wrapper_back_to_back_ms": back_to_back["wrapper"]["ms"],
+               "wrapper_back_to_back_ms_spread": back_to_back["wrapper"]["ms_spread"],
+               "wrapper_host_us": host_us["wrapper"], "raw_host_us": host_us["raw"],
+               "ptxas": _build.ptxas_report(DECODE_KERNEL)}
+        rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+        rec["x_bound_raw"] = rec["raw_ms"] / rec["bound_ms"]
+        out[label] = rec
+        emit(rec)
+        del z, msgs, raw_out
         torch.cuda.empty_cache()
     return out
 
@@ -1671,6 +1789,9 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
     check(wrap_ok, f"the >= 2^63 scalars did not decode with `as i64` semantics ({phase})")
     check(counts[DECODES] == decryptions, f"{counts[DECODES]} device decodes for "
                                           f"{decryptions} decryptions in {phase}")
+    check(counts[DECODE_KERNEL] == counts[DECODES],
+          f"the decode kernel launched {counts[DECODE_KERNEL]} times for {counts[DECODES]} "
+          f"device decodes in {phase}")
     check(counts[HOST_DECRYPTS] == host_wrap, f"{counts[HOST_DECRYPTS]} host decryptions for "
                                               f"{host_wrap} single messages in {phase}")
     check(counts[NATIVE_DECODES] == counts[PYTHON_DECODES] == 0,
@@ -2137,7 +2258,7 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
             del whole
             reset_launches()
             got = {i: timed(t, f"decrypt_party_{i}_ms", lambda: decrypt(ct, i)) for i in parties}
-            decoded = launches()[DECODES]
+            decoded, decode_launches = (launches()[k] for k in (DECODES, DECODE_KERNEL))
             exact = all(got[i] == [int(v) for v in shares[:, i]] for i in parties)
             python_equal = all(got[i] == single[i] for i in parties)
             out[name] = {"phase": name, "card": card, "devices": [str(d) for d in devices],
@@ -2160,6 +2281,9 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
             check(decoded == decodes * len(parties),
                   f"{name}: {decoded} device decodes for {len(parties)} decryptions "
                   f"({decodes} each)")
+            check(decode_launches == decoded,
+                  f"{name}: the decode kernel launched {decode_launches} times for {decoded} "
+                  f"device decodes")
             check(ran[fm.MASKED_KERNEL] == masked,
                   f"{name}: the masked form launched {ran[fm.MASKED_KERNEL]} times, not {masked}")
             check(ran[RELAYOUTS] == 0, f"{name}: {ran[RELAYOUTS]} bands relaid to k-packed")
@@ -2891,6 +3015,9 @@ def phase_multiprocess(card: str, devices=None) -> tuple[dict, dict]:
                   f"rank {r['rank']} (recv row 0): kernel 1 masked or the generator never ran")
         check(r["decodes"] == (1 if head else 0),
               f"rank {r['rank']}: {r['decodes']} device decodes")
+        check(ran[DECODE_KERNEL] == r["decodes"],
+              f"rank {r['rank']}: the decode kernel launched {ran[DECODE_KERNEL]} times for "
+              f"{r['decodes']} device decodes")
         for name, count in ran.items():
             total[name] += count
         total[DECODES] += r["decodes"]
@@ -3156,7 +3283,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL,
                       fm.BANDED_KERNEL, fm.DIGITS_KERNEL, fm.FOLD_ONLY_KERNEL,
-                      fm.INT32_PEAK_KERNEL, fm.DOT_KERNEL, fm.RESIDUE_NOISE_KERNEL])
+                      fm.INT32_PEAK_KERNEL, fm.DOT_KERNEL, fm.RESIDUE_NOISE_KERNEL,
+                      DECODE_KERNEL])
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native_decode._lib()
@@ -3197,7 +3325,7 @@ def main() -> int:
     deep_keys = (ctx["gpk"], ctx["coeffs"])
     del ctx
     torch.cuda.empty_cache()
-    phase_decode_vs_python(dev, card, {
+    decode_worst, decode_timed = phase_decode_vs_python(dev, card, {
         "toy chain": (presets.pvss_8192(N_RECEIVERS), N_RECEIVERS),
         "config 4": (deep, DEEP_N),
         "reference": (presets.secure_128_reference(REF_N), REF_N)})
@@ -3296,6 +3424,13 @@ def main() -> int:
                      raw_ms=residue_timing["reference c2"]["raw_ms"],
                      wrapper_host_us=residue_timing["reference c2"]["wrapper_host_us"],
                      ptxas=_build.ptxas_report(fm.RESIDUE_NOISE_KERNEL)),
+        kernel_entry(DECODE_KERNEL, src + "pvw_decode.cu",
+                     "none: XLA code (pvw_tpu/crypto/device_decode.py, two lax.scan loops)",
+                     "decode_residues (new)", by_path[DECODE_KERNEL], decode_worst,
+                     decode_timed["reference"], decode_timed["config 4"], card,
+                     raw_ms=decode_timed["reference"]["raw_ms"],
+                     wrapper_host_us=decode_timed["reference"]["wrapper_host_us"],
+                     ptxas=_build.ptxas_report(DECODE_KERNEL)),
         kernel_entry(fm.SWAPPED_KERNEL, src + "fused_scaled_noise_matmul.cu",
                      "pvw_tpu/ops/pallas_modmat.py:696",
                      "_fused_scaled_noise_matmul (swapped=True, via matmul_fold_swapped)",

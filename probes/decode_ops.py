@@ -12,7 +12,9 @@ parameters (``presets.secure_128_reference(1024)``), both at 1024 messages,
 decodes a batch of uniform residues from a seed with
 ``crypto/device_decode.decode_residues`` and prints one JSON line each: the
 aten ops one decode dispatches (views and bare allocations left out: on a
-card, about its kernel launches; ``chip_smoke.op_count``), the most
+card, about its kernel launches, one of ``csrc/pvw_decode.cu`` and the
+output's allocation; on the CPU those of the plain twin;
+``chip_smoke.op_count``), the most
 frequent of them, and the host-clocked ms of one decode (the median of 3,
 after a first call that uploads the plan's tables). On a card it also gives
 one decode under ``torch.profiler`` (``chip_smoke.profiled``): the card's

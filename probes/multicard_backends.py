@@ -57,7 +57,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
         print(f"multicard_backends: needs {cards} CUDA card(s)", file=sys.stderr)
         return 2
-    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.RESIDUE_NOISE_KERNEL])
+    _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.RESIDUE_NOISE_KERNEL,
+                      cs.DECODE_KERNEL])
     card = cs.card_line()
     print(card, flush=True)
     devices = [torch.device("cuda", 0 if args.one_card else i) for i in range(4)]

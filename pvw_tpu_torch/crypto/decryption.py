@@ -151,7 +151,9 @@ def _decode_batch(residues: torch.Tensor, params: PvwParameters,
     counted in ``_decode_mode.python_fallbacks``."""
     mode = _decode_mode(params) if mode is None else mode
     if mode == "device":
-        out = device_decode.decode_residues(device_decode.get_plan(params), residues)
+        # the decode kernel reads the residues as laid out [d, L, l]
+        out = device_decode.decode_residues(device_decode.get_plan(params),
+                                            residues.contiguous())
         engine_calls.device += 1
         return [int(v) for v in u64op.u64_numpy(out)]
     res = u64op.u64_numpy(residues)

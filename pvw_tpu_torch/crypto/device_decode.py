@@ -23,23 +23,32 @@ centering after the Δ^(l−1) remainder, and the final clamp of
 ``decryption.rs:226-247`` (a negative value with |v| <= 1000 gives 0, so
 does a value >= 2^64). Multiword Δ is covered (config 4's Δ has 65 bits).
 
-The JAX package's ``lax.scan`` loops are Python loops over l here; torch
-runs eagerly, so there is no jitted twin. A plan's tables are built once on
-the host (:func:`get_plan`) and moved to a device once
-(:meth:`DecodePlan.tables`).
+On a CUDA tensor :func:`decode_residues` launches one kernel
+(``csrc/pvw_decode.cu``: a warp a message, the whole chain in registers),
+counted in ``decode_residues.launches``; on a CPU tensor it runs the plain
+twin :func:`decode_residues_plain`, in which the JAX package's ``lax.scan``
+loops are Python loops over l. A plan's tables are built once on the host
+(:func:`get_plan`) and moved to a device once (:meth:`DecodePlan.tables`;
+the kernel's packed block :meth:`DecodePlan.kernel_tables`).
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from ..ops import mw
+from ..ops import fused_modmat as fm, mw
+from ..ops._build import load
 from ..ops.u64 import addmod, as_i64, negmod, shoup_mul64_arr, shoup_mul32_arr, submod
 from ..utils.intmath import CrtBasis
+
+KERNEL = "pvw_decode"
+#: The kernel's caps: limbs, ring degree and 32-bit words of a magnitude.
+MAX_LIMBS, MAX_ELL, MAX_WORDS = 32, 32, 64
 
 
 def _shoup(w: int, m: int) -> int:
@@ -112,6 +121,37 @@ class DecodePlan:
                 self.div2d.words(device)
         return self._on[device]
 
+    def kernel_dims(self) -> tuple[int, ...]:
+        """The kernel's sizes: L, l, W, the words of q, then (numerator
+        words, words of R, words of D, quotient words) of the divisor
+        Δ^(l-1) and of 2Δ."""
+        return (self.L, self.ell, self.W, self.NWq,
+                *(n for dv in (self.mod_dpow, self.div2d)
+                  for n in (dv.fw, len(dv.r_words), len(dv.d_words), dv.nw_q)))
+
+    def kernel_fits(self) -> bool:
+        """True when the kernel's caps hold: L <= 32, 2 <= l <= 32, W <= 64."""
+        return (self.L <= MAX_LIMBS and 2 <= self.ell <= MAX_ELL
+                and self.W <= MAX_WORDS)
+
+    def kernel_block(self) -> np.ndarray:
+        """The tables of ``csrc/pvw_decode.cu`` packed into one int64
+        block in the order of :func:`kernel_sections`, an entry a value (a
+        multiword constant a 32-bit word an entry)."""
+        h = {**self._host, "mod_r": self.mod_dpow.r_words, "mod_d": self.mod_dpow.d_words,
+             "div_r": self.div2d.r_words, "div_d": self.div2d.d_words}
+        return np.concatenate([np.asarray(h[name], np.int64).reshape(-1)
+                               for name, _ in kernel_sections(self.kernel_dims())])
+
+    def kernel_tables(self, device) -> torch.Tensor:
+        """:meth:`kernel_block` as an int64 tensor on ``device``, uploaded
+        at the first call for that device."""
+        device = torch.device(device)
+        key = (device, "kernel")
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.kernel_block(), device=device)
+        return self._on[key]
+
     def __hash__(self):
         return hash((self.moduli, self.ell, self.delta))
 
@@ -128,6 +168,34 @@ def _plan(moduli: tuple[int, ...], ell: int, delta: int) -> DecodePlan:
 
 def get_plan(params) -> DecodePlan:
     return _plan(params.ring.moduli, params.l, params.delta())
+
+
+def kernel_sections(dims) -> list[tuple[str, tuple]]:
+    """(name, shape) of each section of the kernel's table block, in the
+    order its ``make_plan`` reads them, for :meth:`DecodePlan.kernel_dims`
+    ``dims``: the plan's tables by their names, the divisors' R and D words
+    as ``mod_r``, ``mod_d`` (Δ^(l-1)) and ``div_r``, ``div_d`` (2Δ)."""
+    L, ell, W, nwq, m_fw, m_nr, m_nd, m_nq, v_fw, v_nr, v_nd, v_nq = dims
+    return [("q", (L,)), ("qinv", (L,)), ("qinv_sh", (L,)), ("d", (L,)), ("d_sh", (L,)),
+            ("p32", (L, W)), ("p32_sh", (L, W)), ("qhat", (L, nwq)), ("q_words", (W,)),
+            ("half_q", (W,)), ("q_multiples", (L, W)), ("mod_r", (m_nr,)), ("mod_d", (m_nd,)),
+            ("half_m", (m_nd,)), ("div_r", (v_nr,)), ("div_d", (v_nd,)),
+            ("delta_div", (v_fw,))]
+
+
+def split_kernel_block(dims, block) -> dict:
+    """The sections of a packed table block (:meth:`DecodePlan.kernel_block`)
+    by name, as int64 numpy arrays of their shapes. Raises unless the
+    sections fill the block exactly."""
+    block = np.asarray(block, np.int64)
+    out, at = {}, 0
+    for name, shape in kernel_sections(dims):
+        size = int(np.prod(shape))
+        out[name] = block[at:at + size].reshape(shape)
+        at += size
+    if at != block.size:
+        raise ValueError(f"the block holds {block.size} entries, its sections {at}")
+    return out
 
 
 def decode_supported(params) -> bool:
@@ -196,15 +264,64 @@ def _signed_add_mags(xm, xn, ym, yn):
 # the decode
 # --------------------------------------------------------------------------
 
+def _decode_fn():
+    fn = load(KERNEL).pvw_decode
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def decode_residues(plan: DecodePlan, res: torch.Tensor) -> torch.Tensor:
     """Decode PowerBasis residues int64 [d, L, l] (canonical) into the u64
-    messages, int64 [d] of bit patterns, on ``res``'s device: the exact
-    transcription of ``decode_scalar_pvw_rns`` batched over d. Counted in
-    ``decode_residues.calls``."""
+    messages, int64 [d] of bit patterns, on ``res``'s device: a CUDA tensor
+    launches ``csrc/pvw_decode.cu`` once on the current stream (counted in
+    ``decode_residues.launches``; contiguous int64 [d, L, l] of the plan,
+    within the kernel's caps, else it raises), a CPU tensor takes the plain
+    twin :func:`decode_residues_plain`; anything else raises. Every call is
+    counted in ``decode_residues.calls``."""
     if not plan.supported:
         raise ValueError("the device decode does not cover this parameter set "
                          "(decode_supported is False)")
+    dev = res.device
+    if dev.type == "cpu":
+        decode_residues.calls += 1
+        return decode_residues_plain(plan, res)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_residues: unsupported device {dev}")
+    if not plan.kernel_fits():
+        raise ValueError(f"decode_residues: the kernel takes L <= {MAX_LIMBS}, 2 <= l <= "
+                         f"{MAX_ELL} and W <= {MAX_WORDS} words, got L = {plan.L}, "
+                         f"l = {plan.ell}, W = {plan.W}")
+    if res.dtype != torch.int64 or res.dim() != 3 or tuple(res.shape[1:]) != \
+            (plan.L, plan.ell) or not res.is_contiguous():
+        raise ValueError(f"decode_residues: expected contiguous int64 [d, {plan.L}, "
+                         f"{plan.ell}], got {res.dtype} {tuple(res.shape)}"
+                         f"{'' if res.is_contiguous() else ', not contiguous'}")
     decode_residues.calls += 1
+    d = res.shape[0]
+    out = torch.empty(d, dtype=torch.int64, device=dev)
+    if not d:
+        return out
+    tab = plan.kernel_tables(dev)
+    dims = (ctypes.c_int * 12)(*plan.kernel_dims())
+    fm._launch(KERNEL, _decode_fn(), dev, fm._ptr(res), d, dims, fm._ptr(tab), tab.numel(),
+               fm._ptr(out))
+    decode_residues.launches += 1
+    return out
+
+
+decode_residues.calls = 0
+decode_residues.launches = 0
+
+
+def decode_residues_plain(plan: DecodePlan, res: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`decode_residues`, on ``res``'s
+    device: the exact transcription of ``decode_scalar_pvw_rns`` batched
+    over d, in tensor ops (no count)."""
+    if not plan.supported:
+        raise ValueError("the device decode does not cover this parameter set "
+                         "(decode_supported is False)")
     t = plan.tables(res.device)
     W = plan.W
     q, qc = t.q, t.q.unsqueeze(-1)
@@ -250,6 +367,3 @@ def decode_residues(plan: DecodePlan, res: torch.Tensor) -> torch.Tensor:
     small_neg = neg_mf & mw.mag_is_zero(mf_mag[..., 1:]) & (mf_mag[..., 0] <= 1000)
     zero_out = small_neg | ~mw.mag_is_zero(val[..., 2:])
     return torch.where(zero_out, 0, (val[..., 1] << 32) | val[..., 0])
-
-
-decode_residues.calls = 0

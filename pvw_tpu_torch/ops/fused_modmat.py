@@ -1164,8 +1164,11 @@ ntt_prescale_band.launches = 0
 
 def launch_counters() -> dict:
     """(wrapper, attribute) of the launch count of each kernel of this
-    module, by kernel name; kernel 1's masked and bare launches are also
-    among its own. The probes' kernels count on their own wrappers."""
+    module and of the device decode's (``crypto/device_decode``), by kernel
+    name; kernel 1's masked and bare launches are also among its own. The
+    probes' kernels count on their own wrappers."""
+    from ..crypto import device_decode
+
     k1 = fused_scaled_noise_matmul
     return {KERNEL: (k1, "launches"), MASKED_KERNEL: (k1, "masked_launches"),
             BARE_KERNEL: (k1, "bare_launches"),
@@ -1175,4 +1178,5 @@ def launch_counters() -> dict:
             RESIDUE_NOISE_KERNEL: (residue_noise_ch, "launches"),
             PRESCALE_KERNEL: (ntt_prescale_band, "launches"),
             BANDED_KERNEL: (banded_matmul, "launches"),
-            DIGITS_KERNEL: (digit_planes_kpacked, "launches")}
+            DIGITS_KERNEL: (digit_planes_kpacked, "launches"),
+            device_decode.KERNEL: (device_decode.decode_residues, "launches")}

@@ -1224,8 +1224,12 @@ def test_dot_structure_kernel_equals_plain_twin(cuda_device, layout, nd, m, kd, 
 
 
 # --------------------------------------------------------------------------
-# the device decode (plain torch, no kernel of its own) on the card
+# the device decode on the card: its kernel (csrc/pvw_decode.cu)
 # --------------------------------------------------------------------------
+
+DECODE_CHAINS = {"toy": (TOY, 8), "config4": (CHAIN_61X17, 16),
+                 "reference": (tuple(generate_ntt_primes(55, 4, 8)), 8)}
+
 
 def decode_params(moduli, l):
     from pvw_tpu_torch.params.parameters import PvwParameters, PvwParametersBuilder
@@ -1236,37 +1240,114 @@ def decode_params(moduli, l):
             .build())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("moduli,l", [(TOY, 8), (CHAIN_61X17, 16),
-                                      (tuple(generate_ntt_primes(55, 4, 8)), 8)],
-                         ids=["toy", "config4", "reference"])
-def test_device_decode_on_card_equals_python_decode(cuda_device, moduli, l):
-    """``decode_residues`` on the card against ``decode_scalar_pvw_rns``,
-    every message: encodings -(v Δ^j + e_j) of messages at the clamp
-    (±1000, ±1001), past u64 and random, rows lifting to q//2 and q//2 + 1,
-    a zero row, uniform residues; only the [d] messages come back."""
-    from pvw_tpu_torch.crypto import device_decode
-    from pvw_tpu_torch.crypto.decryption import decode_scalar_pvw_rns
-
-    p = decode_params(moduli, l)
-    q, delta = p.q_total(), p.delta()
-    rng = np.random.default_rng(l)
+def edge_decode_residues(p, d, seed):
+    """Residues uint64 [d, L, l]: rows lifting to q//2, q//2 + 1 and 0, then
+    encodings -(v Δ^j + e_j) of messages at the clamp (±1000, ±1001), past
+    u64 and random, then uniform residues (the first d of them)."""
+    q, delta, l = p.q_total(), p.delta(), p.l
+    rng = np.random.default_rng(seed)
     rows = [[q // 2] * l, [q // 2 + 1] * l, [0] * l]
     for v in [-1000, 1000, -1001, 1001, 1 << 64, (1 << 64) - 1] + \
             [int(x) for x in rng.integers(0, 1 << 63, 20)]:
         e = rng.integers(-(delta // 4), delta // 4 + 1, size=l).tolist()
         rows.append([(-((v % q) * delta ** j + e[j])) % q for j in range(l)])
-    res = np.stack([rng.integers(0, m, size=(64, l), dtype=np.uint64) for m in moduli], 1)
-    for r, coeffs in enumerate(rows):
+    res = np.stack([rng.integers(0, m, size=(d, l), dtype=np.uint64) for m in p.ring.moduli], 1)
+    for r, coeffs in enumerate(rows[:d]):
         res[r] = p.ring.residues_from_int_coeffs(coeffs)
-    before = device_decode.decode_residues.calls
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", list(DECODE_CHAINS))
+def test_device_decode_on_card_equals_python_decode(cuda_device, chain):
+    """``decode_residues`` on the card, one launch of its kernel, against
+    ``decode_scalar_pvw_rns``, every message: encodings -(v Δ^j + e_j) of
+    messages at the clamp (±1000, ±1001), past u64 and random, rows lifting
+    to q//2 and q//2 + 1, a zero row, uniform residues; only the [d]
+    messages come back."""
+    from pvw_tpu_torch.crypto import device_decode
+    from pvw_tpu_torch.crypto.decryption import decode_scalar_pvw_rns
+
+    moduli, l = DECODE_CHAINS[chain]
+    p = decode_params(moduli, l)
+    res = edge_decode_residues(p, 64, l)
+    before = (device_decode.decode_residues.calls, device_decode.decode_residues.launches)
     out = device_decode.decode_residues(device_decode.get_plan(p),
                                         u64.u64_tensor(res, cuda_device))
     assert out.device.type == "cuda" and out.shape == (64,)
-    assert device_decode.decode_residues.calls == before + 1
+    assert (device_decode.decode_residues.calls, device_decode.decode_residues.launches) == \
+        (before[0] + 1, before[1] + 1)
     got = [int(v) for v in u64.u64_numpy(out)]
     assert got == [decode_scalar_pvw_rns(r, p) for r in res]
     assert got[3:7] == [0, 1000, 0, 1001] and got[7] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 31, 921, 1029])
+@pytest.mark.parametrize("chain", list(DECODE_CHAINS))
+def test_decode_kernel_equals_plain_twin(cuda_device, chain, d):
+    """The kernel against ``decode_residues_plain`` on the same card tensor
+    and against the Python decode, every message, at batches of one
+    message, of a ragged last block (31 = 7 blocks of 4 + 3), and the
+    threshold cells' 921 and more: one launch a call."""
+    from pvw_tpu_torch.crypto import device_decode
+    from pvw_tpu_torch.crypto.decryption import decode_scalar_pvw_rns
+
+    p = decode_params(*DECODE_CHAINS[chain])
+    plan = device_decode.get_plan(p)
+    res = edge_decode_residues(p, d, d)
+    z = u64.u64_tensor(res, cuda_device)
+    want = device_decode.decode_residues_plain(plan, z)
+    before = (device_decode.decode_residues.calls, device_decode.decode_residues.launches)
+    got = device_decode.decode_residues(plan, z)
+    torch.cuda.synchronize()
+    assert (device_decode.decode_residues.calls, device_decode.decode_residues.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.int64 and got.shape == (d,)
+    assert torch.equal(got, want)
+    assert [int(v) for v in u64.u64_numpy(got)] == [decode_scalar_pvw_rns(r, p) for r in res]
+
+
+@pytest.mark.cuda
+def test_decode_kernel_on_another_card(cuda_device):
+    """The decode kernel launched with its residues' card current: config 4's
+    chain on cuda:1, every message equal to the twin's there."""
+    from pvw_tpu_torch.crypto import device_decode
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda:1")
+    p = decode_params(*DECODE_CHAINS["config4"])
+    plan = device_decode.get_plan(p)
+    z = u64.u64_tensor(edge_decode_residues(p, 130, 3), dev)
+    got = device_decode.decode_residues(plan, z)
+    torch.cuda.synchronize(dev)
+    assert got.device == dev
+    assert torch.equal(got, device_decode.decode_residues_plain(plan, z))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses(cuda_device):
+    """A non-contiguous, an int32 or a wrongly shaped tensor, and a plan
+    past the kernel's caps (more than 64 words), each raise on the card:
+    nothing is launched, nothing falls back to the plain twin."""
+    from pvw_tpu_torch.crypto import device_decode
+
+    p = decode_params(TOY, 8)
+    plan = device_decode.get_plan(p)
+    z = u64.u64_tensor(edge_decode_residues(p, 8, 1), cuda_device)
+    wide = tuple(generate_ntt_primes(61, 40, 8))
+    big = device_decode.DecodePlan(wide, 8, 1 << 300)
+    assert big.supported and not big.kernel_fits()
+    cases = [(plan, z.transpose(1, 2).contiguous().transpose(1, 2)), (plan, z.to(torch.int32)), (plan, torch.cat((z, z), 2)), (plan, z[:, :1]),
+             (big, torch.zeros((8, len(wide), 8), dtype=torch.int64, device=cuda_device))]
+    assert not cases[0][1].is_contiguous() and cases[0][1].shape == z.shape
+    before = (device_decode.decode_residues.calls, device_decode.decode_residues.launches)
+    for pl, bad in cases:
+        with pytest.raises(ValueError):
+            device_decode.decode_residues(pl, bad)
+    assert (device_decode.decode_residues.calls, device_decode.decode_residues.launches) == \
+        before
 
 
 def small_system_on_card(dev, n=4, k=8):
