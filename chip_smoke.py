@@ -355,6 +355,12 @@ def profiled(fn) -> dict:
 
 # kernel 1's launches with neither noise, encode nor post (the bake route's)
 from pvw_tpu_torch.ops.fused_modmat import BARE_KERNEL as BARE  # noqa: E402
+# the kernels of the measurement probes (pvw_tpu_torch/benchmarks/), which no
+# dealer path launches; they count their launches on their own wrappers
+from pvw_tpu_torch.benchmarks.fold_roofline import KERNEL as INT32_PEAK_KERNEL  # noqa: E402
+from pvw_tpu_torch.benchmarks.probe_dot_structure import (  # noqa: E402
+    KERNEL as DOT_KERNEL, LAYOUTS as DOT_LAYOUTS)
+from pvw_tpu_torch.benchmarks.probe_twopass import KERNEL as FOLD_ONLY_KERNEL  # noqa: E402
 # bands relaid to k-packed and lhs rows copied to a 16-byte pitch on their way
 # into kernels 1 and 3: none on a path
 RELAYOUTS = "band_relayouts"
@@ -388,9 +394,9 @@ def _counters() -> dict:
 
     ds = probe_dot_structure.dot_structure
     return {**fm.launch_counters(),
-            fm.FOLD_ONLY_KERNEL: (probe_twopass.fold_only, "launches"),
-            fm.INT32_PEAK_KERNEL: (fold_roofline.int32_peak, "launches"),
-            **{dot_name(layout): (ds, f"{layout}_launches") for layout in fm.DOT_LAYOUTS},
+            FOLD_ONLY_KERNEL: (probe_twopass.fold_only, "launches"),
+            INT32_PEAK_KERNEL: (fold_roofline.int32_peak, "launches"),
+            **{dot_name(layout): (ds, f"{layout}_launches") for layout in DOT_LAYOUTS},
             RELAYOUTS: (fm, "band_relayouts"),
             ROW_RELAYOUTS: (fm, "row_relayouts"),
             DECODES: (device_decode.decode_residues, "calls"),
@@ -401,17 +407,13 @@ def _counters() -> dict:
 
 def dot_name(layout: str) -> str:
     """The kernels line's and the counters' name of a dot-structure layout."""
-    from pvw_tpu_torch.ops import fused_modmat as fm
-
-    return f"{fm.DOT_KERNEL}_{layout}"
+    return f"{DOT_KERNEL}_{layout}"
 
 
 def probe_kernels() -> list:
     """The counters' names of the probes' kernels, which no dealer path or
     backend launches."""
-    from pvw_tpu_torch.ops import fused_modmat as fm
-
-    return [fm.FOLD_ONLY_KERNEL, fm.INT32_PEAK_KERNEL, *map(dot_name, fm.DOT_LAYOUTS)]
+    return [FOLD_ONLY_KERNEL, INT32_PEAK_KERNEL, *map(dot_name, DOT_LAYOUTS)]
 
 
 def reset_launches() -> None:
@@ -817,9 +819,10 @@ def decode_timing(dev, card: str, configs: dict) -> dict:
     import torch
 
     from pvw_tpu_torch.crypto import device_decode
-    from pvw_tpu_torch.ops import _build, fused_modmat as fm, u64
+    from pvw_tpu_torch.ops import _build, u64
+    from pvw_tpu_torch.ops._build import bind, ptr
 
-    fn = device_decode._decode_fn()
+    fn = bind(*device_decode.ENTRY)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     out = {}
     for seed, (label, params) in enumerate(configs.items()):
@@ -830,7 +833,7 @@ def decode_timing(dev, card: str, configs: dict) -> dict:
         tab = plan.kernel_tables(dev)
         dims = (ctypes.c_int * 12)(*plan.kernel_dims())
         raw_out = torch.empty_like(msgs)
-        raw_args = (fm._ptr(z), d, dims, fm._ptr(tab), tab.numel(), fm._ptr(raw_out), stream)
+        raw_args = (ptr(z), d, dims, ptr(tab), tab.numel(), ptr(raw_out), stream)
 
         def raw():
             check(fn(*raw_args) == 0, "the decode kernel's raw launch failed")
@@ -1075,14 +1078,15 @@ def prescale_timing(ring, k: int, d: int, seed: int, dev, card: str) -> dict:
     import torch
 
     from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.ops._build import bind, ptr
 
     L, S, nd = ring.num_limbs, ring.degree, ring.num_digits
     gen = torch.Generator(device=dev).manual_seed(seed)
     c = r_coeffs(k, d, S, 1, gen, dev)
     ntab, tabs = fm._prescale_tables(ring, 1, dev)
     out = torch.empty((L, S, nd, d, -(-k * nd // 16) * 16), dtype=torch.int8, device=dev)
-    fn = fm._prescale_fn()
-    args = (fm._ptr(c), fm._ptr(ntab), fm._ptr(tabs), fm._ptr(out), L, S, 1, k, d, nd,
+    fn = bind(*fm.PRESCALE_ENTRY)
+    args = (ptr(c), ptr(ntab), ptr(tabs), ptr(out), L, S, 1, k, d, nd,
             out.shape[-1], ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
 
     def raw():
@@ -1222,8 +1226,9 @@ def phase_v3k_timing(dev, card: str) -> dict:
     import torch
 
     from pvw_tpu_torch.ops import fused_modmat as fm, tfry
+    from pvw_tpu_torch.ops._build import bind, ptr
 
-    fn = fm._noise_fn()
+    fn = bind(*fm.NOISE_ENTRY)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     out = {}
     for name, rows, cols, l, bound in (
@@ -1242,7 +1247,7 @@ def phase_v3k_timing(dev, card: str) -> dict:
         jr = 1 if bound <= 127 else 2
         planes = torch.empty((l * jr, rows, cols), dtype=torch.int8, device=dev)
         raw_args = (V3K_KEY[0], V3K_KEY[1], 0, 0, rows, cols, l, jr, bound, 0, 0, 0,
-                    fm._ptr(planes), stream)
+                    ptr(planes), stream)
 
         def raw():
             check(fn(*raw_args) == 0, "the v3k generator's raw launch failed")
@@ -1317,6 +1322,7 @@ def phase_residue_noise(dev, card: str) -> tuple[int, dict]:
 
     from pvw_tpu_torch import random as R
     from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.ops._build import bind, ptr
     from pvw_tpu_torch.params import presets
     from pvw_tpu_torch.params.ring import get_ring
     from pvw_tpu_torch.utils.intmath import generate_ntt_primes
@@ -1348,7 +1354,7 @@ def phase_residue_noise(dev, card: str) -> tuple[int, dict]:
         del want, got
         torch.cuda.empty_cache()
 
-    fn = fm._residue_noise_fn()
+    fn = bind(*fm.RESIDUE_NOISE_ENTRY)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     k0, k1 = (int(w) for w in kk)
     out = {}
@@ -1357,8 +1363,8 @@ def phase_residue_noise(dev, card: str) -> tuple[int, dict]:
         args = (kk, 0, rows, cols, c2_bound, ring, dev)
         res = fm.residue_noise_ch(*args)
         raw_args = (k0, k1, 0, rows, cols, ring.degree, ring.num_limbs, c2_bound,
-                    fm._ptr(ring.table("q", dev)), fm._ptr(fm._residue_noise_tables(ring, dev)),
-                    fm._ptr(res), stream)
+                    ptr(ring.table("q", dev)), ptr(fm._residue_noise_tables(ring, dev)),
+                    ptr(res), stream)
 
         def raw():
             check(fn(*raw_args) == 0, "the residue-noise generator's raw launch failed")
@@ -2370,7 +2376,7 @@ def phase_twopass(dev, card: str) -> tuple[dict, int, dict]:
         cols = cols.to(torch.int32)
         err = max_abs_err(tp.fold_only(cols, ring), fold_only_plain_by_limb(ring, cols))
         worst = max(worst, err)
-        emit({"phase": "twopass_vs_plain", "kernel": fm.FOLD_ONLY_KERNEL,
+        emit({"phase": "twopass_vs_plain", "kernel": FOLD_ONLY_KERNEL,
               "shape": f"{name} CH={cols.shape[0]} m={m} nd={nd} n={n}",
               "columns": "the whole int32 range", "bit_exact": err == 0, "max_abs_err": err})
         check(err == 0, f"fold_only differs from its plain version at the {name} shape")
@@ -2405,7 +2411,7 @@ def phase_twopass(dev, card: str) -> tuple[dict, int, dict]:
         check(fold_err == 0, f"fold_only differs from its plain version at the {label} c2 "
                              "shape")
         check(relayouts == 0, f"pass 1 copied an operand {relayouts} times at {label}")
-        probe_launches_only(ran, {fm.KERNEL: 1, BARE: 1, fm.FOLD_ONLY_KERNEL: 1},
+        probe_launches_only(ran, {fm.KERNEL: 1, BARE: 1, FOLD_ONLY_KERNEL: 1},
                             f"the two-pass path at {label}")
         t = tp.times(lhs_dig, band, ring, res["cols"])
         b = tp.bounds(ring, m, k, n)
@@ -2442,7 +2448,6 @@ def phase_int32_peak(dev, card: str) -> tuple[dict, int, dict]:
     ``INT32_OPS_PER_S`` (the kernel's extra register IMAD a block is its
     own). -> (the path record, the worst difference, the timing record)."""
     from pvw_tpu_torch.benchmarks import fold_roofline as fr
-    from pvw_tpu_torch.ops import fused_modmat as fm
 
     x = fr.tile(dev)
     worst = 0
@@ -2450,7 +2455,7 @@ def phase_int32_peak(dev, card: str) -> tuple[dict, int, dict]:
         err = max_abs_err(fr.int32_peak(x, fr.CHECK_ITERS, lanes),
                           fr.int32_peak_plain(x, fr.CHECK_ITERS, lanes))
         worst = max(worst, err)
-        emit({"phase": "int32_peak_vs_plain", "kernel": fm.INT32_PEAK_KERNEL,
+        emit({"phase": "int32_peak_vs_plain", "kernel": INT32_PEAK_KERNEL,
               "shape": f"{tuple(x.shape)} x {fr.CHECK_ITERS} multiply-adds, lanes {lanes}",
               "bit_exact": err == 0, "max_abs_err": err})
         check(err == 0, f"int32_peak differs from its plain version at lanes {lanes}")
@@ -2458,7 +2463,7 @@ def phase_int32_peak(dev, card: str) -> tuple[dict, int, dict]:
     r = fr.measure(x, fr.TIMED_ITERS)
     ran = launches()
     # two timings of a warm-up and 5 runs each
-    probe_launches_only(ran, {fm.INT32_PEAK_KERNEL: 12}, "the int32 peak path")
+    probe_launches_only(ran, {INT32_PEAK_KERNEL: 12}, "the int32 peak path")
     check(1.9 <= r["linearity"] <= 2.1, f"int32_peak took {r['linearity']:.3f}x the time at "
                                         "twice the multiply-adds: not every one ran")
     plain = []
@@ -2468,13 +2473,13 @@ def phase_int32_peak(dev, card: str) -> tuple[dict, int, dict]:
                         (2 * fr.TIMED_ITERS, fr.int32_peak_plain(x, 2 * fr.TIMED_ITERS))):
         err = max_abs_err(fr.int32_peak(x, iters), want)
         worst = max(worst, err)
-        emit({"phase": "int32_peak_vs_plain", "kernel": fm.INT32_PEAK_KERNEL,
+        emit({"phase": "int32_peak_vs_plain", "kernel": INT32_PEAK_KERNEL,
               "shape": f"{tuple(x.shape)} x {iters} multiply-adds, lanes 8 (timed)",
               "bit_exact": err == 0, "max_abs_err": err})
         check(err == 0, f"int32_peak differs from its plain version at {iters} multiply-adds")
     imads = fr.imads(x.numel(), fr.TIMED_ITERS, 8)
     bound_ms = r["madds"] / INT32_OPS_PER_S * 1e3
-    rec = ratios({"phase": "int32_peak", "kernel": fm.INT32_PEAK_KERNEL, "card": card,
+    rec = ratios({"phase": "int32_peak", "kernel": INT32_PEAK_KERNEL, "card": card,
                   "shape": f"{tuple(x.shape)} x {fr.TIMED_ITERS} multiply-adds, 8 lanes", **r,
                   "imads": imads, "int32_ops_per_s": INT32_OPS_PER_S,
                   "imad_over_int32_ops": r["imad_per_s"] / INT32_OPS_PER_S,
@@ -3232,23 +3237,23 @@ def probe_entries(by_path: dict, twopass, peak, dots, card: str) -> list:
     dot-structure layouts (kernel 1 bare and the fold's share of it), each
     with ptxas's registers and spills; ``twopass``, ``peak`` and ``dots``
     are (worst difference, timing) of their phases."""
-    from pvw_tpu_torch.ops import _build, fused_modmat as fm
+    from pvw_tpu_torch.ops import _build
 
     src = "pvw_tpu_torch/csrc/"
     (fold_worst, fold), (peak_worst, rec), (dot_worst, dot) = twopass, peak, dots
-    dot_ptxas = _build.ptxas_report(fm.DOT_KERNEL)
+    dot_ptxas = _build.ptxas_report(DOT_KERNEL)
     return [
-        kernel_entry(fm.FOLD_ONLY_KERNEL, src + "fold_only.cu",
+        kernel_entry(FOLD_ONLY_KERNEL, src + "fold_only.cu",
                      "benchmarks/probe_twopass.py:119", "fold_only (body _fold_only_body)",
-                     by_path[fm.FOLD_ONLY_KERNEL], fold_worst, fold["toy"]["fold_only"],
+                     by_path[FOLD_ONLY_KERNEL], fold_worst, fold["toy"]["fold_only"],
                      fold["config-4"]["fold_only"], card,
-                     ptxas=_build.ptxas_report(fm.FOLD_ONLY_KERNEL),
+                     ptxas=_build.ptxas_report(FOLD_ONLY_KERNEL),
                      two_pass={label: {k: t[k] for k in ("A_ms", "B_ms", "C_ms", "verdict")}
                                for label, t in fold.items()}),
-        kernel_entry(fm.INT32_PEAK_KERNEL, src + "int32_peak.cu",
+        kernel_entry(INT32_PEAK_KERNEL, src + "int32_peak.cu",
                      "benchmarks/fold_roofline.py:62", "vpu_peak_kernel",
-                     by_path[fm.INT32_PEAK_KERNEL], peak_worst, rec, None, card,
-                     ptxas=_build.ptxas_report(fm.INT32_PEAK_KERNEL),
+                     by_path[INT32_PEAK_KERNEL], peak_worst, rec, None, card,
+                     ptxas=_build.ptxas_report(INT32_PEAK_KERNEL),
                      **{k: rec[k] for k in ("linearity", "imad_per_s", "jax_ops_per_s",
                                             "int32_ops_per_s")}),
         *(kernel_entry(dot_name(layout), src + "dot_structure.cu",
@@ -3256,7 +3261,7 @@ def probe_entries(by_path: dict, twopass, peak, dots, card: str) -> list:
                        by_path[dot_name(layout)], dot_worst, dot[layout]["toy"],
                        dot[layout]["config-4"], card,
                        ptxas=[e for e in dot_ptxas
-                              if e["template_args"][1:] == [fm.DOT_LAYOUTS.index(layout)]],
+                              if e["template_args"][1:] == [DOT_LAYOUTS.index(layout)]],
                        kernel1_bare_ms=dot[layout]["toy"]["kernel1_bare_ms"],
                        fold_share_of_kernel1=dot[layout]["toy"]["fold_share_of_kernel1"])
           for layout, line, function in (("planes", 91, "pallas_dots"),
@@ -3282,8 +3287,8 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL,
-                      fm.BANDED_KERNEL, fm.DIGITS_KERNEL, fm.FOLD_ONLY_KERNEL,
-                      fm.INT32_PEAK_KERNEL, fm.DOT_KERNEL, fm.RESIDUE_NOISE_KERNEL,
+                      fm.BANDED_KERNEL, fm.DIGITS_KERNEL, FOLD_ONLY_KERNEL,
+                      INT32_PEAK_KERNEL, DOT_KERNEL, fm.RESIDUE_NOISE_KERNEL,
                       DECODE_KERNEL])
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -13,7 +13,7 @@ a second, and the JAX probe's count of 2 operations a multiply-add.
 
 The rest of the JAX ``fold_roofline.main()`` (kernel 1 with and without
 noise and encode, the int8 floor) is kernel 1's ablations, which
-``probes/fused_matmul_variants.py`` and ``chip_smoke.py`` measure.
+``chip_smoke.py`` measures.
 
 Run it on a card: ``python3 -m pvw_tpu_torch.benchmarks.fold_roofline``.
 """
@@ -26,11 +26,13 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import fused_modmat as fm
 from ..ops.u64 import M32
-from ..ops._build import load
+from ..ops._build import bind, check_args, launch, ptr
 from . import INT32_OPS_PER_S, kernel_times, require_card
 
+KERNEL = "int32_peak"
+ENTRY = (KERNEL, "pvw_int32_peak",
+         [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 #: The JAX probe's tile and its multiply-adds an element (fold_roofline.py:195-196)
 TILE = (512, 1024)
 CHECK_ITERS = 512
@@ -56,14 +58,6 @@ def int32_peak_plain(x, iters_inner: int, lanes: int = 8):
     return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
 
 
-def _peak_fn():
-    fn = load(fm.INT32_PEAK_KERNEL).pvw_int32_peak
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def int32_peak(x, iters_inner: int, lanes: int = 8):
     """int32 x (any shape) -> int32 of its shape: for every element v,
     ``lanes`` chains acc_a = v + a, then iters_inner // lanes multiply-adds
@@ -81,10 +75,9 @@ def int32_peak(x, iters_inner: int, lanes: int = 8):
     if lanes not in LANES or iters_inner < 0:
         raise ValueError(f"int32_peak: the kernel takes lanes in {LANES} and iters_inner "
                          f">= 0, got {lanes}, {iters_inner}")
-    fm._check_args(dev, {"x": (x, torch.int32, tuple(x.shape))})
+    check_args(dev, {"x": (x, torch.int32, tuple(x.shape))})
     out = torch.empty_like(x)
-    fm._launch(fm.INT32_PEAK_KERNEL, _peak_fn(), dev, fm._ptr(x), fm._ptr(out), x.numel(),
-               iters_inner, lanes)
+    launch(KERNEL, bind(*ENTRY), dev, ptr(x), ptr(out), x.numel(), iters_inner, lanes)
     int32_peak.launches += 1
     return out
 

@@ -36,11 +36,16 @@ import torch
 
 from ..ops import fused_modmat as fm
 from ..ops import modmat
-from ..ops._build import load
+from ..ops._build import bind, launch, ptr
 from ..ops.u64 import M32
 from . import C2_SHAPES, INT8_OPS_PER_S, c2_shape, kernel_times, require_card
 
-LAYOUTS = fm.DOT_LAYOUTS
+KERNEL = "dot_structure"
+ENTRY = (KERNEL, "pvw_dot_structure",
+         [ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+         + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+#: the kernel's three entries, in C order
+LAYOUTS = ("planes", "one_dot", "wide")
 #: the wide layout's block of output columns on a card: one 32-column tile
 #: of the kernel (the JAX probe's TN = 128 is its lane tile)
 TN = 32
@@ -120,14 +125,6 @@ def dot_operand(band_x, layout: str):
     return _rows(modmat.k_rows(rows), layout)
 
 
-def _dot_fn():
-    fn = load(fm.DOT_KERNEL).pvw_dot_structure
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] \
-        + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def dot_structure(lhs, band_x, layout: str, tn: int = TN, nd=None):
     """lhs int8 [CH, m, kd] against the band ``band_x`` in ``layout`` (see
     the module; ``nd`` is needed for ``wide``, whose shape does not give it)
@@ -167,12 +164,12 @@ def dot_structure(lhs, band_x, layout: str, tn: int = TN, nd=None):
     if not modmat.k_rows_ok(lhs):
         lhs = modmat.k_rows(lhs)
         dot_structure.relayouts += 1
-    fm._check_operands(dev, {"lhs": (lhs, (ch, m, kd)), "band": (rows, tuple(rows.shape))})
+    fm.check_operands(dev, {"lhs": (lhs, (ch, m, kd)), "band": (rows, tuple(rows.shape))})
     lhs_ch, lhs_row = modmat.operand_strides(lhs)
     strides = modmat.operand_strides(rows)[::-1] + [0] * (5 - rows.dim())
     out = torch.empty((ch, m, d), dtype=torch.int32, device=dev)
-    fm._launch(fm.DOT_KERNEL, _dot_fn(), dev, fm._ptr(lhs), lhs_row, lhs_ch, fm._ptr(rows),
-               *strides, fm._ptr(out), LAYOUTS.index(layout), ch, m, d, kd, nd, tn)
+    launch(KERNEL, bind(*ENTRY), dev, ptr(lhs), lhs_row, lhs_ch, ptr(rows), *strides, ptr(out),
+           LAYOUTS.index(layout), ch, m, d, kd, nd, tn)
     name = f"{layout}_launches"
     setattr(dot_structure, name, getattr(dot_structure, name) + 1)
     return out

@@ -27,8 +27,11 @@ import torch
 
 from ..ops import fused_modmat as fm
 from ..ops import modmat, u64 as u
-from ..ops._build import load
+from ..ops._build import bind, check_args, launch, ptr
 from . import HBM_BYTES_PER_S, INT8_OPS_PER_S, C2_SHAPES, c2_shape, kernel_times, require_card
+
+KERNEL = "fold_only"
+ENTRY = (KERNEL, "pvw_fold_only", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def operands(ring, m: int, k: int, n: int, seed: int, device):
@@ -101,18 +104,11 @@ def fold_only_plain(cols, ring):
 
 
 def _fold_tables(ring, S: int, device):
-    """The fold kernel's tables int64 [L*S, 8] (``fused_modmat._pack_tables``
+    """The fold kernel's tables int64 [L*S, 8] (``fused_modmat.pack_tables``
     of nd columns, each limb's row repeated for its S channels), cached per
     (ring, S, device)."""
     return ring.cached(("fold_only_tables", S), device, lambda dev: u.u64_tensor(
-        fm._pack_tables(ring, ring.num_digits), dev).repeat_interleave(S, dim=0))
-
-
-def _fold_fn():
-    fn = load(fm.FOLD_ONLY_KERNEL).pvw_fold_only
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+        fm.pack_tables(ring, ring.num_digits), dev).repeat_interleave(S, dim=0))
 
 
 def fold_only(cols, ring):
@@ -135,11 +131,10 @@ def fold_only(cols, ring):
         raise ValueError(f"fold_only: unsupported device {dev}")
     if nd > 8:
         raise ValueError(f"fold_only: the kernel folds at most 8 columns, got nd = {nd}")
-    fm._check_args(dev, {"cols": (cols, torch.int32, (ch, m, nd, n))})
+    check_args(dev, {"cols": (cols, torch.int32, (ch, m, nd, n))})
     tables = _fold_tables(ring, ch // ring.num_limbs, dev)
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    fm._launch(fm.FOLD_ONLY_KERNEL, _fold_fn(), dev, fm._ptr(cols), fm._ptr(tables),
-               fm._ptr(out), ch, m, nd, n)
+    launch(KERNEL, bind(*ENTRY), dev, ptr(cols), ptr(tables), ptr(out), ch, m, nd, n)
     fold_only.launches += 1
     return out
 

@@ -40,15 +40,6 @@ decode_crossover     PVW_TPU_DECODE_       Batch size below which ``auto``
                                            measurement on a card).
 no_native            PVW_TPU_NO_NATIVE     Disable the C++ decode engine
                                            (False).
-fused_prescale       PVW_TPU_FUSED_        The JAX package's r-stage engine
-                     PRESCALE              choice, parsed as there
-                                           (:meth:`use_fused_prescale`) and
-                                           read by nothing: the port's
-                                           r-stage always takes
-                                           ``ntt_prescale_band``, the kernel
-                                           on a card and on the CPU its twin,
-                                           which is the plain pipeline
-                                           ("auto").
 swapped_form         PVW_TPU_SWAPPED       Encrypt in the swapped operand
                                            form: the Shoup scales on the
                                            cached key planes, the plain
@@ -81,9 +72,11 @@ default. Booleans: ``0``, ``false``, ``off``, ``no`` are falsy.
 The JAX package's Mosaic knobs are left out: ``tile_m``/``tile_n`` and
 ``vmem_limit_mb`` size Pallas tiles and the TPU's scoped VMEM, ``no_pallas``
 routes around Pallas, ``dots_first`` orders the MXU dots inside a Pallas
-body, and ``jax_cache_dir`` is JAX's compilation cache. The CUDA kernels
-fix their tiles and shared memory at build time, and every route here is
-the one kernel or its plain twin, so none of them would select anything.
+body, ``fused_prescale`` chooses between a Pallas r-stage and XLA's, and
+``jax_cache_dir`` is JAX's compilation cache. The CUDA kernels fix their
+tiles and shared memory at build time, and every route here is the one
+kernel or its plain twin (the r-stage always takes ``ntt_prescale_band``),
+so none of them would select anything.
 """
 
 from __future__ import annotations
@@ -143,7 +136,6 @@ class Settings:
     decode_mode: str = _Knob("PVW_TPU_DECODE", "auto")
     decode_crossover: int = _Knob("PVW_TPU_DECODE_CROSSOVER", 64, int)
     no_native: bool = _Knob("PVW_TPU_NO_NATIVE", False, _parse_bool)
-    fused_prescale: str = _Knob("PVW_TPU_FUSED_PRESCALE", "auto")
     swapped_form: bool = _Knob("PVW_TPU_SWAPPED", False, _parse_bool)
     pipeline_fold: bool = _Knob("PVW_TPU_PIPELINE", False, _parse_bool)
     num_digits: Optional[int] = _Knob("PVW_NUM_DIGITS", None, int)
@@ -183,28 +175,6 @@ class Settings:
                 stacklevel=2,
             )
         return "v4"
-
-    def use_fused_prescale(self, num_digits: int) -> bool:
-        """The JAX package's choice of the one-pass NTT + prescale kernel
-        for the r-stage, kept for parity of the setting; the port has one
-        r-stage route. The JAX package's rule: ``auto`` means deep chains only
-        (``num_digits >= 8``); booleans and the truthy/falsy strings force
-        the choice; an unknown string warns and means ``auto``."""
-        mode = self.fused_prescale
-        if isinstance(mode, bool):
-            return mode
-        norm = str(mode).strip().lower()
-        if norm in ("1", "true", "on", "yes", "force"):
-            return True
-        if norm in _FALSY:
-            return False
-        if norm != "auto":
-            warnings.warn(
-                f"PVW_TPU_FUSED_PRESCALE={mode!r} is not a recognized mode "
-                "(auto/1/0/true/false/on/off); using 'auto'",
-                stacklevel=2,
-            )
-        return num_digits >= 8
 
     def resolved_decode_mode(self) -> str:
         """The decode mode, one of ``auto``, ``device``, ``host``,

@@ -41,15 +41,26 @@ from .encryption import PvwCiphertext
 engine_calls = SimpleNamespace(host=0, native=0, device=0, python=0)
 
 
+def _contraction(ring, sk_ntt, c1_ch) -> torch.Tensor:
+    """<s, c1> over the k rows given: sk_ntt [k, L, l] and c1_ch [L, l, k, d]
+    (NTT, on one device) -> [L, l, d]. A mesh shard passes its k block of
+    both; the blocks' partials add mod q."""
+    skc = sk_ntt.permute(1, 2, 0)[:, :, None, :]                  # [L, l, 1, k]
+    return modmat.matmul_channels(skc, c1_ch, ring)[:, :, 0]
+
+
+def _noisy_finish(ring, prod, c2_ch) -> torch.Tensor:
+    """The contraction ``prod`` [L, l, d] minus c2_ch [L, l, d] (NTT), on
+    prod's device -> PowerBasis residues int64 [d, L, l]."""
+    q = ring.table("q", prod.device)[:, None, None]
+    z = u64op.submod(prod, c2_ch.to(prod.device), q).permute(2, 0, 1)   # [d, L, l]
+    return ntt_ops.ntt_inverse(z, ring)
+
+
 def _noisy_messages(params: PvwParameters, sk_ntt, c1_ch, c2_ch) -> torch.Tensor:
     """sk_ntt [k, L, l]; c1_ch [L, l, k, d]; c2_ch [L, l, d] (NTT) ->
     PowerBasis residues of <s, c1> - c2, int64 [d, L, l] on c1's device."""
-    ring = params.ring
-    skc = sk_ntt.permute(1, 2, 0)[:, :, None, :]                  # [L, l, 1, k]
-    prod = modmat.matmul_channels(skc, c1_ch, ring)[:, :, 0]       # [L, l, d]
-    q = ring.table("q", prod.device)[:, None, None]
-    z = u64op.submod(prod, c2_ch, q).permute(2, 0, 1)              # [d, L, l]
-    return ntt_ops.ntt_inverse(z, ring)
+    return _noisy_finish(params.ring, _contraction(params.ring, sk_ntt, c1_ch), c2_ch)
 
 
 def decode_scalar_pvw_rns(coeff_residues: np.ndarray, params: PvwParameters) -> int:

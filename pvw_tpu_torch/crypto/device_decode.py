@@ -41,8 +41,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..ops import fused_modmat as fm, mw
-from ..ops._build import load
+from ..ops import mw
+from ..ops._build import bind, count_launches, launch, ptr
 from ..ops.u64 import addmod, as_i64, negmod, shoup_mul64_arr, shoup_mul32_arr, submod
 from ..utils.intmath import CrtBasis
 
@@ -264,12 +264,9 @@ def _signed_add_mags(xm, xn, ym, yn):
 # the decode
 # --------------------------------------------------------------------------
 
-def _decode_fn():
-    fn = load(KERNEL).pvw_decode
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+ENTRY = (KERNEL, "pvw_decode", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p])
 
 
 def decode_residues(plan: DecodePlan, res: torch.Tensor) -> torch.Tensor:
@@ -305,14 +302,13 @@ def decode_residues(plan: DecodePlan, res: torch.Tensor) -> torch.Tensor:
         return out
     tab = plan.kernel_tables(dev)
     dims = (ctypes.c_int * 12)(*plan.kernel_dims())
-    fm._launch(KERNEL, _decode_fn(), dev, fm._ptr(res), d, dims, fm._ptr(tab), tab.numel(),
-               fm._ptr(out))
+    launch(KERNEL, bind(*ENTRY), dev, ptr(res), d, dims, ptr(tab), tab.numel(), ptr(out))
     decode_residues.launches += 1
     return out
 
 
 decode_residues.calls = 0
-decode_residues.launches = 0
+count_launches(KERNEL, decode_residues)
 
 
 def decode_residues_plain(plan: DecodePlan, res: torch.Tensor) -> torch.Tensor:

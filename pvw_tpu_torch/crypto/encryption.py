@@ -106,22 +106,26 @@ def _run(name: str, fn):
         return fn()
 
 
-def _r_operand(params: PvwParameters, k_r, d: int, stream: str | None, col_off: int,
-               device, swapped: bool = False, stage=_run):
-    """The r-stage: CBD coefficients [k, d, l] (the cbd-k stream under v3k,
-    else row-keyed) -> scaled-digit band int8 [L, l, nd, k*nd, d] through
+def _r_operand(params: PvwParameters, k_r, k_rows: tuple[int, int], d: int,
+               stream: str | None, col_off: int, device, swapped: bool = False, stage=_run):
+    """The r-stage of r's rows ``k_rows`` = (row_off, rows), keyed by global
+    row (a single device passes (0, k), a kdim shard its k block): CBD
+    coefficients [rows, d, l] (the cbd-k stream under v3k, else row-keyed)
+    -> scaled-digit band int8 [L, l, nd, rows*nd, d] through
     :func:`ntt_prescale_band` (the kernel on a card, its twin on the CPU);
-    for the ``swapped`` form the plain digits int8 [L, l, k*nd, d] of the
+    for the ``swapped`` form the plain digits int8 [L, l, rows*nd, d] of the
     signed NTT (``ntt_forward_signed_ch`` + ``rhs_digit_cols``, plain
     torch, as the JAX package leaves them to XLA)."""
-    k, l, var = params.k, params.l, params.secret_variance
+    row_off, rows = k_rows
+    l, var = params.l, params.secret_variance
     if stream == "v3k":
         from ..ops import tfry
 
         r = stage("r_sample_v3k", lambda: tfry.v3k_cbd_values(
-            *tfry.key_words(k_r), 0, k, d, l, var, col_off, device))
+            *tfry.key_words(k_r), row_off, rows, d, l, var, col_off, device))
     else:
-        r = stage("r_sample", lambda: sample_vec_cbd_rows(k_r, 0, k, (d, l), var, device))
+        r = stage("r_sample", lambda: sample_vec_cbd_rows(k_r, row_off, rows, (d, l), var,
+                                                          device))
     if swapped:
         return stage("r_ntt_digits", lambda: modmat.rhs_digit_cols(
             ntt_ops.ntt_forward_signed_ch(r, params.ring, cbd_bound(var)), params.ring))
@@ -129,28 +133,37 @@ def _r_operand(params: PvwParameters, k_r, d: int, stream: str | None, col_off: 
                  lambda: ntt_prescale_band(r, params.ring, cbd_bound(var)))
 
 
-def _gen_noise(kk, bound: int, stream: str | None, col_off: int, device):
-    """(seeds, jr, bound, "tfry") for the v3k generator, or None."""
+def _gen_noise(kk, bound: int, stream: str | None, device, row_off: int = 0,
+               col_off: int = 0, mask=None):
+    """``gen_noise`` = (seeds, jr, bound, "tfry") of a product under stream
+    v3k, or None (another stream, or a bound without signed digits; v4 is
+    the TPU's hardware PRNG, which ``kernel_noise_available`` refuses, so it
+    draws v3 planes). Seeds are (key0, key1, row_off, col_off), or with
+    ``mask`` = (lo, hi) the masked form's (key0, key1, row_off, lo, hi,
+    col_off): the counterpart of the JAX package's ``gen_noise_seeds_v4``."""
     if stream != "v3k" or not kernel_noise_available(bound, tfry=True, device=device):
         return None
-    return ((*tfry_key_words(kk), 0, col_off), ntt_ops.signed_digit_count(bound),
-            int(bound), "tfry")
+    return ((*tfry_key_words(kk), row_off, *(() if mask is None else mask), col_off),
+            ntt_ops.signed_digit_count(bound), int(bound), "tfry")
 
 
 def _product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, bound: int,
              stream: str | None, host_e=None, encode=None, encode32: bool = False,
-             col_off: int = 0, stage=_run):
-    """One noisy product lhs·r + e (+ encode(sc)·g) -> channel-major
-    [L, l, rows, d], with the JAX package's noise routing
-    (``encryption.py:190-316``): a bound with signed digits under v3k takes
-    ``gen_noise`` (the v3k kernel on a card, launched ahead of the fused
-    matmul, which reads its planes, or drawn inside the pipelined kernel
-    where it runs, :func:`~pvw_tpu_torch.ops.fused_modmat.pipeline_takes`),
-    under v4 and v3 it draws v3 planes; larger bounds run the fused matmul
-    without noise rows: the residue noise (row-keyed, stream v2,
-    :func:`residue_noise_ch`, one kernel on a card) drawn first and added in
-    kernel 1's epilogue as ``post=``, or, in the swapped form (which has no
-    ``post=``) and for ``host_e``, added after it. A 5-D ``lhs_dig``
+             col_off: int = 0, row_off: int = 0, mask=None, stage=_run):
+    """One noisy product lhs·r + e (+ encode(sc)·g) of the global rows
+    [row_off, row_off + rows) -> channel-major [L, l, rows, d], with the JAX
+    package's noise routing (``encryption.py:190-316``): a bound with signed
+    digits under v3k takes ``gen_noise`` (the v3k kernel on a card, launched
+    ahead of the fused matmul, which reads its planes, or drawn inside the
+    pipelined kernel where it runs, :func:`~pvw_tpu_torch.ops.fused_modmat.
+    pipeline_takes`), under v4 and v3 it draws v3 planes; larger bounds run
+    the fused matmul without noise rows: the residue noise (row-keyed,
+    stream v2, :func:`residue_noise_ch`, one kernel on a card) drawn first
+    and added in kernel 1's epilogue as ``post=``, or, in the swapped form
+    (which has no ``post=``) and for ``host_e``, added after it. ``mask`` =
+    (lo, hi): the generated noise and the encode only on the global rows
+    [lo, hi) (kernel 1's masked form, the kdim shards' contract; the mesh
+    takes it only where the generator draws the noise). A 5-D ``lhs_dig``
     (scaled planes) takes the swapped form, :func:`matmul_fold_swapped`,
     with ``r_op`` the plain digits of r. ``stage(name, fn)`` runs each step:
     "noise_gen" or "noise", or "noise_residues", then "kernel", then
@@ -167,18 +180,19 @@ def _product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, bound: int,
             None, r_op, ring, noise=planes, encode=encode, lhs_dig=lhs_dig,
             encode32=encode32, gen_noise=gen_noise, noise_bound=noise_bound, post=post))
 
-    g = None if host_e is not None else _gen_noise(kk, bound, stream, col_off, dev)
-    if g is not None and lhs_dig.ndim == 4 and pipeline_takes(dev):
+    g = None if host_e is not None else _gen_noise(kk, bound, stream, dev, row_off, col_off,
+                                                   mask)
+    if g is not None and lhs_dig.ndim == 4 and (mask is not None or pipeline_takes(dev)):
         return kernel(None, None, gen_noise=g)
     if g is not None:
         return kernel(stage("noise_gen", lambda: gen_noise_planes(g, rows, d, l, dev)),
                       g[2])
     if host_e is None and ntt_ops.signed_digit_count(bound):
         return kernel(stage("noise", lambda: ntt_ops.noise_digit_planes(
-            kk, 0, rows, d, l, bound, dev)), bound)
+            kk, row_off, rows, d, l, bound, dev)), bound)
     if host_e is None:
         host_e = stage("noise_residues",
-                       lambda: residue_noise_ch(kk, 0, rows, d, bound, ring, dev))
+                       lambda: residue_noise_ch(kk, row_off, rows, d, bound, ring, dev))
         if lhs_dig.ndim == 4:
             return kernel(None, None, post=host_e)
     c = kernel(None, None)
@@ -212,8 +226,8 @@ def _encrypt_kernel(params: PvwParameters, a_dig, b_dig, sc, key,
     channel-major c1 [L, l, k, d] and c2 [L, l, n, d]."""
     k_r, k_e1, k_e2 = split(key, 3)
     dev = sc.device
-    r_op = _r_operand(params, k_r, sc.shape[0], stream, col_off, dev, a_dig.ndim == 5,
-                      stage)
+    r_op = _r_operand(params, k_r, (0, params.k), sc.shape[0], stream, col_off, dev,
+                      a_dig.ndim == 5, stage)
     c1 = _product(params, r_op, a_dig, k_e1, params.k, params.error_bound_1, stream,
                   host_e1, col_off=col_off,
                   stage=lambda name, fn: stage(f"{name}_c1", fn))

@@ -50,8 +50,8 @@
 // so the narrower m64n(16nd)k32 into columns i..i+nd-1 gave wrong sums,
 // and the exact alternative, one m64n16k32 a digit pair (nd^2 of them,
 // each into its own column), re-reads A from shared memory nd times and
-// measured a quarter slower at config 4 (probes/fused_matmul_variants.py,
-// k2_pairs; PERF.md). A stage holds 64 k bytes: with 128, nd = 8 would
+// measured a quarter slower at config 4 (k2_pairs of the probe
+// probes/fused_matmul_variants.py, kept to commit bca0803; PERF.md). A stage holds 64 k bytes: with 128, nd = 8 would
 // leave room for one stage, and the ring needs two.
 //
 // Two consumer warpgroups and a producer warp (288 threads): the C*8

@@ -11,7 +11,7 @@
 // with digit_mma::Fold, the fold kernels 1 and 3 run from their registers
 // (bias each column by 2^31, four to a u64 group, a 64-bit Shoup product by
 // 2^(32g) mod q, minus the bias). The tables are the port's [CH, 8] rows of
-// fused_modmat._pack_tables, not the TPU kernel's 36 u32 words; any exact
+// fused_modmat.pack_tables, not the TPU kernel's 36 u32 words; any exact
 // fold gives the same canonical residue.
 //
 // What bounds it on an H100: bytes. Each output reads its nd columns (4*nd

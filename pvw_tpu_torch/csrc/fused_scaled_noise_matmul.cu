@@ -43,7 +43,8 @@
 // tile fastest, so the blocks in flight share a few B tiles (the operand of
 // nd planes, 1 MB a tile at config-4 c2) in L2 rather than the channel's
 // whole B (32 MB there): 19% faster at config-4 c2 than the B tile fastest
-// (the ``walk_b`` variant of probes/fused_matmul_variants.py).
+// (the ``walk_b`` variant of probes/fused_matmul_variants.py, a probe kept
+// to commit bca0803).
 // Its producer warpgroup keeps an S-stage TMA ring full (S = 3 at nd = 8,
 // 5 at nd = 5, beside each consumer's 34 KB of epilogue scratch); its two
 // consumer warpgroups take alternate tiles, each contracting with one wgmma

@@ -40,7 +40,8 @@
 //       past k give the zero pads. Two stores without the shared memory,
 //       by warp shuffles (probes/prescale_shuffle.cu) and with lanes that
 //       own 16 k rows (probes/prescale_lane16.cu), measured slower at nd = 5
-//       (probes/prescale_variants.py, PERF.md).
+//       (probes/prescale_variants.py, PERF.md; the three probes are kept
+//       to commit bca0803).
 //
 // What bounds it on an H100: bytes. At the config-4 r shape (17 limbs x
 // l = 16 slots, k = 512, d = 1024, nd = 8) the band is 9.13 GB written, 2.73
@@ -210,7 +211,7 @@ ntt_prescale_band_kernel(const int32_t* __restrict__ coeffs,
         } else {
           // byte b of the word from its 32-bit half by a constant shift (a
           // loop of 64-bit shifts by runtime amounts took 15% longer at
-          // nd = 5: probes/prescale_variants.py, looped_gather)
+          // nd = 5: the probe prescale_variants.py, looped_gather)
           uint8_t* mine = my + threadIdx.x * nd;
 #pragma unroll
           for (int b = 0; b < 8; ++b)

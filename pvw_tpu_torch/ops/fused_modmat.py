@@ -90,7 +90,8 @@ import torch
 
 from ..errors import SamplingError
 from . import u64 as u
-from ._build import load
+from ._build import bind, check_args, count_launches, launch, ptr
+from ._build import launch_counters  # noqa: F401  (the registry, read through this module)
 from .modmat import (_column_sums, _fold_leading, digits, exact_int_matmul, k_rows, k_rows_ok,
                      matmul_channels, operand_strides, prescale_digits_band, scaled_cols)
 from .ntt import ntt_forward, ntt_forward_signed_ch, signed_digit_count
@@ -114,13 +115,6 @@ TABLE_WIDTH = 8
 PRESCALE_KERNEL = "ntt_prescale_band"
 PRESCALE_TABLE_WIDTH = 22
 PRESCALE_DEGREES = (8, 16, 32, 64)
-# the kernels of the measurement probes (pvw_tpu_torch/benchmarks/), which no
-# dealer path launches; they launch through :func:`_launch` and count their
-# launches on their wrappers, as the kernels above do
-FOLD_ONLY_KERNEL = "fold_only"                           # probe_twopass.fold_only
-INT32_PEAK_KERNEL = "int32_peak"                         # fold_roofline.int32_peak
-DOT_KERNEL = "dot_structure"                             # probe_dot_structure.dot_structure
-DOT_LAYOUTS = ("planes", "one_dot", "wide")              # its three entries, in C order
 
 #: Bands (and the swapped form's rhs digits) handed to the entries of
 #: kernels 1 and 3 in another layout than the k-packed one of kernel 4,
@@ -160,7 +154,7 @@ def v4_digit_split(sv):
 # tables
 # --------------------------------------------------------------------------
 
-def _pack_tables(ring: "RingPlan", ncols: int, width: int = TABLE_WIDTH) -> np.ndarray:
+def pack_tables(ring: "RingPlan", ncols: int, width: int = TABLE_WIDTH) -> np.ndarray:
     """Per-limb fold constants, uint64 [L, width]: q, the bias K of
     ``ncols`` columns, then (2^(32g) mod q, its 64-bit Shoup companion) for
     the groups g < (width - 2) / 2 (two for kernel 1, four for kernel 2)."""
@@ -315,28 +309,9 @@ def _laid_rows(rows):
 _OPERANDS = [ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] \
     + [ctypes.c_longlong] * 3
 KERNEL1_ARGTYPES = _OPERANDS + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-PIPELINED_ARGTYPES = _OPERANDS + [ctypes.c_void_p] * 3 + [ctypes.c_uint32] * 4 \
-    + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-
-
-def _kernel_fn(symbol: str = "pvw_fused_scaled_noise_matmul"):
-    fn = getattr(load(KERNEL), symbol)
-    fn.argtypes = KERNEL1_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
-def _launch(name: str, fn, dev, *args) -> None:
-    """Call a kernel's C entry ``fn(*args, stream)`` with ``dev`` current and
-    its current stream; raise on a CUDA error."""
-    with torch.cuda.device(dev):
-        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+PIPELINED_ENTRY = (PIPELINED_KERNEL, "pvw_fused_pipelined_matmul",
+                   _OPERANDS + [ctypes.c_void_p] * 3 + [ctypes.c_uint32] * 4 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def _i32(w: int) -> int:
@@ -345,28 +320,16 @@ def _i32(w: int) -> int:
     return w - (1 << 32) if w >= 1 << 31 else w
 
 
-def _check_args(dev, args: dict) -> None:
-    """Raise unless every (tensor, dtype, shape) of ``args`` is contiguous
-    on ``dev`` with that dtype and shape; None entries are skipped."""
-    for name, (t, dtype, shape) in args.items():
-        if t is None:
-            continue
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def _operands(a, b) -> list:
     """The ctypes arguments of A [CH, rows, kd] and B [CH, nd, cols, kd]
-    (checked by :func:`_check_operands`): pointer, then the row, (plane,)
+    (checked by :func:`check_operands`): pointer, then the row, (plane,)
     channel strides in bytes."""
     a_ch, a_row = operand_strides(a)
     b_ch, b_plane, b_row = operand_strides(b)
-    return [_ptr(a), a_row, a_ch, _ptr(b), b_row, b_plane, b_ch]
+    return [ptr(a), a_row, a_ch, ptr(b), b_row, b_plane, b_ch]
 
 
-def _check_operands(dev, args: dict) -> None:
+def check_operands(dev, args: dict) -> None:
     """Raise unless every (rows, shape) of ``args`` is int8 of that shape on
     ``dev``, k last, laid out as :func:`~pvw_tpu_torch.ops.modmat.k_rows_ok`
     requires (the entries lay operands out; a launch never copies one)."""
@@ -393,27 +356,27 @@ def _launch_kernel1(symbol: str, a, b, ch: int, m: int, n: int, kd: int, nd: int
                     ntab, noise, sc, etab, jr: int, vals: bool, encode32: bool, post=None,
                     mask=None):
     """Kernel 1's launch on A [CH, rows, kd] and B [CH, nd, cols, kd], both
-    checked by :func:`_check_operands` -> int64 [CH, m, n]."""
+    checked by :func:`check_operands` -> int64 [CH, m, n]."""
     dev = a.device
-    _check_args(dev, _epilogue_args(ch, m, n, nd, tables, ntab, noise, sc, etab, post))
+    check_args(dev, _epilogue_args(ch, m, n, nd, tables, ntab, noise, sc, etab, post))
     nrows = ntab.shape[1] if noise is not None else 0
     row_off, lo, hi = (0, 0, 0) if mask is None else (_i32(w) for w in mask)
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    _launch(symbol, _kernel_fn(symbol), dev, *_operands(a, b),
-            _ptr(tables), _ptr(ntab), _ptr(noise), _ptr(sc), _ptr(etab), _ptr(post),
-            _ptr(out), ch, m, n, kd, nd, nrows, int(jr), int(vals), int(encode32),
-            int(mask is not None), row_off, lo, hi)
+    launch(symbol, bind(KERNEL, symbol, KERNEL1_ARGTYPES), dev, *_operands(a, b),
+           ptr(tables), ptr(ntab), ptr(noise), ptr(sc), ptr(etab), ptr(post),
+           ptr(out), ch, m, n, kd, nd, nrows, int(jr), int(vals), int(encode32),
+           int(mask is not None), row_off, lo, hi)
     return out
 
 
 def _banded_operands(lhs_dig, band) -> tuple:
     """(lhs rows [CH, m, kd], the band's planes [CH, nd, n, kd], (ch, m, n,
-    kd, nd)), both checked by :func:`_check_operands`."""
+    kd, nd)), both checked by :func:`check_operands`."""
     ch, m, kd = lhs_dig.shape
     nd, n = band.shape[1], band.shape[3]
     planes = band.transpose(-1, -2)
-    _check_operands(lhs_dig.device, {"lhs_dig": (lhs_dig, (ch, m, kd)),
-                                     "band": (planes, (ch, nd, n, kd))})
+    check_operands(lhs_dig.device, {"lhs_dig": (lhs_dig, (ch, m, kd)),
+                                    "band": (planes, (ch, nd, n, kd))})
     return lhs_dig, planes, (ch, m, n, kd, nd)
 
 
@@ -443,9 +406,9 @@ def fused_scaled_noise_matmul(lhs_dig, band, tables, ntab, noise, sc, etab,
     return out
 
 
-fused_scaled_noise_matmul.launches = 0
-fused_scaled_noise_matmul.masked_launches = 0
-fused_scaled_noise_matmul.bare_launches = 0
+count_launches(KERNEL, fused_scaled_noise_matmul)
+count_launches(MASKED_KERNEL, fused_scaled_noise_matmul, "masked_launches")
+count_launches(BARE_KERNEL, fused_scaled_noise_matmul, "bare_launches")
 
 
 def fused_scaled_noise_matmul_swapped(lhs_planes, rhs_t, tables, ntab, noise, sc, etab,
@@ -459,8 +422,8 @@ def fused_scaled_noise_matmul_swapped(lhs_planes, rhs_t, tables, ntab, noise, sc
     ``fused_scaled_noise_matmul_swapped.launches``."""
     ch, nd, m, kd = lhs_planes.shape
     n = rhs_t.shape[1]
-    _check_operands(lhs_planes.device, {"lhs_planes": (lhs_planes, (ch, nd, m, kd)),
-                                        "rhs_t": (rhs_t, (ch, n, kd))})
+    check_operands(lhs_planes.device, {"lhs_planes": (lhs_planes, (ch, nd, m, kd)),
+                                       "rhs_t": (rhs_t, (ch, n, kd))})
     out = _launch_kernel1("pvw_fused_scaled_noise_matmul_swapped", rhs_t, lhs_planes,
                           ch, m, n, kd, nd, tables, ntab, noise, sc, etab, jr, vals,
                           encode32)
@@ -468,14 +431,7 @@ def fused_scaled_noise_matmul_swapped(lhs_planes, rhs_t, tables, ntab, noise, sc
     return out
 
 
-fused_scaled_noise_matmul_swapped.launches = 0
-
-
-def _pipelined_fn():
-    fn = load(PIPELINED_KERNEL).pvw_fused_pipelined_matmul
-    fn.argtypes = PIPELINED_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+count_launches(SWAPPED_KERNEL, fused_scaled_noise_matmul_swapped)
 
 
 def fused_pipelined_matmul(lhs_dig, band, tables, ntab, noise, gen, sc, etab, l: int,
@@ -489,33 +445,30 @@ def fused_pipelined_matmul(lhs_dig, band, tables, ntab, noise, gen, sc, etab, l:
     ``fused_pipelined_matmul.launches``."""
     a, b, (ch, m, n, kd, nd) = _banded_operands(lhs_dig, band)
     dev = lhs_dig.device
-    _check_args(dev, _epilogue_args(ch, m, n, nd, tables, ntab, noise, sc, etab))
+    check_args(dev, _epilogue_args(ch, m, n, nd, tables, ntab, noise, sc, etab))
     if gen is not None and noise is not None:
         raise ValueError("gen and noise are mutually exclusive")
     k0, k1, row_off, col_off, bound = (int(w) for w in gen) if gen is not None else (0,) * 5
     nrows = ntab.shape[1] if noise is not None or gen is not None else 0
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    _launch(PIPELINED_KERNEL, _pipelined_fn(), dev, *_operands(a, b),
-            _ptr(tables), _ptr(ntab), _ptr(noise),
-            k0 & u.M32, k1 & u.M32, row_off & u.M32, col_off & u.M32, bound, _ptr(sc),
-            _ptr(etab), _ptr(out), ch, m, n, kd, nd, l, int(jr), nrows, int(vals),
-            int(encode32), int(gen is not None))
+    launch(PIPELINED_KERNEL, bind(*PIPELINED_ENTRY), dev, *_operands(a, b),
+           ptr(tables), ptr(ntab), ptr(noise),
+           k0 & u.M32, k1 & u.M32, row_off & u.M32, col_off & u.M32, bound, ptr(sc),
+           ptr(etab), ptr(out), ch, m, n, kd, nd, l, int(jr), nrows, int(vals),
+           int(encode32), int(gen is not None))
     fused_pipelined_matmul.launches += 1
     return out
 
 
-fused_pipelined_matmul.launches = 0
+count_launches(PIPELINED_KERNEL, fused_pipelined_matmul)
 
 
 # --------------------------------------------------------------------------
 # stream-v3k noise generation
 # --------------------------------------------------------------------------
 
-def _noise_fn():
-    fn = load(NOISE_KERNEL).pvw_v3k_noise_planes
-    fn.argtypes = [ctypes.c_uint32] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    return fn
+NOISE_ENTRY = (NOISE_KERNEL, "pvw_v3k_noise_planes",
+               [ctypes.c_uint32] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
 
 
 def v3k_noise_planes_plain(k0, k1, row_off: int, rows: int, cols: int, l: int,
@@ -549,14 +502,14 @@ def v3k_noise_planes(k0, k1, row_off: int, rows: int, cols: int, l: int, bound: 
         raise ValueError(f"v3k_noise_planes: unsupported device {dev}")
     lo, hi = (0, 0) if mask is None else (_i32(w) for w in mask)
     out = torch.empty((l * jr, rows, cols), dtype=torch.int8, device=dev)
-    _launch(NOISE_KERNEL, _noise_fn(), dev, int(k0) & u.M32, int(k1) & u.M32,
-            int(row_off) & u.M32, int(col_off) & u.M32, rows, cols, l, jr, int(bound),
-            int(mask is not None), lo, hi, _ptr(out))
+    launch(NOISE_KERNEL, bind(*NOISE_ENTRY), dev, int(k0) & u.M32, int(k1) & u.M32,
+           int(row_off) & u.M32, int(col_off) & u.M32, rows, cols, l, jr, int(bound),
+           int(mask is not None), lo, hi, ptr(out))
     v3k_noise_planes.launches += 1
     return out
 
 
-v3k_noise_planes.launches = 0
+count_launches(NOISE_KERNEL, v3k_noise_planes)
 
 
 def kernel_noise_available(bound: int, tfry: bool = False, device="cuda") -> bool:
@@ -626,12 +579,9 @@ def pipeline_takes(device, bare: bool = False, masked: bool = False,
 # stream-v2 residue noise (bounds above the signed-digit range)
 # --------------------------------------------------------------------------
 
-def _residue_noise_fn():
-    fn = load(RESIDUE_NOISE_KERNEL).pvw_residue_noise
-    fn.argtypes = [ctypes.c_uint32] * 3 + [ctypes.c_int] * 4 + [ctypes.c_uint64] \
-        + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+RESIDUE_NOISE_ENTRY = (RESIDUE_NOISE_KERNEL, "pvw_residue_noise",
+                       [ctypes.c_uint32] * 3 + [ctypes.c_int] * 4 + [ctypes.c_uint64]
+                       + [ctypes.c_void_p] * 4)
 
 
 def _residue_noise_tables(ring: "RingPlan", device):
@@ -685,14 +635,14 @@ def residue_noise_ch(kk, row_off: int, rows: int, cols: int, bound: int, ring: "
     if not out.numel():
         return out
     k0, k1 = key_words(kk)
-    _launch(RESIDUE_NOISE_KERNEL, _residue_noise_fn(), dev, k0 & u.M32, k1 & u.M32,
-            int(row_off) & u.M32, rows, cols, l, L, bound, _ptr(ring.table("q", dev)),
-            _ptr(_residue_noise_tables(ring, dev)), _ptr(out))
+    launch(RESIDUE_NOISE_KERNEL, bind(*RESIDUE_NOISE_ENTRY), dev, k0 & u.M32, k1 & u.M32,
+           int(row_off) & u.M32, rows, cols, l, L, bound, ptr(ring.table("q", dev)),
+           ptr(_residue_noise_tables(ring, dev)), ptr(out))
     residue_noise_ch.launches += 1
     return out
 
 
-residue_noise_ch.launches = 0
+count_launches(RESIDUE_NOISE_KERNEL, residue_noise_ch)
 
 
 # --------------------------------------------------------------------------
@@ -730,7 +680,7 @@ def _kernel_tables(ring: "RingPlan", L: int, S: int, k: int, jr: int, noise_boun
         ntab = ntab.to(torch.int32).reshape(L * S, ntab.shape[2], nd).contiguous()
     else:
         ntab = torch.zeros((L * S, 1, nd), dtype=torch.int32, device=dev)
-    tables = u.u64_tensor(_pack_tables(ring, nd), dev).repeat_interleave(S, dim=0)
+    tables = u.u64_tensor(pack_tables(ring, nd), dev).repeat_interleave(S, dim=0)
     sc = etab = None
     if encode is not None:
         sc, etab = encode[0].contiguous(), encode[1].contiguous()
@@ -892,8 +842,9 @@ def matmul_fold_swapped(lhs_planes, rhs_dig, ring: "RingPlan", noise=None, encod
 # kernel 2: the product of two residue matrices by the digit convolution
 # --------------------------------------------------------------------------
 
-_BANDED_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] \
-    + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+BANDED_ENTRY = (BANDED_KERNEL, "pvw_banded_matmul", [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+                + [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 #: The balanced-digit bias: byte j of ``(x + DIGIT_BIAS) ^ DIGIT_BIAS`` is
 #: digit j of x's balanced base-256 form (the final carry dropped), as
@@ -922,12 +873,8 @@ def digit_planes_kpacked_plain(x, nd: int, transpose: bool = False):
     return planes
 
 
-def _digits_fn():
-    fn = load(DIGITS_KERNEL).pvw_digit_planes
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+DIGITS_ENTRY = (DIGITS_KERNEL, "pvw_digit_planes", [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+                + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def digit_planes_kpacked(x, nd: int, transpose: bool = False):
@@ -951,24 +898,24 @@ def digit_planes_kpacked(x, nd: int, transpose: bool = False):
         x = x.transpose(-1, -2)
     ch, rows, k = x.shape
     store = torch.empty((ch, nd, rows, -(-k // 16) * 16), dtype=torch.int8, device=dev)
-    _launch(DIGITS_KERNEL, _digits_fn(), dev, _ptr(x), *x.stride(), _ptr(store), ch, rows, k,
-            store.shape[-1], nd)
+    launch(DIGITS_KERNEL, bind(*DIGITS_ENTRY), dev, ptr(x), *x.stride(), ptr(store), ch, rows,
+           k, store.shape[-1], nd)
     digit_planes_kpacked.launches += 1
     return store[..., :k]
 
 
-digit_planes_kpacked.launches = 0
+count_launches(DIGITS_KERNEL, digit_planes_kpacked)
 
 
 def _banded_tables(ring: "RingPlan", S: int, device):
-    """Kernel 2's fold tables int64 [L*S, 10] (:func:`_pack_tables` of
+    """Kernel 2's fold tables int64 [L*S, 10] (:func:`pack_tables` of
     2nd-1 columns, four groups, each limb's row repeated for its S
     channels), cached per (ring, S, device)."""
     def make(dev):
         global table_builds
         table_builds += 1
         nd = ring.num_digits
-        return u.u64_tensor(_pack_tables(ring, 2 * nd - 1, BANDED_TABLE_WIDTH),
+        return u.u64_tensor(pack_tables(ring, 2 * nd - 1, BANDED_TABLE_WIDTH),
                             dev).repeat_interleave(S, dim=0)
 
     return ring.cached(("banded_tables", S), device, make)
@@ -988,13 +935,6 @@ def banded_matmul_plain(lhs_planes, rhs_planes, tables):
     return u.fold_columns_grouped(cols, t[..., 2:10:2], t[..., 3:10:2], t[..., 1], t[..., 0])
 
 
-def _banded_fn():
-    fn = load(BANDED_KERNEL).pvw_banded_matmul
-    fn.argtypes = _BANDED_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def banded_matmul(lhs_planes, rhs_planes, tables):
     """Launch kernel 2 on the current stream. lhs_planes int8 [CH, nd, m, k]
     and rhs_planes int8 [CH, nd, n, k]: the balanced digits of the two
@@ -1009,19 +949,19 @@ def banded_matmul(lhs_planes, rhs_planes, tables):
     dev = lhs_planes.device
     if dev.type == "cpu":
         return banded_matmul_plain(lhs_planes, rhs_planes, tables)
-    _check_operands(dev, {"lhs_planes": (lhs_planes, (ch, nd, m, k)),
-                          "rhs_planes": (rhs_planes, (ch, nd, n, k))})
-    _check_args(dev, {"tables": (tables, torch.int64, (ch, BANDED_TABLE_WIDTH))})
+    check_operands(dev, {"lhs_planes": (lhs_planes, (ch, nd, m, k)),
+                         "rhs_planes": (rhs_planes, (ch, nd, n, k))})
+    check_args(dev, {"tables": (tables, torch.int64, (ch, BANDED_TABLE_WIDTH))})
     a_ch, a_plane, a_row = operand_strides(lhs_planes)
     b_ch, b_plane, b_row = operand_strides(rhs_planes)
     out = torch.empty((ch, m, n), dtype=torch.int64, device=dev)
-    _launch(BANDED_KERNEL, _banded_fn(), dev, _ptr(lhs_planes), a_row, a_plane, a_ch,
-            _ptr(rhs_planes), b_row, b_plane, b_ch, _ptr(tables), _ptr(out), ch, m, n, k, nd)
+    launch(BANDED_KERNEL, bind(*BANDED_ENTRY), dev, ptr(lhs_planes), a_row, a_plane, a_ch,
+           ptr(rhs_planes), b_row, b_plane, b_ch, ptr(tables), ptr(out), ch, m, n, k, nd)
     banded_matmul.launches += 1
     return out
 
 
-banded_matmul.launches = 0
+count_launches(BANDED_KERNEL, banded_matmul)
 
 
 def matmul_channels_fused(lhs, rhs, ring: "RingPlan"):
@@ -1114,11 +1054,8 @@ def ntt_prescale_band_plain(coeffs, ring: "RingPlan", max_abs: int):
     return prescale_digits_band(ntt_forward_signed_ch(coeffs, ring, max_abs), ring)
 
 
-def _prescale_fn():
-    fn = load(PRESCALE_KERNEL).pvw_ntt_prescale_band
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+PRESCALE_ENTRY = (PRESCALE_KERNEL, "pvw_ntt_prescale_band",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def ntt_prescale_band(coeffs, ring: "RingPlan", max_abs: int):
@@ -1153,30 +1090,11 @@ def ntt_prescale_band(coeffs, ring: "RingPlan", max_abs: int):
     ntab, tabs = _prescale_tables(ring, jr, dev)
     kd = k * nd
     out = torch.empty((L, l, nd, d, -(-kd // 16) * 16), dtype=torch.int8, device=dev)
-    _launch(PRESCALE_KERNEL, _prescale_fn(), dev, _ptr(x), _ptr(ntab), _ptr(tabs),
-            _ptr(out), L, l, jr, k, d, nd, out.shape[-1])
+    launch(PRESCALE_KERNEL, bind(*PRESCALE_ENTRY), dev, ptr(x), ptr(ntab), ptr(tabs),
+           ptr(out), L, l, jr, k, d, nd, out.shape[-1])
     ntt_prescale_band.launches += 1
     return out[..., :kd].transpose(-1, -2)
 
 
-ntt_prescale_band.launches = 0
+count_launches(PRESCALE_KERNEL, ntt_prescale_band)
 
-
-def launch_counters() -> dict:
-    """(wrapper, attribute) of the launch count of each kernel of this
-    module and of the device decode's (``crypto/device_decode``), by kernel
-    name; kernel 1's masked and bare launches are also among its own. The
-    probes' kernels count on their own wrappers."""
-    from ..crypto import device_decode
-
-    k1 = fused_scaled_noise_matmul
-    return {KERNEL: (k1, "launches"), MASKED_KERNEL: (k1, "masked_launches"),
-            BARE_KERNEL: (k1, "bare_launches"),
-            SWAPPED_KERNEL: (fused_scaled_noise_matmul_swapped, "launches"),
-            PIPELINED_KERNEL: (fused_pipelined_matmul, "launches"),
-            NOISE_KERNEL: (v3k_noise_planes, "launches"),
-            RESIDUE_NOISE_KERNEL: (residue_noise_ch, "launches"),
-            PRESCALE_KERNEL: (ntt_prescale_band, "launches"),
-            BANDED_KERNEL: (banded_matmul, "launches"),
-            DIGITS_KERNEL: (digit_planes_kpacked, "launches"),
-            device_decode.KERNEL: (device_decode.decode_residues, "launches")}

@@ -194,14 +194,14 @@ def run_worker(rank: int, world: int, port: int, local_devices: int, *, device: 
 
     from ..config import settings
     from ..crypto import device_decode
-    from ..crypto.decryption import _decode_batch
+    from ..crypto.decryption import _contraction, _decode_batch, _noisy_finish
     from ..crypto.encryption import _host_noise_pairs, encrypt_batch
     from ..errors import InvalidParameters
     from ..ops import fused_modmat as fm, u64 as u64op
     from ..params import PvwParameters
     from ..utils.device import resolve_device
-    from .sharding import (_check_batch, _decrypt_finish, _decrypt_partial, _finish_row,
-                           _shard_operands, _shard_products)
+    from .sharding import (_check_batch, _finish_row, _modsum_gathered, _shard_operands,
+                           _shard_products)
 
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -291,8 +291,8 @@ def run_worker(rank: int, world: int, port: int, local_devices: int, *, device: 
                 c1_parts = (_gather([parts[(r, j)][0] for j in cols], groups[r], host, dev)
                             if r == 0 else None)
                 c2_parts = _gather([parts[(r, j)][1] for j in cols], groups[r], host, dev)
-                row_c1, c2[r] = _finish_row(params, enc_key, r, nl, d, kd, c1_parts, c2_parts,
-                                            dev, host_e1, host_e2, kstream)
+                row_c1, c2[r] = _finish_row(params, r, nl, kd, c1_parts, c2_parts, dev,
+                                            host_e1, host_e2)
                 if r == 0:
                     c1 = row_c1
             # c1 replicated to every rank from rank 0 (recv row 0's head)
@@ -323,10 +323,12 @@ def run_worker(rank: int, world: int, port: int, local_devices: int, *, device: 
             for r in my_rows:
                 dls = slice(r * dl, (r + 1) * dl)
                 cols = sorted(j for rr, j in mine if rr == r)
-                row = _gather([_decrypt_partial(ring, sk, c1_ch, slice(j * kc, (j + 1) * kc),
-                                                dls, dev) for j in cols], groups[r], host, dev)
+                row = _gather([_contraction(ring, sk[j * kc:(j + 1) * kc],
+                                            c1_ch[:, :, j * kc:(j + 1) * kc, dls])
+                               for j in cols], groups[r], host, dev)
                 if r in heads:
-                    out[r] = _decrypt_finish(ring, row, ref_c2_party[:, :, dls], dev)
+                    out[r] = _noisy_finish(ring, _modsum_gathered(row, ring, dev),
+                                           ref_c2_party[:, :, dls])
             return out
 
         z = clock("decrypt_ms", decrypt)

@@ -19,13 +19,19 @@ counter-based and keyed by global row and column, so each shard draws the
 values the single-device encryption places in its block, and the sharded
 ciphertext is bit-identical to it on any mesh shape.
 
-kdim > 1 shards place the noise and the encode on exactly their row block
-of the partial sum, so that the sum holds them once: under stream v3k with
-kernel 1's masked form (6-word seeds, noise and encode only on the global
-rows [lo, hi)), otherwise by adding them to the block before the gather
-("the bake route", the residues made in plain torch). Bounds >= the
-smallest modulus take the exact host noise, added after the gather.
-Decryption decodes each recv shard's dealers on that shard's device (the
+Each stage is the single device's: a shard draws its k block of r with
+:func:`~pvw_tpu_torch.crypto.encryption._r_operand`, and a shard that holds
+the whole k runs :func:`~pvw_tpu_torch.crypto.encryption._product` for c1
+and c2 as the single device does (the same noise routes, the residue noise
+in kernel 1's ``post=``). kdim > 1 shards place the noise and the encode
+on exactly their row block of the partial sum, so that the sum holds them
+once: under stream v3k with ``_product``'s masked form (6-word seeds,
+noise and encode only on the global rows [lo, hi)), otherwise by adding
+them to the block before the gather ("the bake route", the residues made
+in plain torch); there bounds >= the smallest modulus take the exact host
+noise after the gather. Decryption contracts each shard's k block with
+:func:`~pvw_tpu_torch.crypto.decryption._contraction` and finishes each
+recv row with ``_noisy_finish``, and decodes each recv shard's dealers on that shard's device (the
 decode is per dealer, so it needs no collective), as the JAX package does
 inside its ``shard_map``.
 """
@@ -36,18 +42,16 @@ import numpy as np
 import torch
 
 from ..config import settings
-from ..crypto.decryption import _decode_batch
-from ..crypto.encryption import (PvwCiphertext, _encode_channel_major,
-                                 _host_noise_pairs)
+from ..crypto.decryption import _contraction, _decode_batch, _noisy_finish
+from ..crypto.encryption import (PvwCiphertext, _encode_channel_major, _encode_table,
+                                 _gen_noise, _host_noise_pairs, _product, _r_operand)
 from ..errors import InvalidParameters
 from ..keys.public_key import GlobalPublicKey
-from ..ops import modmat, ntt as ntt_ops, tfry, u64 as u64op
-from ..ops.fused_modmat import (encode_tab, kernel_noise_available, matmul_fold_scaled,
-                                ntt_prescale_band, residue_noise_ch)
+from ..ops import ntt as ntt_ops, tfry, u64 as u64op
+from ..ops.fused_modmat import matmul_fold_scaled, residue_noise_ch
 from ..params.parameters import PvwParameters
 from ..poly import Poly, Representation
 from ..random import split
-from ..sampling.cbd import cbd_bound, sample_vec_cbd_rows
 from ..sampling.uniform import sample_uniform_signed_rows
 
 
@@ -91,24 +95,6 @@ def make_mesh(devices=None, kdim: int | None = None) -> Mesh:
     return Mesh([devices[r * kdim:(r + 1) * kdim] for r in range(n // kdim)])
 
 
-def gen_noise_seeds(key, bound: int, row_off: int, stream: str | None, device,
-                    mask=None):
-    """``gen_noise`` = (seeds, jr, bound, "tfry") of one sharded product
-    under stream v3k, or None (no generated noise: another stream, or a
-    bound without signed digits), the counterpart of the JAX package's
-    ``gen_noise_seeds_v4``. Seeds are (key0, key1, row_off, col_off = 0)
-    with the shard's global row offset, or with ``mask`` = (lo, hi) the
-    masked form's (key0, key1, row_off, lo, hi, 0). Stream v4 is the TPU's
-    hardware PRNG: ``kernel_noise_available`` is False for it, so it draws
-    v3 planes here as in the single-device encryption."""
-    bound = int(bound)
-    if stream != "v3k" or not kernel_noise_available(bound, tfry=True, device=device):
-        return None
-    k0, k1 = tfry.key_words(key)
-    words = (k0, k1, row_off, *(() if mask is None else mask), 0)
-    return (words, ntt_ops.signed_digit_count(bound), bound, "tfry")
-
-
 def _modsum_gathered(parts: list, ring, device):
     """The partials of one axis (limb axis leading) moved to ``device`` and
     added mod q, in axis order."""
@@ -146,75 +132,63 @@ def _bake_rows(part, block, row0: int, rows: int, ring):
     return part
 
 
+def _shard_product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, row_off: int,
+                   bound: int, host_e, sc, encode32: bool, kd: int, my_k: int,
+                   force_masked: bool, stream: str | None, device):
+    """One shard's partial of a product over the global rows [row_off,
+    row_off + rows), with the encode of ``sc`` [d, rows] (c2's; None for
+    c1's). At whole k (kd = 1) it is :func:`_product`, as on a single
+    device (``force_masked``: its masked form over the whole block; the host
+    noise ``host_e`` of the rows added in it). At kd > 1 the noise and the
+    encode land on the shard's block of ceil(rows / kd) rows, so that the
+    sum holds them once: by :func:`_product`'s masked form where the v3k
+    generator draws the noise, else by the bake route (a bare product padded
+    to kd blocks, the block's noise and encode added in plain torch; the
+    tail block may reach past the rows, sliced off after the gather); host
+    noise then joins after the gather (:func:`_finish_row`)."""
+    blk = -(-rows // kd)
+    lo = my_k * blk
+    mask = None if kd == 1 and not force_masked else (row_off + lo, row_off + lo + blk)
+    if kd == 1 or (host_e is None and _gen_noise(kk, bound, stream, device, row_off,
+                                                 mask=mask) is not None):
+        encode = None if sc is None else (sc.t().contiguous(), _encode_table(params, device))
+        return _product(params, r_op, lhs_dig, kk, rows, bound, stream,
+                        None if kd > 1 or host_e is None else host_e.to(device), encode,
+                        encode32, row_off=row_off, mask=mask)
+    ring = params.ring
+    part = matmul_fold_scaled(None, r_op, ring, lhs_dig=lhs_dig)
+    pad = blk * kd - rows
+    if pad:
+        part = torch.nn.functional.pad(part, (0, 0, 0, pad))
+    if host_e is None:
+        part = _bake_rows(part, _noise_ntt(params, kk, row_off + lo, blk, r_op.shape[-1],
+                                           bound, stream, device), lo, blk, ring)
+    if sc is not None:
+        sc_p = torch.nn.functional.pad(sc, (0, pad)) if pad else sc
+        part = _bake_rows(part, _encode_channel_major(params, sc_p[:, lo:lo + blk]), lo, blk,
+                          ring)
+    return part
+
+
 def _shard_products(params: PvwParameters, a_dig, b_dig, sc, key, my_r: int, my_k: int,
                     kd: int, nl: int, host_e1, host_e2, force_masked: bool,
                     stream: str | None, encode32: bool, device):
     """One shard's partial c1 [L, l, k, d] (None off recv row 0) and c2
     [L, l, nl(+pad), d] (the JAX package's ``shard_fn`` up to its gathers):
-    its k block of r through kernel 4, then the products, with the noise and
-    the encode on its row block (masked form or bake route) where kd > 1."""
-    ring, k, l = params.ring, params.k, params.l
-    d = sc.shape[0]
-    kc = k // kd
+    its k block of r (:func:`_r_operand`), then the products
+    (:func:`_shard_product`)."""
+    kc = params.k // kd
     k_r, k_e1, k_e2 = split(key.to(device), 3)
-    var = params.secret_variance
-    # r: this shard's k block, rows keyed by global row (cbd-k under v3k)
-    if stream == "v3k":
-        r = tfry.v3k_cbd_values(*tfry.key_words(k_r), my_k * kc, kc, d, l, var,
-                                device=device)
-    else:
-        r = sample_vec_cbd_rows(k_r, my_k * kc, kc, (d, l), var, device)
-    r_op = ntt_prescale_band(r, ring, cbd_bound(var))
-    whole_k = kd == 1
-    b1, b2 = params.error_bound_1, params.error_bound_2
-
-    # v3 and v4 draw v3 planes at whole k (v3k generates, or has no planes)
-    v3_planes = stream != "v3k" and whole_k
-    # c1 over the local k block, on recv row 0 only (every row's would be
-    # the same); e1 masked to the k-row block at kd > 1
+    r_op = _r_operand(params, k_r, (my_k * kc, kc), sc.shape[0], stream, 0, device)
+    # c1 over the local k block, on recv row 0 only (every row's would be the same)
     c1p = None
     if my_r == 0:
-        g1 = n1 = None
-        if host_e1 is None:
-            g1 = gen_noise_seeds(k_e1, b1, 0, stream, device,
-                                 None if whole_k and not force_masked
-                                 else (my_k * kc, my_k * kc + kc))
-            n1 = ntt_ops.noise_digit_planes(k_e1, 0, k, d, l, b1, device) if v3_planes else None
-        c1p = matmul_fold_scaled(None, r_op, ring, noise=n1, gen_noise=g1, lhs_dig=a_dig,
-                                 noise_bound=b1)
-        if host_e1 is None and g1 is None and n1 is None and not whole_k:
-            c1p = _bake_rows(c1p, _noise_ntt(params, k_e1, my_k * kc, kc, d, b1, stream,
-                                             device), my_k * kc, kc, ring)
-
-    # c2: the local receiver rows; at kd > 1 rc = ceil(nl / kd) rows a block
+        c1p = _shard_product(params, r_op, a_dig, k_e1, params.k, 0, params.error_bound_1,
+                             host_e1, None, False, kd, my_k, force_masked, stream, device)
     glob0 = my_r * nl
-    rc = -(-nl // kd)
-    blk_lo = my_k * rc
-    g2 = None
-    if host_e2 is None:
-        g2 = gen_noise_seeds(k_e2, b2, glob0, stream, device,
-                             None if whole_k and not force_masked
-                             else (glob0 + blk_lo, glob0 + blk_lo + rc))
-    n2 = (ntt_ops.noise_digit_planes(k_e2, glob0, nl, d, l, b2, device)
-          if host_e2 is None and v3_planes else None)
-    etab = u64op.u64_tensor(encode_tab(params.gadget_ntt, params.gadget_ntt_shoup,
-                                       params.gadget_wrap), device)
-    encode = (sc.t().contiguous(), etab) if whole_k or g2 is not None else None
-    c2p = matmul_fold_scaled(None, r_op, ring, noise=n2, gen_noise=g2, encode=encode,
-                             lhs_dig=b_dig, encode32=encode32, noise_bound=b2)
-    if not whole_k and g2 is None:
-        # bake route: pad the partial to rc * kd rows (the tail block may
-        # reach past nl: its rows carry values sliced off after the gather)
-        pad = rc * kd - nl
-        sc_p = sc
-        if pad:
-            c2p = torch.nn.functional.pad(c2p, (0, 0, 0, pad))
-            sc_p = torch.nn.functional.pad(sc, (0, pad))
-        if host_e2 is None:
-            c2p = _bake_rows(c2p, _noise_ntt(params, k_e2, glob0 + blk_lo, rc, d, b2, stream,
-                                             device), blk_lo, rc, ring)
-        c2p = _bake_rows(c2p, _encode_channel_major(params, sc_p[:, blk_lo:blk_lo + rc]),
-                         blk_lo, rc, ring)
+    c2p = _shard_product(params, r_op, b_dig, k_e2, nl, glob0, params.error_bound_2,
+                         None if host_e2 is None else host_e2[:, :, glob0:glob0 + nl], sc,
+                         encode32, kd, my_k, force_masked, stream, device)
     return c1p, c2p
 
 
@@ -229,29 +203,22 @@ def _shard_operands(a_dig, b_dig, sc, my_r: int, my_k: int, nl: int, kc: int, nd
             b_dig[:, :, rows, cols].to(device).contiguous(), sc[:, rows].to(device))
 
 
-def _finish_row(params: PvwParameters, key, my_r: int, nl: int, d: int, kd: int,
-                c1_parts, c2_parts: list, head, host_e1, host_e2, stream: str | None):
+def _finish_row(params: PvwParameters, my_r: int, nl: int, kd: int, c1_parts,
+                c2_parts: list, head, host_e1, host_e2):
     """Recv row ``my_r``'s gathered partials (kdim order) added mod q on
-    ``head``, with the noise that joins after the gather (host noise for
-    bounds >= min q; residue noise at kdim = 1): c1 [L, l, k, d] on row 0
-    (else None) and the row's c2 [L, l, nl, d]."""
-    ring, k = params.ring, params.k
+    ``head``, with the host noise of bounds >= min q where the shards hold
+    part of k (at kd = 1 each shard's product has added it): c1
+    [L, l, k, d] on row 0 (else None) and the row's c2 [L, l, nl, d]."""
+    ring = params.ring
     q = ring.table("q", head).reshape(-1, 1, 1, 1)
-    _, k_e1, k_e2 = split(key.to(head), 3)
-    b1, b2 = params.error_bound_1, params.error_bound_2
     c1 = None
     if my_r == 0:
         c1 = _modsum_gathered(c1_parts, ring, head)
-        if host_e1 is not None:
+        if host_e1 is not None and kd > 1:
             c1 = u64op.addmod(c1, host_e1.to(head), q)
-        elif kd == 1 and not ntt_ops.signed_digit_count(b1):
-            c1 = u64op.addmod(c1, _noise_ntt(params, k_e1, 0, k, d, b1, stream, head), q)
     c2 = _modsum_gathered(c2_parts, ring, head)[:, :, :nl]
-    glob0 = my_r * nl
-    if host_e2 is not None:
-        c2 = u64op.addmod(c2, host_e2[:, :, glob0:glob0 + nl].to(head), q)
-    elif kd == 1 and not ntt_ops.signed_digit_count(b2):
-        c2 = u64op.addmod(c2, _noise_ntt(params, k_e2, glob0, nl, d, b2, stream, head), q)
+    if host_e2 is not None and kd > 1:
+        c2 = u64op.addmod(c2, host_e2[:, :, my_r * nl:(my_r + 1) * nl].to(head), q)
     return c1, c2
 
 
@@ -262,17 +229,16 @@ def _encrypt_kernel_sharded(params: PvwParameters, mesh: Mesh, a_dig, b_dig, sc,
     _encrypt_kernel`: a_dig int8 [L, l, k, k*nd] and b_dig [L, l, n, k*nd]
     (the cached key planes, cut here into each shard's k-column block and,
     for B, its receiver rows), sc int64 [d, n], ``host_e1``/``host_e2``
-    channel-major host noise [L, l, k|n, d] for bounds >= min q, added after
-    the gather. ``force_masked`` takes the masked form at kdim = 1 too (its
-    range the shard's whole block: the same bytes). c1 is the same on every
+    channel-major host noise [L, l, k|n, d] for bounds >= min q
+    (:func:`_shard_product` says where each adds). ``force_masked`` takes
+    the masked form at kdim = 1 too (its range the shard's whole block: the
+    same bytes). c1 is the same on every
     recv row (``shard_map`` computes it on each, replicated); here only
     recv row 0's shards compute their partials. Returns channel-major c1
     [L, l, k, d] and c2 [L, l, n, d] on the mesh's first device."""
-    ring, k, n = params.ring, params.k, params.n
-    nd = ring.num_digits
-    d = sc.shape[0]
+    nd = params.ring.num_digits
     nr, kd = mesh.shape["recv"], mesh.shape["kdim"]
-    nl, kc = n // nr, k // kd
+    nl, kc = params.n // nr, params.k // kd
     dev0 = mesh.devices[0][0]
     c1 = None
     c2_rows = []
@@ -285,8 +251,8 @@ def _encrypt_kernel_sharded(params: PvwParameters, mesh: Mesh, a_dig, b_dig, sc,
                 my_r, my_k, kd, nl, host_e1, host_e2, force_masked, stream, encode32, dev)
             c1_parts.append(p1)
             c2_parts.append(p2)
-        row_c1, c2 = _finish_row(params, key, my_r, nl, d, kd, c1_parts, c2_parts,
-                                 mesh.devices[my_r][0], host_e1, host_e2, stream)
+        row_c1, c2 = _finish_row(params, my_r, nl, kd, c1_parts, c2_parts,
+                                 mesh.devices[my_r][0], host_e1, host_e2)
         if my_r == 0:
             c1 = row_c1
         c2_rows.append(c2.to(dev0))
@@ -329,24 +295,6 @@ def encrypt_batch_sharded(all_scalars, global_pk: GlobalPublicKey, key, mesh: Me
                          Poly.from_channel_major(c2, Representation.Ntt, params.ring), params)
 
 
-def _decrypt_partial(ring, sk, c1_ch, ks: slice, dls: slice, device):
-    """One shard's partial <s, c1_d> over its k block ``ks`` for its
-    dealers ``dls``: sk NTT residues [k, L, l], c1_ch [L, l, k, d] ->
-    [L, l, dl] on ``device``."""
-    skc = sk[ks].to(device).permute(1, 2, 0)[:, :, None, :]               # [L, l, 1, kc]
-    return modmat.matmul_channels(skc, c1_ch[:, :, ks, dls].to(device), ring)[:, :, 0]
-
-
-def _decrypt_finish(ring, parts: list, c2_rows, head):
-    """A recv row's gathered partials (kdim order) added mod q on ``head``,
-    minus its dealers' c2 [L, l, dl], through the inverse NTT: PowerBasis
-    residues int64 [dl, L, l]."""
-    s = _modsum_gathered(parts, ring, head)
-    q = ring.table("q", head)[:, None, None]
-    z = u64op.submod(s, c2_rows.to(head), q).permute(2, 0, 1)             # [dl, L, l]
-    return ntt_ops.ntt_inverse(z, ring)
-
-
 def _noisy_sharded_ch(params: PvwParameters, mesh: Mesh, sk, c1_ch, c2_ch) -> list:
     """Sharded decryption stage, channel-major: z_d = <s, c1_d> - c2_d with
     the dealers over recv and the k contraction over kdim (gathered and
@@ -363,9 +311,12 @@ def _noisy_sharded_ch(params: PvwParameters, mesh: Mesh, sk, c1_ch, c2_ch) -> li
     out = []
     for my_r in range(nr):
         dls = slice(my_r * dl, (my_r + 1) * dl)
-        parts = [_decrypt_partial(ring, sk, c1_ch, slice(my_k * kc, (my_k + 1) * kc), dls,
-                                  mesh.devices[my_r][my_k]) for my_k in range(kd)]
-        out.append(_decrypt_finish(ring, parts, c2_ch[:, :, dls], mesh.devices[my_r][0]))
+        parts = []
+        for my_k in range(kd):
+            ks, dev = slice(my_k * kc, (my_k + 1) * kc), mesh.devices[my_r][my_k]
+            parts.append(_contraction(ring, sk[ks].to(dev), c1_ch[:, :, ks, dls].to(dev)))
+        head = mesh.devices[my_r][0]
+        out.append(_noisy_finish(ring, _modsum_gathered(parts, ring, head), c2_ch[:, :, dls]))
     return out
 
 

@@ -89,7 +89,7 @@ def test_banded_tables_equal_jax(moduli):
     """Kernel 2's fold table (q, the bias of 2nd - 1 columns, four groups of
     2^(32g) mod q and its Shoup companion) holds the JAX package's values."""
     tr, jr = TRing(moduli, 8), JRing(moduli, 8)
-    t = tfm._pack_tables(tr, tr.num_columns, tfm.BANDED_TABLE_WIDTH)
+    t = tfm.pack_tables(tr, tr.num_columns, tfm.BANDED_TABLE_WIDTH)
     jt = jpm._pack_tables(jr).astype(np.uint64)
     pair = lambda hi, lo: (jt[:, hi] << np.uint64(32)) | jt[:, lo]
     np.testing.assert_array_equal(t[:, 0], pair(18, 19))

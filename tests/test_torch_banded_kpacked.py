@@ -107,13 +107,13 @@ def test_banded_plain_twin_equals_jax(moduli, m, k, n):
 
 @pytest.mark.parametrize("moduli,S", [(TOY, 8), (BIG, 16)])
 def test_banded_tables_cached(moduli, S):
-    """Kernel 2's fold tables equal a fresh ``_pack_tables`` of 2nd - 1
+    """Kernel 2's fold tables equal a fresh ``pack_tables`` of 2nd - 1
     columns, each limb's row for its S channels, and are built once per
     ring, S and device."""
     ring = TRing(moduli, 8)
     before = tfm.table_builds
     t = tfm._banded_tables(ring, S, "cpu")
-    fresh = tfm._pack_tables(ring, 2 * ring.num_digits - 1, tfm.BANDED_TABLE_WIDTH)
+    fresh = tfm.pack_tables(ring, 2 * ring.num_digits - 1, tfm.BANDED_TABLE_WIDTH)
     np.testing.assert_array_equal(tu.u64_numpy(t), np.repeat(fresh, S, axis=0))
     assert tfm._banded_tables(ring, S, "cpu") is t
     assert tfm.table_builds == before + 1

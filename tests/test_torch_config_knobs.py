@@ -32,7 +32,8 @@ from pvw_tpu_torch.utils import profiling
 from _torch_systems import jax_reference
 
 MODULI = (0xFFFFEE001, 0xFFFFC4001)
-MOSAIC_KNOBS = {"tile_m", "tile_n", "no_pallas", "dots_first", "vmem_limit_mb", "jax_cache_dir"}
+MOSAIC_KNOBS = {"tile_m", "tile_n", "no_pallas", "dots_first", "vmem_limit_mb", "jax_cache_dir",
+                "fused_prescale"}
 
 
 def knobs(cls):

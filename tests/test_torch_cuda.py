@@ -33,6 +33,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def refuse(monkeypatch, *symbols):
+    """Every launch of the C entries ``symbols`` through ``fused_modmat``
+    returns CUDA error 700, as a refused launch does."""
+    real = fm.bind
+    monkeypatch.setattr(fm, "bind", lambda name, symbol, argtypes: (
+        (lambda *args: 700) if symbol in symbols else real(name, symbol, argtypes)))
+
+
 def rand_u64(rng, shape):
     return rng.integers(0, 1 << 63, size=shape, dtype=np.uint64) * np.uint64(2) \
         + rng.integers(0, 2, size=shape, dtype=np.uint64)
@@ -205,7 +213,7 @@ def test_deep_chain_encryption_reaches_the_kernel(cuda_device, monkeypatch, l, m
         out[str(dev)] = (gpk.matrix.residues_np(), ct.c1.residues_np(), ct.c2.residues_np())
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         np.testing.assert_array_equal(a, b)
-    monkeypatch.setattr(fm, "_prescale_fn", lambda: (lambda *args: 700))
+    refuse(monkeypatch, "pvw_ntt_prescale_band")
     with pytest.raises(RuntimeError, match="launch failed"):
         P.encrypt_batch(sc, gpk, R.fold_in(key, 4))
 
@@ -573,7 +581,7 @@ def test_swapped_and_pipelined_failures_raise(cuda_device, monkeypatch):
     finally:
         del settings.pipeline_fold
     assert fm.fused_pipelined_matmul.launches == before
-    monkeypatch.setattr(fm, "_kernel_fn", lambda symbol: (lambda *args: 700))
+    refuse(monkeypatch, "pvw_fused_scaled_noise_matmul", "pvw_fused_scaled_noise_matmul_swapped")
     planes = torch.zeros((2, 32, 5, 4, 20), dtype=torch.int8, device=cuda_device)
     rd = torch.zeros((2, 32, 20, 8), dtype=torch.int8, device=cuda_device)
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -797,13 +805,13 @@ def test_banded_and_masked_failures_raise(cuda_device, monkeypatch):
     planes = torch.zeros((16, 5, 4, 3), dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte strides"):     # rows not k-packed
         fm.banded_matmul(planes, planes, fm._banded_tables(ring, 8, cuda_device))
-    monkeypatch.setattr(fm, "_banded_fn", lambda: (lambda *args: 700))
+    refuse(monkeypatch, "pvw_banded_matmul")
     with pytest.raises(RuntimeError, match="launch failed"):
         fm.matmul_channels_fused(a, b, ring)
-    monkeypatch.setattr(fm, "_digits_fn", lambda: (lambda *args: 700))
+    refuse(monkeypatch, "pvw_digit_planes")
     with pytest.raises(RuntimeError, match="launch failed"):
         fm.matmul_channels_fused(a, b, ring)
-    monkeypatch.setattr(fm, "_kernel_fn", lambda symbol: (lambda *args: 700))
+    refuse(monkeypatch, "pvw_fused_scaled_noise_matmul", "pvw_fused_scaled_noise_matmul_swapped")
     _, lhs_dig, band, _, _, _ = operands(TOY, 1, None, 32, m=8, k=4, n=8)
     with pytest.raises(RuntimeError, match="launch failed"):
         fm.matmul_fold_scaled(None, band.to(cuda_device), ring, lhs_dig=lhs_dig.to(cuda_device),

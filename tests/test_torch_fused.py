@@ -118,7 +118,7 @@ def test_plain_twin_equals_pallas_interpret(moduli, jr, encode, vals):
 def test_kernel_tables_equal_jax(moduli):
     tr, jr = TRing(moduli, 8), JRing(moduli, 8)
     nd = tr.num_digits
-    t, j = tfm._pack_tables(tr, nd), jpm._pack_tables(jr, nd)
+    t, j = tfm.pack_tables(tr, nd), jpm._pack_tables(jr, nd)
     np.testing.assert_array_equal(t[:, 0], ju.join_u64_np(j[:, 18], j[:, 19]))
     np.testing.assert_array_equal(t[:, 1], ju.join_u64_np(j[:, 16], j[:, 17]))
     for g in (0, 1):

@@ -21,7 +21,9 @@ import pvw_tpu.parallel as JP
 from pvw_tpu.ops import pallas_modmat as jpm
 import pvw_tpu_torch as P
 import pvw_tpu_torch.parallel as TP
+from pvw_tpu_torch.crypto import encryption as tenc
 from pvw_tpu_torch.errors import InvalidParameters
+from pvw_tpu_torch.ops import fused_modmat as tfm
 from pvw_tpu_torch.parallel import sharding as tsharding
 
 from _torch_systems import (CPU, HUGE, MODULI, MODULI4, RESIDUE_CASES, assert_same,
@@ -51,17 +53,27 @@ def stream(request):
 
 
 def seed_words(monkeypatch):
-    """The seed word counts of the port's sharded products (None: no
-    generated noise), recorded as they run."""
-    seen = []
-    real = tsharding.matmul_fold_scaled
+    """The seed word counts of the port's sharded products, one a product
+    (None: no generated noise), recorded as they run: each launch of the
+    v3k generator (6 words where masked, else 4) joins the fused matmul
+    that reads it, whether the shard's product runs through
+    ``encryption._product`` or the bake route."""
+    seen, words = [], []
+    real_gen, real_mm = tfm.v3k_noise_planes, tsharding.matmul_fold_scaled
 
-    def record(*a, **kws):
-        g = kws.get("gen_noise")
-        seen.append(None if g is None else len(g[0]))
-        return real(*a, **kws)
+    def gen(*a, **kws):
+        mask = a[9] if len(a) > 9 else kws.get("mask")
+        words.append(4 if mask is None else 6)
+        return real_gen(*a, **kws)
 
-    monkeypatch.setattr(tsharding, "matmul_fold_scaled", record)
+    def product(*a, **kws):
+        out = real_mm(*a, **kws)
+        seen.append(words.pop() if words else None)
+        return out
+
+    monkeypatch.setattr(tfm, "v3k_noise_planes", gen)
+    for module in (tenc, tsharding):
+        monkeypatch.setattr(module, "matmul_fold_scaled", product)
     return seen
 
 
@@ -99,12 +111,13 @@ def test_sharded_encrypt_equals_jax(toy, stream, recv, kdim, monkeypatch):
     seen = seed_words(monkeypatch)
     tct = TP.encrypt_batch_sharded(sc, toy.tgpk, toy.tkey,
                                    TP.make_mesh([CPU] * 8, kdim=kdim))
+    sharded = list(seen)
     jct = JP.encrypt_batch_sharded(sc, toy.jgpk, toy.key,
                                    JP.make_mesh(jax.devices(), kdim=kdim))
     assert_same(tct, jct)
     assert_same(tct, P.encrypt_batch(sc, toy.tgpk, toy.tkey))
     want = 6 if kdim > 1 else 4
-    assert seen == [want if stream == "v3k" else None] * ((1 + recv) * kdim)
+    assert sharded == [want if stream == "v3k" else None] * ((1 + recv) * kdim)
     assert not jpm.kernel_noise_available(toy.jp.ring, 8, 2, 8 // kdim, 50, tfry=True)
 
 

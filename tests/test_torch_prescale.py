@@ -9,8 +9,6 @@ coefficients. The band is int8 digits: exact equality. The CUDA kernel is
 held against the twin in ``tests/test_torch_cuda.py``.
 """
 
-import warnings
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -21,7 +19,6 @@ from pvw_tpu.ops import ntt as jntt
 from pvw_tpu.ops import pallas_modmat as jpm
 from pvw_tpu.ops import u64 as ju
 from pvw_tpu.params.ring import get_ring as jring
-from pvw_tpu_torch.config import settings
 from pvw_tpu_torch.ops import fused_modmat as tfm
 from pvw_tpu_torch.ops import u64 as tu
 from pvw_tpu_torch.params.ring import get_ring as tring
@@ -129,35 +126,3 @@ def test_available_and_wrapper_guards():
     assert torch.equal(tfm.ntt_prescale_band(c, ring, 1),
                        tfm.ntt_prescale_band_plain(c, ring, 1))
     assert tfm.ntt_prescale_band.launches == before     # the CPU launches nothing
-
-
-def test_fused_prescale_policy(monkeypatch):
-    """tests/test_config.py's fused_prescale cases, on the port's settings."""
-    monkeypatch.delenv("PVW_TPU_FUSED_PRESCALE", raising=False)
-    assert settings.fused_prescale == "auto"
-    assert settings.use_fused_prescale(8) is True
-    assert settings.use_fused_prescale(5) is False
-    assert settings.use_fused_prescale(7) is False
-    monkeypatch.setenv("PVW_TPU_FUSED_PRESCALE", "1")
-    assert settings.use_fused_prescale(5) is True
-    monkeypatch.setenv("PVW_TPU_FUSED_PRESCALE", "0")
-    assert settings.use_fused_prescale(8) is False
-    monkeypatch.setenv("PVW_TPU_FUSED_PRESCALE", "true")
-    assert settings.use_fused_prescale(5) is True
-    monkeypatch.setenv("PVW_TPU_FUSED_PRESCALE", "off")
-    assert settings.use_fused_prescale(8) is False
-    monkeypatch.delenv("PVW_TPU_FUSED_PRESCALE")
-    try:
-        settings.fused_prescale = True
-        assert settings.use_fused_prescale(5) is True
-        settings.fused_prescale = False
-        assert settings.use_fused_prescale(8) is False
-        settings.fused_prescale = "bogus"
-        with pytest.warns(UserWarning, match="bogus"):
-            assert settings.use_fused_prescale(8) is True
-        settings.fused_prescale = "auto"
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            assert settings.use_fused_prescale(8) is True
-    finally:
-        del settings.fused_prescale

@@ -76,10 +76,9 @@ def test_dealer_ciphertexts_equal_jax(deep, stream):
     np.testing.assert_array_equal(tct.c2.residues_np(), jct.c2.residues_np())
 
 
-@pytest.mark.parametrize("mode", ["1", "auto", "0"])
-def test_r_stage_routing(deep, monkeypatch, mode):
-    """Every ``fused_prescale`` mode takes the fused r-stage once (the port
-    has one r-stage route) and gives the JAX package's ciphertext."""
+def test_r_stage_routing(deep, monkeypatch):
+    """An encryption takes the fused r-stage once (the port has one
+    r-stage route) and gives the JAX package's ciphertext."""
     _, _, jkey, _, tgpk, _, _, shares, cts = deep
     calls = []
     real = tenc.ntt_prescale_band
@@ -88,10 +87,9 @@ def test_r_stage_routing(deep, monkeypatch, mode):
     key = jax.random.fold_in(jkey, 8)
     try:
         tsettings.noise_stream = "v3"
-        tsettings.fused_prescale = mode
         tct = P.encrypt_all_party_shares_batched(shares, tgpk, kw(key))
     finally:
-        del tsettings.noise_stream, tsettings.fused_prescale
+        del tsettings.noise_stream
     assert len(calls) == 1
     np.testing.assert_array_equal(tct.c2.residues_np(), cts["v3"][1].c2.residues_np())
 
