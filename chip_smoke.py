@@ -28,7 +28,7 @@ CUDA events with its spread [min, max], beside the bound, the plain twin,
 to ``torch._int_mm``.
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   the ten kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
+   the twelve kernel sources from ``pvw_tpu_torch/csrc`` (one nvcc each,
    started together, into ``build/kernels``), then of the C++ decode engine
    (``native/pvw_decode.cpp``, g++, into ``build/native``);
 2. kernel_vs_plain: kernel 1, the fused scaled-noise matmul, against its
@@ -73,6 +73,13 @@ to ``torch._int_mm``.
    one decode under ``torch.profiler``; decode_timing: the kernel at both
    threshold cells' batches (921 messages of config 4 and of the
    reference), through its wrapper and raw, beside its bound and twin;
+9b. contraction: decryption's contraction kernel (``csrc/noisy_messages.cu``:
+   <s, c1> - c2 and the inverse NTT) against its plain twin
+   ``noisy_messages_plain``, every residue, whole and partial, at both
+   threshold cells' shapes (config 4: L = 17, l = 16, k = 512; the
+   reference: L = 4, l = 8, k = 1024; 921 dealers), then timed through its
+   wrapper and raw, beside its byte bound and twin; every dealer path gates
+   one launch of it a device decryption;
 10. v3k_vs_plain: the v3k noise generator against its twin, every byte, at
     the toy, config-4 and reference c1/c2 shapes (l = 8, 16, 32; jr = 1
     and 2; offsets; widths off its column tile); kernel 1 with ``gen_noise``
@@ -195,7 +202,7 @@ to ``torch._int_mm``.
 22a. examples: the four examples of ``pvw_tpu_torch.examples`` at their
     default sizes, each in its own interpreter, started together: rc 0,
     kernels 1 and 4 launched in each;
-23. the kernels line (fourteen entries; kernel 1's with its time at each
+23. the kernels line (fifteen entries; kernel 1's with its time at each
     forced width), then the last line ``{"ok": true, "device": ...}``.
 """
 
@@ -871,6 +878,112 @@ def decode_timing(dev, card: str, configs: dict) -> dict:
         del z, msgs, raw_out
         torch.cuda.empty_cache()
     return out
+
+
+def contraction_operands(ring, k: int, d: int, seed: int, dev) -> tuple:
+    """Canonical residues made on the card: sk [k, L, l], c1 [L, l, k, d] and
+    c2 [L, l, d] as ``.select`` hands them (contiguous), q - 1 in sk's first
+    row and c1's first dealer (the largest products)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = ring.table("q", dev)
+
+    def residues(shape):
+        x = torch.randint(0, 1 << 62, shape, generator=g, device=dev, dtype=torch.int64)
+        return x % q.reshape((1,) * (len(shape) - 1) + (-1,))
+
+    L, l = ring.num_limbs, ring.degree
+    sk = residues((k, l, L)).permute(0, 2, 1).contiguous()
+    c1 = residues((l, k, d, L)).permute(3, 0, 1, 2).contiguous()
+    c2 = residues((l, d, L)).permute(2, 0, 1).contiguous()
+    sk[0] = (q - 1)[:, None]
+    c1[..., 0] = (q - 1)[:, None, None]
+    return sk, c1, c2
+
+
+def phase_contraction(dev, card: str, configs: dict) -> tuple[int, dict]:
+    """Decryption's contraction kernel (``fused_modmat.noisy_messages``,
+    ``csrc/noisy_messages.cu``) at each of ``configs`` (label -> params) on a
+    threshold cell's shape (:data:`THRESHOLD_BATCH` dealers, the preset's k,
+    L and l): one launch, every residue against the plain twin
+    ``noisy_messages_plain``, whole and partial (the mesh's form); then
+    timed through its wrapper (CUDA events, median of 5 with the spread),
+    and without it: its C entry and the wrapper, each 20 launches back to
+    back between two events, interleaved in 5 rounds (the raw launch's
+    residues held equal to the wrapper's), the host time of a call of each;
+    beside its plain twin (median of 3) and its bound, c1, the key and c2
+    read and the residues written once at ``HBM_BYTES_PER_S`` (its 64 x 64
+    -> 128-bit products, counted as 8 multiply-adds each at
+    :data:`IMAD_PER_S`, take less). No PyTorch call contracts: no library
+    time. Returns the kernel's worst mismatch count with its twin (0) and
+    the timings."""
+    import ctypes
+
+    import torch
+
+    from pvw_tpu_torch.ops import _build, fused_modmat as fm
+    from pvw_tpu_torch.ops._build import bind, ptr
+
+    fn = bind(*fm.CONTRACTION_ENTRY)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    worst, out = 0, {}
+    for seed, (label, params) in enumerate(configs.items()):
+        ring, k, d = params.ring, params.k, THRESHOLD_BATCH
+        L, l = ring.num_limbs, ring.degree
+        sk, c1, c2 = contraction_operands(ring, k, d, 60 + seed, dev)
+        launched = fm.noisy_messages.launches
+        z = fm.noisy_messages(ring, sk, c1, c2)
+        part = fm.noisy_messages(ring, sk, c1)
+        check(fm.noisy_messages.launches == launched + 2,
+              f"contraction: {label}'s two calls did not launch the kernel twice")
+        want = fm.noisy_messages_plain(ring, sk, c1, c2)
+        mismatches = int((z != want).sum()) + int((part != fm.noisy_messages_plain(
+            ring, sk, c1)).sum())
+        worst = max(worst, mismatches)
+        raw_out = torch.empty_like(z)
+        tab = fm.contraction_tables(ring, dev)
+        raw_args = (L, l, k, d, ptr(sk), *sk.stride(), ptr(c1), *c1.stride()[:3], ptr(c2),
+                    *c2.stride(), ptr(tab), ptr(raw_out), stream)
+
+        def raw():
+            check(fn(*raw_args) == 0, "the contraction kernel's raw launch failed")
+
+        def wrapper():
+            fm.noisy_messages(ring, sk, c1, c2)
+
+        wrapped = kernel_times(wrapper)
+        plain_ms = cuda_ms(lambda: fm.noisy_messages_plain(ring, sk, c1, c2), reps=3)
+        back_to_back = interleaved_times({"wrapper": wrapper, "raw": raw}, rounds=5, inner=20)
+        check(torch.equal(raw_out, z),
+              f"the contraction kernel's raw launch differs from its wrapper at {label}")
+        host_us = host_us_a_call({"wrapper": wrapper, "raw": raw})
+        products = L * l * k * d
+        nbytes = 8 * (L * l * k * d + k * L * l + 2 * L * l * d)
+        ops_ms, bytes_ms = 8 * products / IMAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {"phase": "contraction", "kernel": fm.CONTRACTION_KERNEL,
+               "shape": f"{label} d={d} k={k} L={L} l={l}", "card": card,
+               "compared": "every residue, whole and partial", "max_abs_err": mismatches,
+               **wrapped, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "products": products, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+               "raw_ms": back_to_back["raw"]["ms"],
+               "raw_ms_spread": back_to_back["raw"]["ms_spread"],
+               "wrapper_back_to_back_ms": back_to_back["wrapper"]["ms"],
+               "wrapper_back_to_back_ms_spread": back_to_back["wrapper"]["ms_spread"],
+               "wrapper_host_us": host_us["wrapper"], "raw_host_us": host_us["raw"],
+               "ptxas": _build.ptxas_report(fm.CONTRACTION_KERNEL)}
+        rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+        rec["x_bound_raw"] = rec["raw_ms"] / rec["bound_ms"]
+        rec["x_plain_raw"] = plain_ms / rec["raw_ms"]
+        out[label] = rec
+        emit(rec)
+        check(not mismatches, f"contraction: the kernel differs from its plain twin in "
+                              f"{mismatches} residues at {label}")
+        del sk, c1, c2, z, part, want, raw_out
+        torch.cuda.empty_cache()
+    return worst, out
 
 # --------------------------------------------------------------------------
 # the deep chain: BASELINE config 4 (17 x 61-bit limbs, l = 16, nd = 8)
@@ -1798,6 +1911,9 @@ def phase_dealer_path(phase: str, params, dev, card: str, seed: int, stream: str
     check(counts[DECODE_KERNEL] == counts[DECODES],
           f"the decode kernel launched {counts[DECODE_KERNEL]} times for {counts[DECODES]} "
           f"device decodes in {phase}")
+    check(counts[fm.CONTRACTION_KERNEL] == counts[DECODES],
+          f"the contraction kernel launched {counts[fm.CONTRACTION_KERNEL]} times for "
+          f"{counts[DECODES]} device decryptions in {phase}")
     check(counts[HOST_DECRYPTS] == host_wrap, f"{counts[HOST_DECRYPTS]} host decryptions for "
                                               f"{host_wrap} single messages in {phase}")
     check(counts[NATIVE_DECODES] == counts[PYTHON_DECODES] == 0,
@@ -2203,35 +2319,36 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
     sks = {i: P.SecretKey(params, host_coeffs[i]) for i in (0, 1, n // 2, n - 1)}
     v3k = stream == "v3k"
     # name: (encrypt, decrypt(ct, party), parties decrypted, shards, products, masked
-    # launches, device decodes a decryption); a mesh computes c1 on its recv row 0
-    # only, c2 on every shard, and decodes a batch per recv row
+    # launches, device decodes a decryption, contraction launches a decryption); a
+    # mesh computes c1 on its recv row 0 only, c2 on every shard, decodes a batch
+    # per recv row and contracts a k block per shard
     devices = list(devices) if devices is not None else [dev] * 4
     mesh = lambda count, kdim: TP.make_mesh(devices[:count], kdim=kdim)
     backends = {
         "sharded_path" if v3k else "sharded_bake_path": (
             lambda: TP.encrypt_batch_sharded(shares, gpk, key, mesh(4, 2)),
             lambda ct, i: TP.decrypt_party_shares_sharded(ct, sks[i], i, mesh(4, 2)),
-            (0, n - 1), 4, 6, 6 if v3k else 0, 2)}
+            (0, n - 1), 4, 6, 6 if v3k else 0, 2, 4)}
     if v3k:
         backends.update({
             "forced_masked_path": (
                 lambda: TP.encrypt_batch_sharded(shares, gpk, key, mesh(1, 1),
                                                  _force_masked=True),
                 lambda ct, i: TP.decrypt_party_shares_sharded(ct, sks[i], i, mesh(1, 1)),
-                (n // 2,), 1, 2, 2, 1),
+                (n // 2,), 1, 2, 2, 1, 1),
             "data_parallel_path": (
                 lambda: TP.encrypt_batch_data_parallel(shares, gpk, key, devices),
                 lambda ct, i: P.decrypt_party_shares(ct.gather(), sks[i], i), (1,), 4, 8, 0,
-                1),
+                1, 1),
             "limb_parallel_path": (
                 lambda: TP.encrypt_batch_limb_parallel(shares, gpk, key, devices),
                 lambda ct, i: TP.decrypt_party_shares_limb_parallel(ct, sks[i], i), (0,), 4, 8,
-                0, 1),
+                0, 1, 4),
             "grid_path": (
                 lambda: TP.encrypt_batch_grid(shares, gpk, key, devices, limb_groups=2,
                                               kdim=2),
                 lambda ct, i: TP.decrypt_party_shares_grid(ct, sks[i], i), (n - 1,), 4, 8, 8,
-                1)})
+                1, 4)})
     settings.noise_stream = stream
     out = {}
     try:
@@ -2250,7 +2367,7 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
             del settings.decode_mode
         del ref
         for name, (encrypt, decrypt, parties, nshards, products, masked,
-                   decodes) in backends.items():
+                   decodes, contractions) in backends.items():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t = {"single_device_encrypt_ms": times["single_device_encrypt_ms"]}
@@ -2264,7 +2381,8 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
             del whole
             reset_launches()
             got = {i: timed(t, f"decrypt_party_{i}_ms", lambda: decrypt(ct, i)) for i in parties}
-            decoded, decode_launches = (launches()[k] for k in (DECODES, DECODE_KERNEL))
+            decoded, decode_launches, contracted = (
+                launches()[k] for k in (DECODES, DECODE_KERNEL, fm.CONTRACTION_KERNEL))
             exact = all(got[i] == [int(v) for v in shares[:, i]] for i in parties)
             python_equal = all(got[i] == single[i] for i in parties)
             out[name] = {"phase": name, "card": card, "devices": [str(d) for d in devices],
@@ -2276,6 +2394,7 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
                          "equal_to_single_device": equal, "parties": list(parties),
                          "shares_exact": exact, "equal_to_single_device_python_decode":
                          python_equal, "device_decodes": decoded,
+                         "contraction_launches": contracted,
                          "launches": ran, "peak_mem_gb": peak}
             emit(out[name])
             del ct
@@ -2290,6 +2409,9 @@ def phase_backends(dev, card: str, params, keys, stream: str, seed: int,
             check(decode_launches == decoded,
                   f"{name}: the decode kernel launched {decode_launches} times for {decoded} "
                   f"device decodes")
+            check(contracted == contractions * len(parties),
+                  f"{name}: the contraction kernel launched {contracted} times for "
+                  f"{len(parties)} decryptions ({contractions} each)")
             check(ran[fm.MASKED_KERNEL] == masked,
                   f"{name}: the masked form launched {ran[fm.MASKED_KERNEL]} times, not {masked}")
             check(ran[RELAYOUTS] == 0, f"{name}: {ran[RELAYOUTS]} bands relaid to k-packed")
@@ -3289,7 +3411,7 @@ def main() -> int:
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL,
                       fm.BANDED_KERNEL, fm.DIGITS_KERNEL, FOLD_ONLY_KERNEL,
                       INT32_PEAK_KERNEL, DOT_KERNEL, fm.RESIDUE_NOISE_KERNEL,
-                      DECODE_KERNEL])
+                      DECODE_KERNEL, fm.CONTRACTION_KERNEL])
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native_decode._lib()
@@ -3334,6 +3456,8 @@ def main() -> int:
         "toy chain": (presets.pvss_8192(N_RECEIVERS), N_RECEIVERS),
         "config 4": (deep, DEEP_N),
         "reference": (presets.secure_128_reference(REF_N), REF_N)})
+    contraction_worst, contraction_timed = phase_contraction(dev, card, {
+        "config 4": deep, "reference": presets.secure_128_reference(REF_N)})
     v3k_worst = phase_v3k_vs_plain(dev)
     v3k_timing = phase_v3k_timing(dev, card)
     residue_worst, residue_timing = phase_residue_noise(dev, card)
@@ -3436,6 +3560,14 @@ def main() -> int:
                      raw_ms=decode_timed["reference"]["raw_ms"],
                      wrapper_host_us=decode_timed["reference"]["wrapper_host_us"],
                      ptxas=_build.ptxas_report(DECODE_KERNEL)),
+        kernel_entry(fm.CONTRACTION_KERNEL, src + "noisy_messages.cu",
+                     "none: XLA code (pvw_tpu/crypto/decryption.py:65-78, the digit "
+                     "contraction and the inverse NTT)", "_noisy_messages (new)",
+                     by_path[fm.CONTRACTION_KERNEL], contraction_worst,
+                     contraction_timed["reference"], contraction_timed["config 4"], card,
+                     raw_ms=contraction_timed["reference"]["raw_ms"],
+                     wrapper_host_us=contraction_timed["reference"]["wrapper_host_us"],
+                     ptxas=_build.ptxas_report(fm.CONTRACTION_KERNEL)),
         kernel_entry(fm.SWAPPED_KERNEL, src + "fused_scaled_noise_matmul.cu",
                      "pvw_tpu/ops/pallas_modmat.py:696",
                      "_fused_scaled_noise_matmul (swapped=True, via matmul_fold_swapped)",

@@ -58,7 +58,7 @@ def main(argv) -> int:
         print(f"multicard_backends: needs {cards} CUDA card(s)", file=sys.stderr)
         return 2
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.RESIDUE_NOISE_KERNEL,
-                      cs.DECODE_KERNEL])
+                      cs.DECODE_KERNEL, fm.CONTRACTION_KERNEL])
     card = cs.card_line()
     print(card, flush=True)
     devices = [torch.device("cuda", 0 if args.one_card else i) for i in range(4)]

@@ -3,8 +3,9 @@
 The counterpart of ``pvw_tpu.crypto.decryption`` (the reference's
 ``decryption.rs``):
 
-1. z = <s, c1> - c2[i] as a channel-major digit contraction over k, then
-   one inverse NTT, batched over dealers, on the ciphertexts' device;
+1. z = <s, c1> - c2[i] over k, then one inverse NTT, batched over dealers,
+   on the ciphertexts' device (``ops/fused_modmat.noisy_messages``: on a
+   card one kernel, on the CPU the digit contraction and NTT in torch);
 2. the exact sequential-rounding decode with the reference's conventions
    (centering only above q//2, sign-split rounding division, Rust's
    truncated %, the final clamp of small negatives to 0).
@@ -27,7 +28,7 @@ import torch
 
 from ..errors import DecodingError, InvalidParameters
 from ..keys.secret_key import SecretKey
-from ..ops import modmat, ntt as ntt_ops, u64 as u64op
+from ..ops import fused_modmat, u64 as u64op
 from ..params.parameters import PvwParameters
 from ..utils import native_decode
 from ..utils.intmath import center_mod, rust_div, rust_rem
@@ -43,24 +44,26 @@ engine_calls = SimpleNamespace(host=0, native=0, device=0, python=0)
 
 def _contraction(ring, sk_ntt, c1_ch) -> torch.Tensor:
     """<s, c1> over the k rows given: sk_ntt [k, L, l] and c1_ch [L, l, k, d]
-    (NTT, on one device) -> [L, l, d]. A mesh shard passes its k block of
-    both; the blocks' partials add mod q."""
-    skc = sk_ntt.permute(1, 2, 0)[:, :, None, :]                  # [L, l, 1, k]
-    return modmat.matmul_channels(skc, c1_ch, ring)[:, :, 0]
+    (NTT, on one device) -> [L, l, d]: the partial form of
+    :func:`~pvw_tpu_torch.ops.fused_modmat.noisy_messages` (on a card one
+    launch of its kernel). A mesh shard passes its k block of both; the
+    blocks' partials add mod q, then :func:`_noisy_finish`."""
+    return fused_modmat.noisy_messages(ring, sk_ntt, c1_ch)
 
 
 def _noisy_finish(ring, prod, c2_ch) -> torch.Tensor:
     """The contraction ``prod`` [L, l, d] minus c2_ch [L, l, d] (NTT), on
-    prod's device -> PowerBasis residues int64 [d, L, l]."""
-    q = ring.table("q", prod.device)[:, None, None]
-    z = u64op.submod(prod, c2_ch.to(prod.device), q).permute(2, 0, 1)   # [d, L, l]
-    return ntt_ops.ntt_inverse(z, ring)
+    prod's device -> PowerBasis residues int64 [d, L, l]: plain torch, for
+    the partials a mesh gathers."""
+    return fused_modmat.noisy_finish_plain(ring, prod, c2_ch)
 
 
 def _noisy_messages(params: PvwParameters, sk_ntt, c1_ch, c2_ch) -> torch.Tensor:
     """sk_ntt [k, L, l]; c1_ch [L, l, k, d]; c2_ch [L, l, d] (NTT) ->
-    PowerBasis residues of <s, c1> - c2, int64 [d, L, l] on c1's device."""
-    return _noisy_finish(params.ring, _contraction(params.ring, sk_ntt, c1_ch), c2_ch)
+    PowerBasis residues of <s, c1> - c2, int64 [d, L, l] on c1's device,
+    contiguous: :func:`~pvw_tpu_torch.ops.fused_modmat.noisy_messages`, on
+    a card one launch of its kernel, on the CPU its plain twin."""
+    return fused_modmat.noisy_messages(params.ring, sk_ntt, c1_ch, c2_ch)
 
 
 def decode_scalar_pvw_rns(coeff_residues: np.ndarray, params: PvwParameters) -> int:

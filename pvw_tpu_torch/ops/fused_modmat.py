@@ -28,6 +28,13 @@ which the JAX package leaves to XLA) in the layout of kernel 1's ``post=``:
 on a card one kernel (``csrc/residue_noise.cu``), on the CPU its plain twin
 :func:`residue_noise_ch_plain`.
 
+:func:`noisy_messages` is decryption's contraction, <s, c1> - c2 and the
+inverse NTT, which the JAX package leaves to XLA: on a card one kernel
+(``csrc/noisy_messages.cu``) that reads c1's residues once, on the CPU its
+plain twin :func:`noisy_messages_plain` (the digit contraction of
+:func:`~pvw_tpu_torch.ops.modmat.matmul_channels`, then
+:func:`noisy_finish_plain`).
+
 :func:`ntt_prescale_band` is the counterpart of
 ``pvw_tpu.ops.pallas_modmat.ntt_prescale_band``: small signed coefficients
 -> signed NTT -> scaled-digit band in one pass, the r-stage of encryption
@@ -94,7 +101,7 @@ from ._build import bind, check_args, count_launches, launch, ptr
 from ._build import launch_counters  # noqa: F401  (the registry, read through this module)
 from .modmat import (_column_sums, _fold_leading, digits, exact_int_matmul, k_rows, k_rows_ok,
                      matmul_channels, operand_strides, prescale_digits_band, scaled_cols)
-from .ntt import ntt_forward, ntt_forward_signed_ch, signed_digit_count
+from .ntt import ntt_forward, ntt_forward_signed_ch, ntt_inverse, signed_digit_count
 from .tfry import key_words, reduce96, v3k_noise_digit_planes
 
 if TYPE_CHECKING:
@@ -111,6 +118,8 @@ PIPELINED_KERNEL = "fused_pipelined_matmul"
 NOISE_KERNEL = "v3k_noise_planes"
 RESIDUE_NOISE_KERNEL = "residue_noise"
 RESIDUE_NOISE_DEGREES = (8, 16, 32, 64)
+CONTRACTION_KERNEL = "noisy_messages"
+CONTRACTION_MAX_DEGREE = 64
 TABLE_WIDTH = 8
 PRESCALE_KERNEL = "ntt_prescale_band"
 PRESCALE_TABLE_WIDTH = 22
@@ -643,6 +652,107 @@ def residue_noise_ch(kk, row_off: int, rows: int, cols: int, bound: int, ring: "
 
 
 count_launches(RESIDUE_NOISE_KERNEL, residue_noise_ch)
+
+
+# --------------------------------------------------------------------------
+# decryption's contraction: <s, c1> - c2 and the inverse NTT
+# --------------------------------------------------------------------------
+
+CONTRACTION_ENTRY = (CONTRACTION_KERNEL, "pvw_noisy_messages",
+                     [ctypes.c_int] * 4
+                     + ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 3
+                     + [ctypes.c_void_p] * 3)
+
+
+def contraction_tables(ring: "RingPlan", device):
+    """The contraction kernel's table, int64 [L, 8 + 2 l^2] (u64 bit
+    patterns), cached per (ring, device): per limb q, floor(2^64 / q),
+    2^64 mod q and 2^128 mod q each with its Shoup companion
+    floor(w * 2^64 / q), two zero words, then the inverse NTT matrix (1/l
+    included) transposed, entry (j, s) = (ntt_inv[s, j], its companion)."""
+    def make(dev):
+        l = ring.degree
+        out = np.zeros((ring.num_limbs, 8 + 2 * l * l), np.uint64)
+        for i, lp in enumerate(ring.limbs):
+            q = lp.q
+            r64, r128 = (1 << 64) % q, (1 << 128) % q
+            out[i, :6] = [q, (1 << 64) // q, r64, (r64 << 64) // q, r128, (r128 << 64) // q]
+            inv = lp.ntt_inv.T
+            out[i, 8:] = np.stack([inv, np.array([[(int(w) << 64) // q for w in row]
+                                                  for row in inv], np.uint64)], -1).reshape(-1)
+        return u.u64_tensor(out, dev)
+
+    return ring.cached(("contraction_tables",), device, make)
+
+
+def noisy_finish_plain(ring: "RingPlan", prod, c2):
+    """The contraction ``prod`` [L, l, d] minus c2 [L, l, d] (NTT), on
+    prod's device, then the inverse NTT -> PowerBasis residues int64
+    [d, L, l]."""
+    q = ring.table("q", prod.device)[:, None, None]
+    return ntt_inverse(u.submod(prod, c2.to(prod.device), q).permute(2, 0, 1), ring)
+
+
+def noisy_messages_plain(ring: "RingPlan", sk, c1, c2=None):
+    """Plain PyTorch version of :func:`noisy_messages`: the digit
+    contraction of :func:`~pvw_tpu_torch.ops.modmat.matmul_channels` over
+    k, then :func:`noisy_finish_plain` where c2 is given."""
+    prod = matmul_channels(sk.permute(1, 2, 0)[:, :, None, :], c1, ring)[:, :, 0]
+    return prod if c2 is None else noisy_finish_plain(ring, prod, c2)
+
+
+def _check_contraction(ring: "RingPlan", sk, c1, c2) -> None:
+    L, l = ring.num_limbs, ring.degree
+    want = {"sk": (sk, 3), "c1": (c1, 4), "c2": (c2, 3)}
+    for name, (t, dims) in want.items():
+        if t is not None and (t.dtype != torch.int64 or t.dim() != dims):
+            raise ValueError(f"noisy_messages: {name} must be int64 with {dims} axes, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t is not None and t.device != c1.device:
+            raise ValueError(f"noisy_messages: {name} on {t.device}, c1 on {c1.device}")
+    k, d = c1.shape[2], c1.shape[3]
+    for name, t, shape in (("sk", sk, (k, L, l)), ("c1", c1, (L, l, k, d)),
+                           ("c2", c2, (L, l, d))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"noisy_messages: {name} must be {shape} for the ring's "
+                             f"L = {L}, l = {l}, got {tuple(t.shape)}")
+
+
+def noisy_messages(ring: "RingPlan", sk, c1, c2=None):
+    """<s, c1> over the k rows given, minus c2, inverse NTT: sk [k, L, l],
+    c1 [L, l, k, d] and c2 [L, l, d], NTT residues int64 on c1's device
+    (any strides) -> PowerBasis residues int64 [d, L, l], contiguous. With
+    c2 None, the partial form: the sums alone, [L, l, d] (a mesh shard's k
+    block; the blocks' partials add mod q, then :func:`noisy_finish_plain`).
+    A CUDA device launches ``csrc/noisy_messages.cu`` once on the current
+    stream (counted in ``noisy_messages.launches``; c1 is copied first only
+    where its dealer axis is not unit-stride; ring degrees up to
+    :data:`CONTRACTION_MAX_DEGREE`); the CPU takes the plain twin
+    :func:`noisy_messages_plain`; anything else raises."""
+    _check_contraction(ring, sk, c1, c2)
+    dev = c1.device
+    if dev.type == "cpu":
+        return noisy_messages_plain(ring, sk, c1, c2)
+    if dev.type != "cuda":
+        raise ValueError(f"noisy_messages: unsupported device {dev}")
+    L, l, k, d = c1.shape
+    if l > CONTRACTION_MAX_DEGREE:
+        raise ValueError(f"noisy_messages: the kernel takes ring degrees up to "
+                         f"{CONTRACTION_MAX_DEGREE}, got {l}")
+    shape = (L, l, d) if c2 is None else (d, L, l)
+    out = torch.empty(shape, dtype=torch.int64, device=dev)
+    if not d:
+        return out
+    if c1.stride(3) != 1 and d > 1:
+        c1 = c1.contiguous()
+    launch(CONTRACTION_KERNEL, bind(*CONTRACTION_ENTRY), dev, L, l, k, d, ptr(sk), *sk.stride(),
+           ptr(c1), *c1.stride()[:3], ptr(c2), *(c2.stride() if c2 is not None else (0,) * 3),
+           ptr(contraction_tables(ring, dev)), ptr(out))
+    noisy_messages.launches += 1
+    return out
+
+
+count_launches(CONTRACTION_KERNEL, noisy_messages)
 
 
 # --------------------------------------------------------------------------

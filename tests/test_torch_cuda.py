@@ -1426,3 +1426,152 @@ def test_host_route_from_card_ciphertexts(cuda_device):
     assert got == [int(v) for v in shares[:, 2]]
     assert sub == [(0, int(shares[0, 2])), (3, int(shares[3, 2]))]
     assert one == int(shares[0, 1])
+
+
+# --------------------------------------------------------------------------
+# decryption's contraction on the card: its kernel (csrc/noisy_messages.cu)
+# --------------------------------------------------------------------------
+
+CONTRACTION_SHAPES = {
+    "t256": (CHAIN_61X17, 16, 512, 921), "reference": (MODULI_55BIT4, 8, 1024, 921),
+    "toy": (TOY, 8, 256, 921), "d1": (CHAIN_61X17, 16, 512, 1),
+    "d1024": (MODULI_55BIT4, 8, 1024, 1024), "d33": (TOY, 8, 40, 33),
+    "l64": (CHAIN_61X2_L64, 64, 24, 70),
+}
+
+
+def contraction_operands(ring, k, d, seed, dev):
+    """Canonical residues on ``dev``: sk [k, L, l], c1 [L, l, k, d], c2
+    [L, l, d]; q - 1 in sk's first row and c1's first dealer (the largest
+    products)."""
+    rng = np.random.default_rng(seed)
+    qs = ring.q.reshape(-1, 1, 1, 1)
+    sk = rand_u64(rng, (ring.num_limbs, ring.degree, k, 1)) % qs
+    c1 = rand_u64(rng, (ring.num_limbs, ring.degree, k, d)) % qs
+    c2 = rand_u64(rng, (ring.num_limbs, ring.degree, d, 1)) % qs
+    sk[:, :, 0] = qs[..., 0] - np.uint64(1)
+    c1[..., 0] = qs[..., 0] - np.uint64(1)
+    return (u64.u64_tensor(sk[..., 0].transpose(2, 0, 1).copy(), dev),
+            u64.u64_tensor(c1, dev), u64.u64_tensor(c2[..., 0], dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(CONTRACTION_SHAPES))
+def test_contraction_kernel_equals_plain_twin(cuda_device, shape):
+    """One launch of the kernel against ``noisy_messages_plain`` on the same
+    card tensors, whole ([d, L, l], contiguous) and partial ([L, l, d]): the
+    threshold cells' shapes (t256: L = 17, l = 16, k = 512; the reference:
+    L = 4, l = 8, k = 1024; 921 dealers), the toy chain, one dealer, 1024
+    dealers, a dealer count off the 32-dealer tile and l = 64."""
+    moduli, l, k, d = CONTRACTION_SHAPES[shape]
+    ring = RingPlan(moduli, l)
+    sk, c1, c2 = contraction_operands(ring, k, d, len(shape), cuda_device)
+    launched = fm.noisy_messages.launches
+    got = fm.noisy_messages(ring, sk, c1, c2)
+    part = fm.noisy_messages(ring, sk, c1)
+    torch.cuda.synchronize()
+    assert fm.noisy_messages.launches == launched + 2
+    assert got.shape == (d, ring.num_limbs, l) and got.is_contiguous()
+    assert part.shape == (ring.num_limbs, l, d)
+    assert torch.equal(part, fm.noisy_messages_plain(ring, sk, c1))
+    assert torch.equal(got, fm.noisy_messages_plain(ring, sk, c1, c2))
+
+
+@pytest.mark.cuda
+def test_contraction_kernel_on_strided_views(cuda_device):
+    """The mesh's operands: a k block and a dealer slice of c1 and the key's
+    k block (strided views, read in place: no copy), c2 as a column of a
+    wider tensor; c1 laid out dealer-major (the canonical layout's view),
+    copied once by the wrapper. Each equal to the twin on the same views."""
+    ring = RingPlan(CHAIN_61X17, 16)
+    sk, c1, c2 = contraction_operands(ring, 512, 400, 8, cuda_device)
+    ks, ds = slice(128, 384), slice(37, 300)
+    block = fm.noisy_messages(ring, sk[ks], c1[:, :, ks, ds])
+    assert torch.equal(block, fm.noisy_messages_plain(ring, sk[ks], c1[:, :, ks, ds]))
+    c2_col = torch.stack([c2, c2], -1)[..., 1]
+    got = fm.noisy_messages(ring, sk, c1[:, :, :, ds], c2_col[:, :, ds])
+    assert torch.equal(got, fm.noisy_messages_plain(ring, sk, c1[:, :, :, ds], c2[:, :, ds]))
+    canonical = c1.permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
+    assert canonical.stride(3) != 1
+    assert torch.equal(fm.noisy_messages(ring, sk, canonical, c2),
+                       fm.noisy_messages_plain(ring, sk, c1, c2))
+
+
+@pytest.mark.cuda
+def test_contraction_kernel_on_a_limb_view(cuda_device):
+    """A ``restrict_limbs`` sub-ring (limbs 1, 5 and 16 of config 4's chain,
+    the key a strided limb view, as ``limb_parallel`` hands it): the kernel
+    takes the sub-ring's q and tables, equal to the twin and to the full
+    ring's residues of those limbs."""
+    p = decode_params(CHAIN_61X17, 16)
+    sub = p.restrict_limbs((1, 5, 16)).ring
+    full = p.ring
+    sk, c1, c2 = contraction_operands(full, 64, 150, 2, cuda_device)
+    idx = [1, 5, 16]
+    got = fm.noisy_messages(sub, sk[:, idx], c1[idx], c2[idx])
+    assert torch.equal(got, fm.noisy_messages_plain(sub, sk[:, idx], c1[idx], c2[idx]))
+    assert torch.equal(got, fm.noisy_messages(full, sk, c1, c2)[:, idx])
+    view = sk[:, 1:3]
+    assert not view.is_contiguous()
+    assert torch.equal(fm.noisy_messages(p.restrict_limbs((1, 2)).ring, view, c1[1:3], c2[1:3]),
+                       fm.noisy_messages(full, sk, c1, c2)[:, 1:3])
+
+
+@pytest.mark.cuda
+def test_contraction_kernel_refuses(cuda_device):
+    """An int32 operand, a shape off the ring, an operand on the CPU and a
+    ring degree past 64 each raise on the card: nothing is launched,
+    nothing falls back to the twin."""
+    ring = RingPlan(TOY, 8)
+    sk, c1, c2 = contraction_operands(ring, 16, 40, 1, cuda_device)
+    wide = RingPlan(generate_ntt_primes(61, 1, 128), 128)
+    wsk, wc1, wc2 = contraction_operands(wide, 4, 3, 1, cuda_device)
+    cases = [(ring, sk.to(torch.int32), c1, c2), (ring, sk, c1[:, :4], c2),
+             (ring, sk, c1, c2.cpu()), (wide, wsk, wc1, wc2)]
+    launched = fm.noisy_messages.launches
+    for args in cases:
+        with pytest.raises(ValueError):
+            fm.noisy_messages(*args)
+    assert fm.noisy_messages.launches == launched
+
+
+@pytest.mark.cuda
+def test_contraction_kernel_on_another_card(cuda_device):
+    """The kernel launched with its operands' card current: config 4's chain
+    on cuda:1, equal to the twin there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda:1")
+    ring = RingPlan(CHAIN_61X17, 16)
+    sk, c1, c2 = contraction_operands(ring, 128, 130, 3, dev)
+    got = fm.noisy_messages(ring, sk, c1, c2)
+    torch.cuda.synchronize(dev)
+    assert got.device == dev
+    assert torch.equal(got, fm.noisy_messages_plain(ring, sk, c1, c2))
+
+
+@pytest.mark.cuda
+def test_decryptions_on_the_card_take_one_contraction_launch(cuda_device):
+    """``decrypt_valid_shares``, ``decrypt_party_shares`` and
+    ``decrypt_party_value`` on the card by the device route: the exact
+    shares, one launch of the contraction kernel and one of the decode
+    kernel a call."""
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.crypto import device_decode
+
+    P, params, parties, gpk, shares, ct = small_system_on_card(cuda_device)
+    sk = parties[2].secret_key
+    settings.decode_mode = "device"
+    try:
+        before = (fm.noisy_messages.launches, device_decode.decode_residues.launches)
+        sub = P.decrypt_valid_shares(ct, [0, 1, 3], 2, sk, 2)
+        full = P.decrypt_party_shares(ct, sk, 2)
+        one = P.decrypt_party_value(P.encrypt(shares[1], gpk, R.key(5)), sk, 2)
+        assert (fm.noisy_messages.launches, device_decode.decode_residues.launches) == \
+            (before[0] + 3, before[1] + 3)
+    finally:
+        del settings.decode_mode
+    assert sub == [(i, int(shares[i, 2])) for i in (0, 1, 3)]
+    assert full == [int(v) for v in shares[:, 2]]
+    assert one == int(shares[1, 2])
