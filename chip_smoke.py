@@ -6,6 +6,10 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
+and, on a machine with four, the served mesh's phase alone (21c):
+
+    python3 chip_smoke.py mesh_service
+
 Phases, one JSON line each; any failure raises and exits non-zero. Every
 dealer path is ``phase_dealer_path`` (CRS, batch keygen or an earlier path's keys,
 the encryption operands, n dealers' shares in one batch, decryption with
@@ -182,10 +186,12 @@ to ``torch._int_mm``.
     crossover (also on the toy chain after breakdown, d up to 4096);
 21b. multiprocess_path (``parallel/multiprocess.py``): at the same
     preset, first the shards' kernels against their twins at the shapes
-    the (2, 2) mesh gives them (multiprocess_vs_plain: kernel 4 at a
+    the (2, 2) mesh gives them, there and at n = 8192, the
+    ``ref128-n8192-mesh4`` cell's (multiprocess_vs_plain: kernel 4 at a
     shard's r; the generator's masked planes and kernel 1's masked form at
     recv row 0's c1 shards, each kdim block's rows and rows
-    straddling both; kernel 1 bare at a bake-route c2 shard), then the
+    straddling both; kernel 1 bare at a bake-route c2 shard; the
+    residue-noise generator at the bake route's block), then the
     in-process (2, 2) mesh on ``cuda:0`` repeated (``torch.equal`` to the
     single-device encryption, timed), then the mesh across processes: 4
     ranks x 1 device on the (2, 2) mesh over gloo (the ranks share the
@@ -195,6 +201,14 @@ to ``torch._int_mm``.
     and stage times; gates: kernel 4 and kernel 1 bare in every rank,
     kernel 1 masked and the generator on recv row 0, one device decode a
     recv row (its ops warmed on zero residues in set-up);
+21c. mesh_service_path (``parallel/multiprocess.MeshService``), with four
+    cards or more (else a skip line): the ``ref128-n8192-mesh4`` cell's
+    configuration, ``secure_128_reference(8192)`` under v3k, 8192 dealers,
+    served by 4 ranks a card each over NCCL, each rank holding its recv
+    row's keys alone; one warm round, the launch counts set to 0 on every
+    rank, one round; gates, per rank: kernel 4, kernel 1 bare and the
+    residue-noise generator; kernel 1 masked and the v3k generator on recv
+    row 0 alone; no other kernel;
 22. pipelined_path: the toy chain at n = 4096 under v3k with
     ``settings.pipeline_fold`` (keygen and both products through kernel 3,
     no generator launch), full decryption for parties 0 and 4095; then
@@ -3010,6 +3024,10 @@ def phase_crossover(dev, card: str, configs: dict) -> dict:
 
 # the mesh across processes: 4 ranks x 1 device on the (2, 2) mesh
 MULTIPROC_WORLD, MULTIPROC_LOCAL = 4, 1
+# the ref128-n8192-mesh4 cell's parties (and dealers): BASELINE config 5
+MESH_N = 8192
+# the twins' blocks in mesh_kernels_vs_plain: dealer columns, residue-noise rows
+MESH_TWIN_COLS, MESH_TWIN_ROWS = 1024, 256
 FORCED_WIDTHS = (6, 7, 8)
 EXAMPLES = ("pvw", "pvw_valid_dec", "pvw_sharded", "interop_exchange")
 # runs one example in a fresh interpreter, its launches counted from 0
@@ -3024,28 +3042,39 @@ EXAMPLE_RUNNER = (
 
 
 def mesh_kernels_vs_plain(params, dev) -> dict:
-    """The kernels of ``multiprocess_path``'s shards ((2, 2) mesh at
-    ``params``, d = n dealers, v3k) against their twins at the shapes the
-    shards give them, every output byte: kernel 4 at a shard's r (its kdim
-    block of k/2 rows x d, the CBD bound), the generator's masked planes
-    and kernel 1's masked form (6-word seeds, c1's bound) at a recv-row-0 c1
-    shard (k rows, kdim block k/2, d columns) on each kdim block's rows and
-    on rows straddling both, and kernel 1 bare at a c2 shard of the bake
-    route (n/2 rows, kdim block k/2, d columns). Random operands from a
-    seed. -> the worst difference by kernel."""
+    """The kernels of a (2, 2) mesh's shards at ``params`` (d = n dealers,
+    v3k) against their twins at the shapes the shards give them, every
+    output byte: kernel 4 at a shard's r (its kdim block of k/2 rows x d,
+    the CBD bound), the generator's masked planes and kernel 1's masked
+    form (6-word seeds, c1's bound) at a recv-row-0 c1 shard (k rows, kdim
+    block k/2, d columns) on each kdim block's rows and on rows straddling
+    both, kernel 1 bare at a c2 shard of the bake route (n/2 rows, kdim
+    block k/2, d columns) and the residue-noise generator at the bake
+    route's block (n/4 rows at the last block's row offset 3n/4, d columns,
+    c2's bound). Each kernel's output is made whole; its twin runs on
+    :data:`MESH_TWIN_COLS` dealer columns at a time (the residue noise's on
+    :data:`MESH_TWIN_ROWS` rows), so that it fits beside it at n = 8192.
+    Random operands from a seed. -> the worst difference by kernel."""
     import torch
 
+    from pvw_tpu_torch import random as R
     from pvw_tpu_torch.ops import fused_modmat as fm
     from pvw_tpu_torch.ops.ntt import signed_digit_count
     from pvw_tpu_torch.sampling.cbd import cbd_bound
 
     ring, k, n, l = params.ring, params.k, params.n, params.l
-    d, kc, nl, b1 = n, k // 2, n // 2, params.error_bound_1
+    d, kc, nl, b1, b2 = n, k // 2, n // 2, params.error_bound_1, params.error_bound_2
     gen = torch.Generator(device=dev).manual_seed(15)
-    worst = {fm.PRESCALE_KERNEL: 0, fm.NOISE_KERNEL: 0, fm.MASKED_KERNEL: 0, BARE: 0}
+    worst = {fm.PRESCALE_KERNEL: 0, fm.NOISE_KERNEL: 0, fm.MASKED_KERNEL: 0, BARE: 0,
+             fm.RESIDUE_NOISE_KERNEL: 0}
 
-    def held(kernel: str, shape: str, got, want) -> None:
-        err = max_abs_err(got, want)
+    def by_columns(got, twin):
+        """(got's dealer columns [c0, c1), twin(c0, c1)), block by block."""
+        return ((got[..., c0:c0 + MESH_TWIN_COLS], twin(c0, c0 + MESH_TWIN_COLS))
+                for c0 in range(0, got.shape[-1], MESH_TWIN_COLS))
+
+    def held(kernel: str, shape: str, pairs) -> None:
+        err = max(max_abs_err(got, want) for got, want in pairs)
         emit({"phase": "multiprocess_vs_plain", "kernel": kernel, "shape": shape,
               "nd": ring.num_digits, "compared": "every output", "bit_exact": err == 0,
               "max_abs_err": err})
@@ -3054,26 +3083,37 @@ def mesh_kernels_vs_plain(params, dev) -> dict:
 
     bound = cbd_bound(params.secret_variance)
     c = r_coeffs(kc, d, l, bound, gen, dev)
-    held(fm.PRESCALE_KERNEL, f"r k={kc} d={d}", fm.ntt_prescale_band(c, ring, bound),
-         fm.ntt_prescale_band_plain(c, ring, bound))
+    held(fm.PRESCALE_KERNEL, f"r k={kc} d={d}", by_columns(
+        fm.ntt_prescale_band(c, ring, bound),
+        lambda c0, c1: fm.ntt_prescale_band_plain(c[:, c0:c1], ring, bound)))
     del c
     lhs_dig, band, *_ = operands(ring, k, kc, d, 1, None, gen, dev)
     for lo, hi in ((0, kc), (kc, k), (k // 4, 3 * k // 4)):
         rows = f"c1 m={k} kc={kc} n={d}, rows [{lo}, {hi})"
         planes = fm.v3k_noise_planes_plain(*V3K_KEY, 0, k, d, l, b1, 0, dev, mask=(lo, hi))
         held(fm.NOISE_KERNEL, rows,
-             fm.v3k_noise_planes(*V3K_KEY, 0, k, d, l, b1, 0, dev, mask=(lo, hi)), planes)
+             [(fm.v3k_noise_planes(*V3K_KEY, 0, k, d, l, b1, 0, dev, mask=(lo, hi)), planes)])
         g = ((*V3K_KEY, 0, lo, hi, 0), signed_digit_count(b1), b1, "tfry")
-        held(fm.MASKED_KERNEL, rows,
-             fm.matmul_fold_scaled(None, band, ring, lhs_dig=lhs_dig, gen_noise=g,
-                                   noise_bound=b1),
-             fold_plain_by_limb(ring, band, lhs_dig, planes, mask=(0, lo, hi)))
+        held(fm.MASKED_KERNEL, rows, by_columns(
+            fm.matmul_fold_scaled(None, band, ring, lhs_dig=lhs_dig, gen_noise=g,
+                                  noise_bound=b1),
+            lambda c0, c1: fold_plain_by_limb(ring, band[..., c0:c1], lhs_dig,
+                                              planes[..., c0:c1], mask=(0, lo, hi))))
         del planes
-    lhs_dig, band, *_ = operands(ring, nl, kc, d, 1, None, gen, dev)
-    held(BARE, f"c2 m={nl} kc={kc} n={d}", fm.matmul_fold_scaled(None, band, ring,
-                                                                  lhs_dig=lhs_dig),
-         fold_plain_by_limb(ring, band, lhs_dig))
     del lhs_dig, band
+    lhs_dig, band, *_ = operands(ring, nl, kc, d, 1, None, gen, dev)
+    held(BARE, f"c2 m={nl} kc={kc} n={d}", by_columns(
+        fm.matmul_fold_scaled(None, band, ring, lhs_dig=lhs_dig),
+        lambda c0, c1: fold_plain_by_limb(ring, band[..., c0:c1], lhs_dig)))
+    del lhs_dig, band
+    torch.cuda.empty_cache()
+    kk, blk, row_off = R.fold_in(R.key(15), 2), nl // 2, 3 * n // 4
+    got = fm.residue_noise_ch(kk, row_off, blk, d, b2, ring, dev)
+    held(fm.RESIDUE_NOISE_KERNEL, f"c2 bake block rows={blk} at {row_off} cols={d}",
+         ((got[:, :, r0:r0 + MESH_TWIN_ROWS], fm.residue_noise_ch_plain(
+             kk, row_off + r0, min(MESH_TWIN_ROWS, blk - r0), d, b2, ring, dev))
+          for r0 in range(0, blk, MESH_TWIN_ROWS)))
+    del got
     torch.cuda.empty_cache()
     return worst
 
@@ -3089,7 +3129,8 @@ def phase_multiprocess(card: str, devices=None) -> tuple[dict, dict]:
     otherwise). Gates, per rank: kernel 4 and kernel 1 bare (c2's bake
     route); on recv row 0, kernel 1 masked and the v3k generator (c1); one
     device decode on each recv row's head. First, the shards' kernels
-    against their twins (:func:`mesh_kernels_vs_plain`) and, for
+    against their twins (:func:`mesh_kernels_vs_plain`, at this system and
+    at the ``ref128-n8192-mesh4`` cell's, n = :data:`MESH_N`) and, for
     comparison, the same system's in-process (2, 2) mesh over ``devices``
     (default ``cuda:0`` four times), ``torch.equal`` to the single-device
     encryption. Returns the path's launches, summed over ranks, and the
@@ -3107,6 +3148,8 @@ def phase_multiprocess(card: str, devices=None) -> tuple[dict, dict]:
     dev = devices[0]
     params = presets.secure_128_reference(REF_N)
     worst = mesh_kernels_vs_plain(params, dev)
+    for name, err in mesh_kernels_vs_plain(presets.secure_128_reference(MESH_N), dev).items():
+        worst[name] = max(worst[name], err)
     times = {}
     gpk, _, vectors, enc_key = timed(times, "system_ms",
                                      lambda: mp.build_system(params, REF_N, dev))
@@ -3166,6 +3209,95 @@ def phase_multiprocess(card: str, devices=None) -> tuple[dict, dict]:
                                        "times_ms", "peak_gb")} for r in ranks],
           "max_abs_err": worst, "launches": total})
     return {"launches": total}, worst
+
+
+def mesh_service_inputs(view) -> dict:
+    """The inputs of :func:`phase_mesh_service`'s ranks
+    (``MeshService``'s input function, loaded by path on every rank): its
+    recv rows' secret coefficients in the CBD range and one slot of uniform
+    u64 scalars, drawn on the rank from the seed and the row."""
+    import torch
+
+    from pvw_tpu_torch.sampling.cbd import cbd_bound
+
+    p, seed = view.params, view.args["seed"]
+    bound = cbd_bound(p.secret_variance)
+    coeffs, slot = {}, {}
+    for r, (lo, hi) in view.rows.items():
+        gen = torch.Generator(device=view.device).manual_seed(seed + r)
+        coeffs[r] = torch.randint(-bound, bound + 1, (hi - lo, p.k, p.l), generator=gen,
+                                  device=view.device, dtype=torch.int32)
+        slot[r] = np.random.default_rng([seed, r]).integers(
+            0, 2**64 - 1, size=(p.n, hi - lo), dtype=np.uint64, endpoint=True)
+    return {"coeffs": coeffs, "pool": [slot]}
+
+
+def phase_mesh_service(card: str) -> dict | None:
+    """The served (2, 2) mesh (``parallel.multiprocess.MeshService``) at
+    the ``ref128-n8192-mesh4`` cell's configuration:
+    ``secure_128_reference(MESH_N)`` under v3k, n dealers a round, 4 ranks a
+    card each over NCCL (this process rank 0 on ``cuda:0``), each holding
+    its recv row's keys alone (:func:`mesh_service_inputs`). One warm round,
+    every rank's launch counts set to 0, one round, the counts read. Gates,
+    per rank: kernel 4; kernel 1 bare and the residue-noise generator (c2's
+    bake route on every shard); kernel 1 masked and the v3k generator on
+    recv row 0 and neither on recv row 1; no other kernel. Needs
+    :data:`MULTIPROC_WORLD` cards: with fewer it emits a skip and returns
+    None, else the launches summed over ranks."""
+    from pathlib import Path
+
+    import torch
+
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.ops import fused_modmat as fm
+    from pvw_tpu_torch.parallel import multiprocess as mp
+    from pvw_tpu_torch.params import presets
+
+    cards = torch.cuda.device_count()
+    if cards < MULTIPROC_WORLD:
+        emit({"phase": "mesh_service_path", "card": card,
+              "skipped": f"needs {MULTIPROC_WORLD} cards, {cards} visible"})
+        return None
+    params, seed = presets.secure_128_reference(MESH_N), 21
+    key = R.key(seed)
+    times = {}
+    t0 = time.perf_counter()
+    settings.noise_stream = "v3k"
+    try:
+        svc = mp.MeshService(params, R.fold_in(key, 1), R.fold_in(key, 2),
+                             f"{Path(__file__).resolve()}:mesh_service_inputs", {"seed": seed},
+                             world=MULTIPROC_WORLD, device="cuda",
+                             settings={"noise_stream": "v3k"})
+        try:
+            times["setup_ms"] = (time.perf_counter() - t0) * 1e3
+            timed(times, "warm_round_ms", lambda: svc.round(0, 0, R.fold_in(key, 3)))
+            svc.launches(reset=True)
+            timed(times, "round_ms", lambda: svc.round(1, 0, R.fold_in(key, 4)))
+            ranks = svc.launches()
+            layout = svc.layout
+            peak_gb = torch.cuda.max_memory_allocated(0) / 1e9
+        finally:
+            svc.close()
+    finally:
+        del settings.noise_stream
+    check(svc.backend == "nccl", f"the served mesh ran over {svc.backend}")
+    expected = {fm.KERNEL, fm.PRESCALE_KERNEL, BARE, fm.RESIDUE_NOISE_KERNEL}
+    row0 = {fm.MASKED_KERNEL, fm.NOISE_KERNEL}
+    total = {name: 0 for name in launches()}
+    for rank, ran in enumerate(ranks):
+        on_row0 = any(r == 0 for r, _ in layout.shards(rank))
+        for name, count in ran.items():
+            want = name in expected or (on_row0 and name in row0)
+            check(count > 0 if want else count == 0,
+                  f"rank {rank} (recv row {layout.shards(rank)[0][0]}): {name} launched "
+                  f"{count} times in a served round")
+            total[name] += count
+    emit({"phase": "mesh_service_path", "card": card, "preset": "secure_128_reference",
+          "n": params.n, "k": params.k, "dealers": params.n, "world": MULTIPROC_WORLD,
+          "mesh": [layout.recv, layout.kdim], "backend": svc.backend, "stream": "v3k", **times,
+          "rank0_peak_gb": peak_gb, "rank_launches": ranks, "launches": total})
+    return {"launches": total}
 
 
 def phase_num_digits(dev, card: str, ctx) -> tuple[dict, dict]:
@@ -3407,6 +3539,14 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     card = card_line()
+    if sys.argv[1:] == ["mesh_service"]:
+        print(card, flush=True)
+        emit({"phase": "device", "card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
+        check(phase_mesh_service(card) is not None,
+              f"mesh_service needs {MULTIPROC_WORLD} cards")
+        emit({"ok": True})
+        return 0
     t0 = time.perf_counter()
     _build.build_all([fm.KERNEL, fm.PRESCALE_KERNEL, fm.NOISE_KERNEL, fm.PIPELINED_KERNEL,
                       fm.BANDED_KERNEL, fm.DIGITS_KERNEL, FOLD_ONLY_KERNEL,
@@ -3506,6 +3646,9 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
     paths["multiprocess_path"], mesh_worst = phase_multiprocess(card)
+    served = phase_mesh_service(card)
+    if served is not None:
+        paths["mesh_service_path"] = served
     paths["pipelined_path"], ctx = phase_dealer_path(
         "pipelined_path", presets.pvss_8192(N_RECEIVERS), dev, card, 9, "v3k",
         full_parties=(0, N_RECEIVERS - 1), route="pipelined", config="toy chain")
@@ -3548,7 +3691,7 @@ def main() -> int:
                      "none: XLA code (pvw_tpu/sampling/uniform.py:141, pvw_tpu/ops/ntt.py:80)",
                      "sample_uniform_residues_rows + ntt_forward (new)",
                      by_path[fm.RESIDUE_NOISE_KERNEL],
-                     residue_worst,
+                     max(residue_worst, mesh_worst[fm.RESIDUE_NOISE_KERNEL]),
                      residue_timing["reference c2"], residue_timing["config-4 c2"], card,
                      raw_ms=residue_timing["reference c2"]["raw_ms"],
                      wrapper_host_us=residue_timing["reference c2"]["wrapper_host_us"],

@@ -80,6 +80,32 @@ def _keygen_chunk_size(params: PvwParameters) -> int:
     return chunk
 
 
+def _keygen_rows(params: PvwParameters, a_res, coeffs, key, cb: int, lo: int):
+    """:func:`_batch_keygen_kernel` over chunks of the parties [lo, lo + p)
+    (coeffs [p, k, l]), each chunk's e1 keyed by its global rows -> [p, k, L, l]."""
+    chunk = _keygen_chunk_size(params)
+    parts = [_batch_keygen_kernel(params, a_res, coeffs[s:s + chunk], key, cb, lo + s)
+             for s in range(0, coeffs.shape[0], chunk)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _device_coeff_bound(params: PvwParameters, coeff_bound: int | None) -> int:
+    """The keygen kernel's bound bucket (127 / 32639 / as given) of device
+    keygen, the CBD bound of the variance by default; raises where
+    error_bound_1 >= the smallest modulus (the host-sampling path is
+    ``generate_all_keys``' alone, the JAX package's rule)."""
+    from ..sampling.cbd import cbd_bound
+
+    if params.error_bound_1 >= min(params.ring.moduli):
+        raise InvalidParameters(
+            f"error_bound_1 {params.error_bound_1:#x} >= smallest "
+            "modulus: device keygen unsupported, use generate_all_keys"
+        )
+    if coeff_bound is None:
+        coeff_bound = cbd_bound(params.secret_variance)
+    return next((b for b in (127, 32639) if coeff_bound <= b), coeff_bound)
+
+
 class Party:
     """A protocol participant: index + secret key (``public_key.rs:17-22``)."""
 
@@ -173,6 +199,55 @@ class PublicKey:
         return public_key_from_bytes(data, device=device)
 
 
+class PublicKeyRows:
+    """Rows [lo, hi) of the global public key B, made and held without the
+    other rows: one recv row's block of a mesh across processes. Batch
+    keygen of the range from the range's own secret coefficients, e1 keyed
+    by global row, so the rows are byte for byte the same rows of
+    :class:`GlobalPublicKey`'s matrix. :meth:`encrypt_operands` gives a
+    shard's operands: the digit planes of a k-column block of the rows, and
+    of A."""
+
+    def __init__(self, crs: PvwCrs, lo: int, rows: torch.Tensor) -> None:
+        params = crs.params
+        hi = lo + rows.shape[0]
+        if not 0 <= lo < hi <= params.n or tuple(rows.shape[1:]) != (
+                params.k, params.ring.num_limbs, params.ring.degree):
+            raise InvalidParameters(
+                f"rows [{lo}, {hi}) of shape {tuple(rows.shape)}: not a block of "
+                f"the n={params.n} x k={params.k} key")
+        self.crs, self.params, self.lo, self.hi = crs, params, lo, hi
+        self.matrix = Poly(rows, Representation.Ntt, params.ring)    # batch (hi - lo, k)
+
+    @classmethod
+    def generate_device(cls, crs: PvwCrs, coeffs: torch.Tensor, key, lo: int,
+                        coeff_bound: int | None = None) -> "PublicKeyRows":
+        """Keys of the parties [lo, lo + p) from their secret coefficients
+        (int32 [p, k, l]), as :meth:`GlobalPublicKey.generate_all_keys_device`
+        makes those rows (``coeff_bound`` likewise)."""
+        params = crs.params
+        cb = _device_coeff_bound(params, coeff_bound)
+        return cls(crs, lo, _keygen_rows(params, crs.matrix.res, coeffs.to(crs.device), key,
+                                         cb, lo).contiguous())
+
+    def encrypt_operands(self, k_block: tuple[int, int] | None = None,
+                         with_a: bool = False):
+        """(A's planes or None, B's planes) over the k columns ``k_block`` =
+        (first, count) (default all k): channel-major int8 digit planes
+        [L, l, k, count*nd] of A (with ``with_a``) and [L, l, hi - lo,
+        count*nd] of these rows, k-major and digit-minor, laid out for the
+        Hopper kernels (:func:`~pvw_tpu_torch.ops.modmat.k_rows`); the same
+        bytes as that block of columns of :meth:`GlobalPublicKey.
+        encrypt_operands`. Made at each call."""
+        c0, kc = (0, self.params.k) if k_block is None else k_block
+        ring = self.params.ring
+
+        def planes(x):
+            return modmat.k_rows(modmat.lhs_digit_planes(x[:, c0:c0 + kc].contiguous(), ring))
+
+        return (planes(self.crs.matrix.res) if with_a else None), planes(self.matrix.res)
+
+
 class GlobalPublicKey:
     """The n x k matrix B of every party's key row (``public_key.rs:42-54``)."""
 
@@ -257,26 +332,12 @@ class GlobalPublicKey:
         [p, k, l], p <= n, indices 0..p-1): the same values as
         :meth:`generate_all_keys` on SecretKeys of those coefficients.
         ``coeff_bound`` defaults to the CBD bound of the variance."""
-        from ..sampling.cbd import cbd_bound
-
         if coeffs.shape[0] > self.params.n:
             raise InvalidParameters(
                 f"Too many secret keys: {coeffs.shape[0]} > {self.params.n}"
             )
-        if self.params.error_bound_1 >= min(self.params.ring.moduli):
-            # the JAX package's rule: the host-sampling path is
-            # generate_all_keys' alone
-            raise InvalidParameters(
-                f"error_bound_1 {self.params.error_bound_1:#x} >= smallest "
-                "modulus: device keygen unsupported, use generate_all_keys"
-            )
-        if coeff_bound is None:
-            coeff_bound = cbd_bound(self.params.secret_variance)
-        for b in (127, 32639):
-            if coeff_bound <= b:
-                coeff_bound = b
-                break
-        self._place_rows(self._products(coeffs.to(self.device), key, coeff_bound),
+        cb = _device_coeff_bound(self.params, coeff_bound)
+        self._place_rows(self._products(coeffs.to(self.device), key, cb),
                          list(range(coeffs.shape[0])))
 
     def _batch_generate(self, secret_keys: list[SecretKey], indices: list[int],
@@ -297,15 +358,8 @@ class GlobalPublicKey:
         self._place_rows(b, indices)
 
     def _products(self, coeffs, key, cb: int):
-        """:func:`_batch_keygen_kernel` over party chunks -> [p, k, L, l]."""
-        a_res = self.crs.matrix.res
-        chunk = _keygen_chunk_size(self.params)
-        parts = [
-            _batch_keygen_kernel(self.params, a_res, coeffs[s:s + chunk],
-                                 key, cb, s)
-            for s in range(0, coeffs.shape[0], chunk)
-        ]
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+        """:func:`_keygen_rows` from row 0 -> [p, k, L, l]."""
+        return _keygen_rows(self.params, self.crs.matrix.res, coeffs, key, cb, 0)
 
     def _place_rows(self, b, indices: list[int]) -> None:
         """Rows ``indices`` of B set to ``b``, in a new tensor."""

@@ -105,6 +105,11 @@ def _modsum_gathered(parts: list, ring, device):
     return acc
 
 
+def _plain(name: str, fn):
+    """The shards' default stage hook: the step alone, in no span of its own."""
+    return fn()
+
+
 def _noise_ntt(params: PvwParameters, kk, row_off: int, rows: int, d: int, bound: int,
                stream: str | None, device):
     """Row-keyed noise of global rows [row_off, row_off + rows) as NTT
@@ -134,7 +139,7 @@ def _bake_rows(part, block, row0: int, rows: int, ring):
 
 def _shard_product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, row_off: int,
                    bound: int, host_e, sc, encode32: bool, kd: int, my_k: int,
-                   force_masked: bool, stream: str | None, device):
+                   force_masked: bool, stream: str | None, device, stage=_plain):
     """One shard's partial of a product over the global rows [row_off,
     row_off + rows), with the encode of ``sc`` [d, rows] (c2's; None for
     c1's). At whole k (kd = 1) it is :func:`_product`, as on a single
@@ -145,50 +150,59 @@ def _shard_product(params: PvwParameters, r_op, lhs_dig, kk, rows: int, row_off:
     generator draws the noise, else by the bake route (a bare product padded
     to kd blocks, the block's noise and encode added in plain torch; the
     tail block may reach past the rows, sliced off after the gather); host
-    noise then joins after the gather (:func:`_finish_row`)."""
+    noise then joins after the gather (:func:`_finish_row`). ``stage(name,
+    fn)`` runs the steps: "products" (kernel 1, with whatever
+    :func:`_product` draws for it), then on the bake route "bake"."""
     blk = -(-rows // kd)
     lo = my_k * blk
     mask = None if kd == 1 and not force_masked else (row_off + lo, row_off + lo + blk)
     if kd == 1 or (host_e is None and _gen_noise(kk, bound, stream, device, row_off,
                                                  mask=mask) is not None):
         encode = None if sc is None else (sc.t().contiguous(), _encode_table(params, device))
-        return _product(params, r_op, lhs_dig, kk, rows, bound, stream,
-                        None if kd > 1 or host_e is None else host_e.to(device), encode,
-                        encode32, row_off=row_off, mask=mask)
+        return stage("products", lambda: _product(
+            params, r_op, lhs_dig, kk, rows, bound, stream,
+            None if kd > 1 or host_e is None else host_e.to(device), encode, encode32,
+            row_off=row_off, mask=mask))
     ring = params.ring
-    part = matmul_fold_scaled(None, r_op, ring, lhs_dig=lhs_dig)
-    pad = blk * kd - rows
-    if pad:
-        part = torch.nn.functional.pad(part, (0, 0, 0, pad))
-    if host_e is None:
-        part = _bake_rows(part, _noise_ntt(params, kk, row_off + lo, blk, r_op.shape[-1],
-                                           bound, stream, device), lo, blk, ring)
-    if sc is not None:
-        sc_p = torch.nn.functional.pad(sc, (0, pad)) if pad else sc
-        part = _bake_rows(part, _encode_channel_major(params, sc_p[:, lo:lo + blk]), lo, blk,
-                          ring)
-    return part
+    part = stage("products", lambda: matmul_fold_scaled(None, r_op, ring, lhs_dig=lhs_dig))
+
+    def bake(part):
+        pad = blk * kd - rows
+        if pad:
+            part = torch.nn.functional.pad(part, (0, 0, 0, pad))
+        if host_e is None:
+            part = _bake_rows(part, _noise_ntt(params, kk, row_off + lo, blk, r_op.shape[-1],
+                                               bound, stream, device), lo, blk, ring)
+        if sc is not None:
+            sc_p = torch.nn.functional.pad(sc, (0, pad)) if pad else sc
+            part = _bake_rows(part, _encode_channel_major(params, sc_p[:, lo:lo + blk]), lo,
+                              blk, ring)
+        return part
+
+    return stage("bake", lambda: bake(part))
 
 
 def _shard_products(params: PvwParameters, a_dig, b_dig, sc, key, my_r: int, my_k: int,
                     kd: int, nl: int, host_e1, host_e2, force_masked: bool,
-                    stream: str | None, encode32: bool, device):
+                    stream: str | None, encode32: bool, device, stage=_plain):
     """One shard's partial c1 [L, l, k, d] (None off recv row 0) and c2
     [L, l, nl(+pad), d] (the JAX package's ``shard_fn`` up to its gathers):
-    its k block of r (:func:`_r_operand`), then the products
-    (:func:`_shard_product`)."""
+    its k block of r (:func:`_r_operand`, the step "r_stage" of ``stage``),
+    then the products (:func:`_shard_product`)."""
     kc = params.k // kd
     k_r, k_e1, k_e2 = split(key.to(device), 3)
-    r_op = _r_operand(params, k_r, (my_k * kc, kc), sc.shape[0], stream, 0, device)
+    r_op = stage("r_stage", lambda: _r_operand(params, k_r, (my_k * kc, kc), sc.shape[0],
+                                               stream, 0, device))
     # c1 over the local k block, on recv row 0 only (every row's would be the same)
     c1p = None
     if my_r == 0:
         c1p = _shard_product(params, r_op, a_dig, k_e1, params.k, 0, params.error_bound_1,
-                             host_e1, None, False, kd, my_k, force_masked, stream, device)
+                             host_e1, None, False, kd, my_k, force_masked, stream, device,
+                             stage)
     glob0 = my_r * nl
     c2p = _shard_product(params, r_op, b_dig, k_e2, nl, glob0, params.error_bound_2,
                          None if host_e2 is None else host_e2[:, :, glob0:glob0 + nl], sc,
-                         encode32, kd, my_k, force_masked, stream, device)
+                         encode32, kd, my_k, force_masked, stream, device, stage)
     return c1p, c2p
 
 

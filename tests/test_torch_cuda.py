@@ -923,6 +923,54 @@ def test_parallel_backends_over_distinct_cards(stream):
         del settings.noise_stream
 
 
+@pytest.mark.cuda
+def test_served_mesh_over_four_cards():
+    """The served (2, 2) mesh across processes, a card a rank over NCCL (this
+    process rank 0 on cuda:0) at the reference preset's chain and bounds,
+    n = 8, k = 32 (c2's bake route): two rounds and every rank's keys equal
+    to the single-device encryption of the whole system on cuda:0."""
+    from pathlib import Path
+
+    import _mesh_inputs as MI
+
+    import pvw_tpu_torch as P
+    from pvw_tpu_torch import random as R
+    from pvw_tpu_torch.config import settings
+    from pvw_tpu_torch.parallel import multiprocess as mp
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    key = R.key(2**31 + 4099)
+    k_crs, k_gen = R.fold_in(key, 1), R.fold_in(key, 2)
+    keys = [R.fold_in(key, 50 + i) for i in range(2)]
+    settings.noise_stream = "v3k"
+    try:
+        svc = mp.MeshService(MI.params(), k_crs, k_gen, f"{Path(MI.__file__).resolve()}:inputs",
+                             {"seed": 2**31 + 4099}, world=4, device="cuda",
+                             settings={"noise_stream": "v3k"}, timeout_s=120)
+        try:
+            assert svc.backend == "nccl"
+            for i, k in enumerate(keys):
+                svc.round(i, i % MI.SLOTS, k, keep=True)
+            out = svc.collect([0, 1])
+        finally:
+            svc.close()
+        assert all(p.returncode == 0 for p in svc.procs)
+        dev0 = torch.device("cuda", 0)
+        crs = P.PvwCrs.new(MI.params(), k_crs, device=dev0)
+        gpk = P.GlobalPublicKey(crs)
+        gpk.generate_all_keys_device(MI.coefficients(2**31 + 4099).to(dev0), k_gen)
+        assert all(torch.equal(c, crs.matrix.res) for c in out["crs"])
+        assert torch.equal(out["pk"], gpk.matrix.res)
+        pool = MI.pool(2**31 + 4099)
+        for i, k in enumerate(keys):
+            single = P.encrypt_batch(pool[i % MI.SLOTS], gpk, k)
+            c1, c2 = out["rounds"][i]
+            assert torch.equal(c1, single.c1.channel()) and torch.equal(c2, single.c2.channel())
+    finally:
+        del settings.noise_stream
+
+
 # --------------------------------------------------------------------------
 # kernels 1 and 3 on wgmma with a TMA ring, the k-packed band
 # --------------------------------------------------------------------------
